@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: no module of warpdemux_tpu_torch imports
+jax or the JAX package, and the package loads with jax unavailable."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parents[1] / "warpdemux_tpu_torch"
+MODULES = sorted(PKG.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "warpdemux_tpu")
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
+def test_module_imports_neither_jax_nor_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_package_loads_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['warpdemux_tpu'] = None\n"
+        "import pkgutil, importlib, warpdemux_tpu_torch\n"
+        "for m in pkgutil.walk_packages(warpdemux_tpu_torch.__path__, 'warpdemux_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from warpdemux_tpu_torch.config.utils import get_model_spc_config\n"
+        "from warpdemux_tpu_torch.models.registry import load_model\n"
+        "from warpdemux_tpu_torch.pipeline.step import make_demux_step\n"
+        "make_demux_step(load_model('WDX4_rna004_v1_0'), get_model_spc_config('WDX4_rna004_v1_0'))\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

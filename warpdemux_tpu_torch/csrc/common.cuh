@@ -1,0 +1,59 @@
+// Shared helpers of the hand-written Hopper kernels.
+//
+// Every kernel file exposes a plain C entry point (no PyTorch headers, so the
+// whole library builds with one short nvcc call) that takes device pointers,
+// sizes and the CUDA stream, launches, and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch. The library is compiled with
+// -fmad=false, so the compiler fuses no multiply-add on its own: the kernels
+// call __fmaf_rn exactly where XLA:CPU fuses one in the JAX package's
+// program, and threshold compares downstream see the same rounding.
+#pragma once
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define WDX_API extern "C" __attribute__((visibility("default")))
+
+// Monotone int32 image of float32 (total order; -0.0 < +0.0).
+__device__ __forceinline__ int wdx_order_key(float f) {
+  int i = __float_as_int(f);
+  return i >= 0 ? i : (i ^ 0x7FFFFFFF);
+}
+
+__device__ __forceinline__ float wdx_key_to_float(int k) {
+  int i = k >= 0 ? k : (k ^ 0x7FFFFFFF);
+  return __int_as_float(i);
+}
+
+struct WdxSum {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
+};
+
+struct WdxMin {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a < b ? a : b; }
+};
+
+// Block-wide reduction of one int per thread; every thread gets the result.
+// blockDim.x must be a multiple of 32. Safe to call back to back.
+template <typename Op>
+__device__ int wdx_block_reduce(int v, Op op, int identity) {
+  __shared__ int partial[32];
+  __shared__ int result;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    v = lane < n_warps ? partial[lane] : identity;
+    for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) result = v;
+  }
+  __syncthreads();
+  const int r = result;
+  __syncthreads();
+  return r;
+}

@@ -1,0 +1,96 @@
+"""CNN region prior of the [cnn_boundaries] detect method.
+
+Port of warpdemux_tpu/detect/cnn.py: the calibrated signal is mean-pooled
+by `downscale_factor`, normalized per read (median/MAD over the valid
+lanes), and a dilated 1-D conv stack (layer i dilated 2**i, the last a 1x1
+projection to {adapter, polyA, RNA}) emits per-position logits; argmax ==
+polyA, morphologically closed, is the region prior that gates the poly(A)
+search in detect/boundaries.py.
+
+The convolutions are torch.nn.functional.conv1d (the JAX package leaves
+them to XLA, not to a Pallas kernel). TF32 is switched off inside
+`BoundaryCNN.forward`: cuDNN would otherwise run float32 convolutions in
+TF32 on the GPU, and the logits' argmax gates the detector.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from warpdemux_tpu_torch.ops.normalize import masked_mad, masked_median
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class BoundaryCNN(nn.Module):
+    """Dilated conv stack; weights w{i} (out, in, k) and biases b{i} are
+    buffers taken from the reference npz bundle."""
+
+    def __init__(self, weights: list[torch.Tensor], biases: list[torch.Tensor]):
+        super().__init__()
+        self.n_layers = len(weights)
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            self.register_buffer(f"w{i}", w)
+            self.register_buffer(f"b{i}", b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, Lds) normalized signal -> (B, Lds, 3) logits."""
+        h = x[:, None, :]
+        with _no_tf32():
+            for i in range(self.n_layers):
+                w = getattr(self, f"w{i}")
+                k = w.shape[2]
+                d = 2**i if k > 1 else 1
+                h = F.conv1d(
+                    h, w, getattr(self, f"b{i}"), padding=(k - 1) * d // 2,
+                    dilation=d,
+                )
+                if i < self.n_layers - 1:
+                    h = torch.relu(h)
+        return h.transpose(1, 2)
+
+
+def preprocess(signals: torch.Tensor, in_lens: torch.Tensor, ds: int):
+    """Mean-pool by ds and normalize per read (median/MAD over valid lanes).
+
+    Returns (xds (B, Lds), valid_ds (B, Lds) bool)."""
+    B, L = signals.shape
+    Lds = L // ds
+    pooled = signals[:, : Lds * ds].reshape(B, Lds, ds)
+    xds = pooled.sum(dim=2, dtype=torch.float64).to(torch.float32) / ds
+    pos = torch.arange(Lds, device=signals.device)
+    valid = pos[None, :] < (in_lens // ds)[:, None]
+    med = masked_median(xds, valid)
+    mad = masked_mad(xds, valid, med)
+    xn = (xds - med[:, None]) / torch.clamp_min(mad[:, None], 1e-3)
+    return torch.where(valid, xn, torch.zeros_like(xn)), valid
+
+
+def polya_mask_from_logits(
+    logits: torch.Tensor, valid: torch.Tensor, close_gap: int = 2
+) -> torch.Tensor:
+    """(B, Lds) bool mask of predicted-polyA positions, with gaps of up to
+    ~2*close_gap closed (dilation, then erosion, window 2*close_gap + 1)."""
+    is_pa = (torch.argmax(logits, dim=-1) == 1) & valid
+    if close_gap:
+        w = 2 * close_gap + 1
+        f = is_pa.to(torch.float32)[:, None, :]
+        # out-of-range lanes count as False for the dilation and as True
+        # for the erosion (max_pool1d pads with -inf)
+        dil = F.max_pool1d(f, w, stride=1, padding=close_gap)
+        ero = -F.max_pool1d(-dil, w, stride=1, padding=close_gap)
+        is_pa = (ero[:, 0, :] > 0) & valid
+    return is_pa

@@ -1,0 +1,63 @@
+"""Batched DTW + precomputed-kernel SVM classifier.
+
+Port of warpdemux_tpu/models/dtw_svm.py as an nn.Module whose arrays are
+buffers: DTW distances against the support-vector fingerprints (kernel K1
+on CUDA), the exp kernel, one-vs-one decision values, Platt + Wu-Lin
+probabilities and the argmax / margin / threshold post-processing, for a
+whole minibatch at once.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from warpdemux_tpu_torch.ops import svm as svm_ops
+from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
+
+
+class DTWSVMModel(nn.Module):
+    def __init__(
+        self,
+        X_sv: torch.Tensor,
+        coef: torch.Tensor,
+        intercept: torch.Tensor,
+        probA: torch.Tensor,
+        probB: torch.Tensor,
+        label_map: torch.Tensor,
+        thresholds: torch.Tensor,
+        n_classes: int,
+        window: int,
+        penalty: float,
+        gamma: float,
+        pwr_dist: int,
+        name: str = "",
+    ):
+        super().__init__()
+        self.register_buffer("X_sv", X_sv)  # (n_sv, m) support vectors
+        self.register_buffer("coef", coef)  # (n_sv, P)
+        self.register_buffer("intercept", intercept)  # (P,)
+        self.register_buffer("probA", probA)
+        self.register_buffer("probB", probB)
+        self.register_buffer("label_map", label_map)  # (k,) int32
+        self.register_buffer("thresholds", thresholds)  # (k,)
+        self.n_classes = int(n_classes)
+        self.window = int(window)
+        self.penalty = float(penalty)
+        self.gamma = float(gamma)
+        self.pwr_dist = int(pwr_dist)
+        self.name = name
+
+    @property
+    def params(self) -> svm_ops.SVMParams:
+        return svm_ops.SVMParams(
+            self.coef, self.intercept, self.probA, self.probB, self.n_classes
+        )
+
+    def forward(self, fpts: torch.Tensor):
+        """(B, m) fingerprints -> (pred (B,) int32, conf (B,), probs (B, k))."""
+        D = dtw_distance_matrix(fpts, self.X_sv, self.window, self.penalty)
+        K = svm_ops.pdist_kernel(D, self.gamma, self.pwr_dist)
+        probs = svm_ops.predict_proba(K, self.params)
+        pred, conf = svm_ops.process_probs(probs, self.label_map, self.thresholds)
+        return pred, conf, probs

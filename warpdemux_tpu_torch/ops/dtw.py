@@ -1,0 +1,81 @@
+"""Banded DTW distance matrices with dtaidistance-2.3.13 semantics.
+
+Port of warpdemux_tpu/ops/dtw.py. Every query fingerprint (length m = 25)
+is compared with every reference fingerprint of the model:
+
+- local cost d(i, j) = (s1[i] - s2[j])**2,
+- D[i+1, j+1] = d(i, j) + min(D[i, j], D[i, j+1] + p, D[i+1, j] + p)
+  with p = penalty**2, D[0, 0] = 0 and +inf elsewhere,
+- Sakoe-Chiba band |i - j| <= window - 1 (equal lengths),
+- result sqrt(D[m, m]).
+
+CUDA tensors go to kernel K1 (csrc/dtw.cu, one thread per pair); CPU
+tensors go to the plain anti-diagonal wavefront, the same recurrence as the
+jnp version. Each cell is one fused multiply-add, (q_i - r_j)^2 + best,
+rounded once, as XLA:CPU contracts it; the final square root is correctly
+rounded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from warpdemux_tpu_torch import _cuda
+from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma
+
+
+def dtw_distance_matrix_plain(
+    X: torch.Tensor, Y: torch.Tensor, window: int = 15, penalty: float = 0.1
+) -> torch.Tensor:
+    """(B, m) x (N, m) -> (B, N) distances, anti-diagonal wavefront."""
+    B, m = X.shape
+    N, m2 = Y.shape
+    if m != m2:
+        raise ValueError("query and reference fingerprints must have equal length")
+    dev, dtype = X.device, X.dtype
+    p = torch.tensor(penalty * penalty, dtype=dtype, device=dev)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    iarr = torch.arange(m, device=dev)  # cell index along a diagonal == i
+    Xb = X[:, None, :]  # (B, 1, m)
+
+    def shift_i(a):  # a[..., i-1] with +inf shifted into i = 0
+        return torch.cat([inf.expand(a.shape[:-1] + (1,)), a[..., :-1]], dim=-1)
+
+    d2 = inf.expand(B, N, m)  # diagonal k-2
+    d1 = inf.expand(B, N, m)  # diagonal k-1
+    for k in range(2 * m - 1):
+        j = k - iarr
+        j_ok = (j >= 0) & (j < m)
+        jc = j.clamp(0, m - 1)
+        diff = Xb - Y[:, jc][None]  # (B, N, m): q[i] - r[k - i]
+        valid = j_ok & ((iarr - jc).abs() <= window - 1) & (iarr <= min(k, m - 1))
+        up = shift_i(d1) + p  # (i-1, j)
+        left = d1 + p  # (i, j-1)
+        best = torch.minimum(up, left)
+        if k > 0:
+            best = torch.minimum(shift_i(d2), best)  # (i-1, j-1)
+        else:
+            best = torch.minimum(torch.zeros_like(best), best)  # D[0, 0] = 0
+        d2, d1 = d1, torch.where(valid, fma(diff, diff, best), inf)
+    return exact_sqrt(d1[..., m - 1])
+
+
+def dtw_distance_matrix(
+    X: torch.Tensor, Y: torch.Tensor, window: int = 15, penalty: float = 0.1
+) -> torch.Tensor:
+    """Cross DTW distance matrix; K1 on CUDA tensors, plain on CPU ones."""
+    if not _cuda.on_cuda(X, Y):
+        return dtw_distance_matrix_plain(X, Y, window, penalty)
+    B, m = X.shape
+    N = Y.shape[0]
+    if Y.shape[1] != m:
+        raise ValueError("query and reference fingerprints must have equal length")
+    X, Y = X.contiguous(), Y.contiguous()
+    _cuda.check(X, torch.float32, 2, "dtw X")
+    _cuda.check(Y, torch.float32, 2, "dtw Y")
+    out = torch.empty((B, N), dtype=torch.float32, device=X.device)
+    _cuda.launch(
+        "wdx_dtw", X.device, X.data_ptr(), Y.data_ptr(), out.data_ptr(),
+        B, N, m, int(window), float(penalty * penalty),
+    )
+    return out

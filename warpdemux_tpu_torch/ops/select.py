@@ -1,0 +1,138 @@
+"""Exact ranged medians / MADs by radix bisection (no sorts).
+
+Port of warpdemux_tpu/ops/select.py `range_median_mad`. Float32 values map
+onto int32 keys by the monotone image
+
+    key(x) = bits(x) >= 0 ? bits(x) : bits(x) ^ 0x7FFFFFFF
+
+and the k-th smallest key of a range is found by one sign-deciding count
+followed by 31 MSB-first rounds: bit b is set iff count(key < candidate)
+<= k. Medians follow numpy exactly (mean of the two middle order
+statistics for even counts, NaN for an empty range); MAD = median of
+|x - median|.
+
+CUDA tensors go to kernel K4 (csrc/select.cu, one block per (range, row));
+CPU tensors go to the plain bisection over (R, B, L) masks. The detect
+gate medians of the adc feed also come here: the JAX package's int16
+ADC-domain kernel (K8) is bit-identical to this one with the MAD off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from warpdemux_tpu_torch import _cuda
+
+_I32_MAX = 2**31 - 1
+_I32_MIN = -(2**31)
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Monotone int32 image of float32 values (total order)."""
+    i = x.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
+
+
+def keys_to_float(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of order_keys."""
+    i = torch.where(key >= 0, key, key ^ 0x7FFFFFFF)
+    return i.contiguous().view(torch.float32)
+
+
+def _masked_rank_keys(key, mask, ranks):
+    """int32 key of the rank-th smallest masked key along the last axis."""
+    cnt_neg = ((key < 0) & mask).sum(-1)
+    res = torch.where(
+        ranks < cnt_neg,
+        torch.full_like(ranks, _I32_MIN),
+        torch.zeros_like(ranks),
+    )
+    for i in range(31):
+        t = res | (1 << (30 - i))
+        cnt = ((key < t[..., None]) & mask).sum(-1)
+        res = torch.where(cnt <= ranks, t, res)
+    return res
+
+
+def median_from_keys(key, mask, n):
+    """Median (numpy semantics) from precomputed keys; n = count(mask)."""
+    lo_rank = torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)
+    lo_key = _masked_rank_keys(key, mask, lo_rank)
+    lo = keys_to_float(lo_key)
+    # upper middle: lo again iff its multiplicity covers rank n // 2, else
+    # the next larger masked key
+    cnt_le = ((key <= lo_key[..., None]) & mask).sum(-1)
+    nxt = torch.where(
+        (key > lo_key[..., None]) & mask, key, torch.full_like(key, _I32_MAX)
+    ).amin(-1)
+    need_next = (n % 2 == 0) & (cnt_le <= n // 2)
+    hi = torch.where(need_next, keys_to_float(nxt), lo)
+    med = torch.where(n % 2 == 1, lo, 0.5 * (lo + hi))
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def range_median_mad_plain(x, starts, ends, with_mad=True, given_meds=None, given=()):
+    """Plain version of range_median_mad over (R, B, L) masks."""
+    B, L = x.shape
+    pos = torch.arange(L, device=x.device)[None, None, :]
+    masks = (pos >= starts[..., None]) & (pos < ends[..., None])
+    n = masks.sum(-1).to(torch.int32)
+    key = order_keys(x)[None].expand_as(masks)
+    meds = median_from_keys(key, masks, n)
+    if given_meds is not None and any(given):
+        g = torch.tensor(given, dtype=torch.bool, device=x.device)[:, None]
+        meds = torch.where(g, given_meds.to(torch.float32), meds)
+    if not with_mad:
+        return meds, None
+    y = (x[None] - meds[..., None]).abs()
+    return meds, median_from_keys(order_keys(y), masks, n)
+
+
+def range_median_mad(
+    x: torch.Tensor,
+    starts: torch.Tensor,
+    ends: torch.Tensor,
+    with_mad: bool = True,
+    given_meds: torch.Tensor | None = None,
+    given: tuple = (),
+):
+    """Exact median (+ MAD) over R contiguous [start, end) ranges per row.
+
+    Args:
+      x: (B, L) float32.
+      starts, ends: (R, B) int (clamped to [0, L]).
+      given_meds / given: optional (R, B) precomputed medians and per-range
+        flags; flagged ranges pass given_meds through and only search the MAD.
+    Returns:
+      (meds (R, B) float32, mads (R, B) float32 or None).
+    """
+    starts = starts.to(torch.int32)
+    ends = ends.to(torch.int32)
+    if not _cuda.on_cuda(x, starts, ends):
+        return range_median_mad_plain(x, starts, ends, with_mad, given_meds, given)
+    R, B = starts.shape
+    L = x.shape[1]
+    if ends.shape != (R, B) or x.shape[0] != B:
+        raise ValueError("starts/ends must be (R, B) for x of shape (B, L)")
+    if len(given) not in (0, R):
+        raise ValueError("given must have one flag per range")
+    x = x.contiguous()
+    starts, ends = starts.contiguous(), ends.contiguous()
+    _cuda.check(x, torch.float32, 2, "range_median_mad x")
+    given_mask = sum(1 << r for r, g in enumerate(given) if g)
+    gm = None
+    if given_mask:
+        if given_meds is None:
+            raise ValueError("given ranges need given_meds")
+        gm = given_meds.to(torch.float32).contiguous()
+        _cuda.check(gm, torch.float32, 2, "range_median_mad given_meds")
+        if gm.shape != (R, B):
+            raise ValueError("given_meds must be (R, B) like starts")
+    meds = torch.empty((R, B), dtype=torch.float32, device=x.device)
+    mads = torch.empty((R, B), dtype=torch.float32, device=x.device)
+    _cuda.launch(
+        "wdx_range_median_mad", x.device, x.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), None if gm is None else gm.data_ptr(), given_mask,
+        int(with_mad), meds.data_ptr(), mads.data_ptr(), R, B, L,
+    )
+    return (meds, mads) if with_mad else (meds, None)
