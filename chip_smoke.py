@@ -9,17 +9,27 @@ Phases (each raises on failure; nothing is caught):
 
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels of csrc/ from source.
-2. For each kernel K1-K7, on numpy-seeded inputs at the decision step's
-   shapes (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and
-   2601 support vectors), compare the kernel with its plain PyTorch version
-   on the card and time both.
-3. Build the WDX4 decision step with the adc feed on the GPU, run the first
-   256 reads of bench.synth_minibatch(default_rng(0), 1000, 10000) through
-   it with every launch count at 0 beforehand, and check that every kernel
-   ran; run the same reads through the plain path on the CPU and require
-   (success, fail_code, pred) to agree on at least 255 of 256 rows and the
-   CPU result to hit the repository's pins.
-4. Time three B=1000 minibatches after one warm-up.
+2. For each kernel K1-K9, on numpy-seeded inputs at the step's shapes
+   (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
+   support vectors), compare the kernel with its plain PyTorch version on
+   the card and time both. K8 is also held against K4 and timed beside it;
+   K9 against K6 and timed beside K6 + 2 x K7 on the same inputs.
+3. Three main paths of the WDX4 step on the first 256 reads of
+   bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
+   with every launch count at 0 beforehand and read right after:
+   a. the adc feed, decision outputs: every kernel but K9 must launch;
+      (success, fail_code, pred) must agree with the CPU path on at least
+      255 of 256 rows, and the CPU result must hit the repository's pins;
+   b. the vbz feed (the reads packed into the VBZ wire by the port's numpy
+      helpers), full outputs: the GPU decode must equal the int16 reads,
+      K8 and K4 must launch, and the packed columns must agree with the CPU
+      step (integer, median and MAD columns exactly on at least 255 rows,
+      the other floats within the CPU tests' tolerances);
+   c. the adc feed, decision outputs, fused_rolling=True: K9 must launch
+      once per step and K6 and K7 never; the decisions must equal path a's
+      on every row.
+4. Reads/s of each of the three paths over three B=1000 minibatches after
+   one warm-up, in two rounds of alternating order.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -45,7 +55,10 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_shift_rows": ("K5 window gather", "window_gather.cu", "warpdemux_tpu/ops/window_gather.py:36"),
     "wdx_rolling_mean_var": ("K6 rolling mean/var", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:77"),
     "wdx_run_sum": ("K7 rolling run-sum", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:123"),
+    "wdx_range_median_adc": ("K8 ADC-domain range median", "select.cu", "warpdemux_tpu/ops/select_pallas.py:279"),
+    "wdx_rolling_detect": ("K9 fused rolling detect", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:206"),
 }
+PATHS = ("adc_decision", "vbz_full", "fused_decision")
 
 
 def time_ms(fn, reps=10):
@@ -139,16 +152,27 @@ def check_kernels(dev):
         time_ms(lambda: peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)),
     )
 
-    # K4: gate medians (R=2 over L=10000, empty ranges included) and the
-    # outlier-clip median + MAD (R=1 over A=6272)
-    adc, off, sc, _ = synth_minibatch(np.random.default_rng(2), B, L)
-    x = (t(adc).float() + t(off)[:, None]) * t(sc)[:, None]
+    # K4: gate medians (R=2 over L=10000, empty ranges included), the
+    # outlier-clip median + MAD (R=1 over A=6272) and the full step's
+    # region statistics (R=3, MAD deviations through the calibration)
+    adc16, off, sc, _ = synth_minibatch(np.random.default_rng(2), B, L)
+    adc16 = t(adc16)
+    adc16[:, :3000] = adc16[:, :3000] // 16 * 16  # heavy ties
+    off, sc = t(off), t(sc)
+    x = (adc16.float() + off[:, None]) * sc[:, None]
     starts = t(np.stack([np.zeros(B), rng.integers(0, L, B)]).astype(np.int32))
     ends = t(np.stack([rng.integers(0, 6000, B), rng.integers(0, L + 1, B)]).astype(np.int32))
+    ends[:, :50] = starts[:, :50]  # empty ranges
     a_len = n_valid[None]
     zero = torch.zeros_like(a_len)
+    s3 = torch.cat([starts, starts[1:]])
+    e3 = torch.cat([ends, torch.full_like(ends[1:], L)])
     errs = []
-    for args in ((x, starts, ends, False), (xa, zero, a_len, True)):
+    for args in (
+        (x, starts, ends, False),
+        (xa, zero, a_len, True),
+        (x, s3, e3, True, None, (), (adc16, off, sc)),
+    ):
         km, kd = select.range_median_mad(*args)
         pm, pd = select.range_median_mad_plain(*args)
         errs += [max_abs(km, pm)] + ([max_abs(kd, pd)] if args[3] else [])
@@ -158,6 +182,30 @@ def check_kernels(dev):
         "wdx_range_median_mad", max(errs),
         time_ms(lambda: select.range_median_mad(x, starts, ends, False)),
         time_ms(lambda: select.range_median_mad_plain(x, starts, ends, False)),
+    )
+
+    # K8: the same gate medians (R=2) and the adapter-level proxy (R=1)
+    # bisected over the int16 ADC counts; exact against its plain version
+    # and against K4
+    proxy = (zero.expand(1, B), torch.full((1, B), 2000, dtype=torch.int32, device=dev))
+    errs = []
+    for st, en in ((starts, ends), proxy):
+        k = select.range_medians_adc(x, adc16, st, en)
+        for want in (
+            select.range_medians_adc_plain(x, adc16, st, en),
+            select.range_median_mad(x, st, en, False)[0],
+        ):
+            require(torch.equal(k.isnan(), want.isnan()), "K8: NaN pattern differs")
+            errs.append(max_abs(k, want))
+    require(max(errs) == 0.0, f"K8: errors {errs}")
+    for (st, en), shape in (((starts, ends), "R=2"), (proxy, "R=1")):
+        k8_ms = time_ms(lambda: select.range_medians_adc(x, adc16, st, en))
+        k4_ms = time_ms(lambda: select.range_median_mad(x, st, en, False))
+        print(f"K8 {shape}: kernel_ms={k8_ms!r} beside K4 kernel_ms={k4_ms!r}")
+    record(
+        "wdx_range_median_adc", max(errs),
+        time_ms(lambda: select.range_medians_adc(x, adc16, starts, ends)),
+        time_ms(lambda: select.range_medians_adc_plain(x, adc16, starts, ends)),
     )
 
     # K5: LLR refine windows (800 of 10000) and adapter extraction
@@ -201,62 +249,200 @@ def check_kernels(dev):
         time_ms(lambda: bd.run_sum(mask, 100)),
         time_ms(lambda: bd.run_sum_plain(mask, 100)),
     )
+
+    # K9: rolling stats + both candidate run sums of the calibrated reads,
+    # a random 0/1 region (in blocks of 500 samples, so that sustained runs
+    # fall inside it) and per-row thresholds; every output exact
+    region = t(np.repeat(rng.random((B, L // 500)) < 0.5, 500, axis=1).astype(np.float32))
+    lens = t(rng.integers(3000, L + 1, B).astype(np.int32))
+    thr = 1.3 * select.range_medians_adc(x, adc16, *proxy)[0]
+    args = (x, region, thr, lens, 200, 500, 100, 30.0)
+    k = bd.rolling_detect(*args)
+    p = bd.rolling_detect_plain(*args)
+    for name, a, b in zip(("mean_f", "var_f", "var_w", "rs_plain", "rs_masked"), k, p):
+        require(torch.equal(a, b), f"K9: {name} differs from the plain version")
+    for name, a, b in zip(("mean_f", "var_f", "var_w"), k, bd.rolling_mean_var(x, 200, 500)):
+        require(torch.equal(a, b), f"K9: {name} differs from K6")
+    require(int(k[4].max()) > 0, "K9: the masked run sums are all 0")
+    print(f"K9 candidates: {int((k[3] == 100).sum())} sustained, {int((k[4] == 100).sum())} inside the region")
+
+    def unfused():  # K6 + 2 x K7 on the masks the unfused detect builds
+        m, _, vw = bd.rolling_mean_var(x, 200, 500)
+        pos = torch.arange(L, device=dev)[None, :]
+        base = (m > thr[:, None]) & (vw < 30.0) & (pos < lens[:, None]) & (pos + 100 <= lens[:, None])
+        return bd.run_sum(base, 100), bd.run_sum(base & (region > 0), 100)
+
+    require(all(torch.equal(a, b) for a, b in zip(unfused(), k[3:])), "K9: run sums differ from K6 + K7")
+    print(f"K9 beside K6 + 2 x K7 (with the mask building between them): "
+          f"K9 kernel_ms={time_ms(lambda: bd.rolling_detect(*args))!r} "
+          f"unfused_ms={time_ms(unfused)!r}")
+    record(
+        "wdx_rolling_detect", max(max_abs(a, b) for a, b in zip(k, p)),
+        time_ms(lambda: bd.rolling_detect(*args)),
+        time_ms(lambda: bd.rolling_detect_plain(*args)),
+    )
     return results
 
 
-def run_main_path(dev):
-    """Phase 3: the decision step on the GPU, held against the CPU path."""
-    import numpy as np
-    import torch
-
-    from bench import synth_minibatch
-    from warpdemux_tpu_torch import _cuda
+def _steps(dev):
+    """The three main-path steps on `dev` (and their CPU twins)."""
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
 
     spc = get_model_spc_config(MODEL)
-    gpu_step = make_demux_step(load_model(MODEL), spc, "adc", device=dev)
-    cpu_step = make_demux_step(load_model(MODEL), spc, "adc", device="cpu")
-    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
-    rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
+    kw = {
+        "adc_decision": dict(input_format="adc", outputs="decision", fused_rolling=False),
+        "vbz_full": dict(input_format="vbz", outputs="full", fused_rolling=False),
+        "fused_decision": dict(input_format="adc", outputs="decision", fused_rolling=True),
+    }
+    return {path: make_demux_step(load_model(MODEL), spc, device=dev, **kw[path]) for path in PATHS}
+
+
+def vbz_batch(adc, off, sc, lens):
+    """Reads packed into the VBZ wire with the port's numpy helpers."""
+    from bench import VBZ_WIDTH
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host
+
+    keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], adc.shape[1], VBZ_WIDTH)
+    return keys, data, off, sc, lens
+
+
+def _decisions(out):
+    succ = out.success.cpu().numpy()
+    pred = out.pred.cpu().numpy()
+    fail = out.fail_code.cpu().numpy() if hasattr(out, "fail_code") else out.unpack().fail_code
+    return succ, fail, pred
+
+
+def _check_pins(name, out):
+    succ, fail, pred = _decisions(out)
+    counts = (
+        int(succ.sum()),
+        dict(Counter(pred[succ].tolist())),
+        dict(Counter(fail[~succ].tolist())),
+    )
+    print(f"{name}: passes={counts[0]} calls={counts[1]} fails={counts[2]}")
+    return counts
+
+
+def _drive(path, step, args):
+    """One main-path run with every launch count at 0 before it."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
 
     _cuda.reset_launches()
-    out = gpu_step(*rows)
+    out = step(*args)
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
-    print(f"launches in the main-path run: {launches}")
-    for key, n in launches.items():
-        require(n > 0, f"{key} was never launched by the main path")
+    print(f"launches in the {path} run: {launches}")
+    return out, launches
 
-    ref = cpu_step(*rows)
+
+def _tolerance(name, is_int):
+    """(rtol, atol) of a full-output column GPU vs CPU; None = exact. As in
+    tests/test_torch_step_full.py: integers and order statistics exact,
+    region means / stds and probabilities to float32 summation order,
+    fingerprints and adapter event statistics to 1e-4."""
+    if is_int or name.endswith(("_med", "_mad")) or name.startswith("mvs_"):
+        return None
+    if name == "fpt" or name.startswith("adapter_event_"):
+        return (0.0, 1e-4)
+    if name.endswith(("_mean", "_std")):
+        return (1e-5, 1e-4)
+    if name == "probs":
+        return (1e-5, 1e-6)
+    raise AssertionError(f"no tolerance for column {name}")
+
+
+def _compare_full(gpu, cpu):
+    """Rows agreeing exactly on every integer, median and MAD column; the
+    other floats must be within tolerance. The fingerprint columns are held
+    where the fingerprint succeeded (an empty adapter's changepoints are
+    unspecified)."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.pipeline.schema import PackSchema
+
+    gi, gf = gpu.big_i.cpu().numpy(), gpu.big_f.cpu().numpy()
+    ci, cf = cpu.big_i.numpy(), cpu.big_f.numpy()
+    schema = PackSchema.from_buffers(ci, cf)
+    cpu_cols = {**schema.unpack(ci, np.int32), **schema.unpack(cf, np.float32)}
+    gpu_cols = {**schema.unpack(gi, np.int32), **schema.unpack(gf, np.float32)}
+    n = ci.shape[0]
+    ok = cpu_cols["fpt_ok"] == 1
+    same = np.ones(n, bool)
+    for name, c in cpu_cols.items():
+        g = gpu_cols[name]
+        rows = ok if name == "dwell" or name.startswith(("fpt", "adapter_dt_", "adapter_event_")) else np.ones(n, bool)
+        tol = _tolerance(name, name in schema.int_slices)
+        if tol is None:
+            same &= ~((g != c).reshape(n, -1).any(1) & rows)
+        else:
+            bad = (np.abs(g - c) > tol[1] + tol[0] * np.abs(c)).reshape(n, -1).any(1) & rows
+            require(not bad.any(), f"vbz full: column {name} off tolerance on rows {np.nonzero(bad)[0][:10]}")
+    return int(same.sum())
+
+
+def run_main_paths(dev, steps):
+    """Phase 3: the three main paths on the GPU, held against the CPU."""
+    import numpy as np
+    import torch
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch.ops.vbz_device import vbz_decode_batch
+
+    cpu_steps = _steps("cpu")
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
+    rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
+    by_path = {}
+
+    # a. adc feed, decision outputs
+    out, by_path["adc_decision"] = _drive("adc_decision", steps["adc_decision"], rows)
+    for key, n in by_path["adc_decision"].items():
+        if key != "wdx_rolling_detect":
+            require(n > 0, f"{key} was never launched by the adc decision path")
+    ref = cpu_steps["adc_decision"](*rows)
     probs = out.probs.cpu()
     require(probs.shape == (N_ROWS, 5), f"probs shape {tuple(probs.shape)}")
     require(bool(torch.isfinite(probs).all()), "non-finite probabilities")
-    same = (
-        (out.success.cpu() == ref.success)
-        & (out.fail_code.cpu() == ref.fail_code)
-        & (out.pred.cpu() == ref.pred)
-    )
-    print(f"rows agreeing GPU vs CPU on (success, fail_code, pred): {int(same.sum())}/{N_ROWS}")
-    require(int(same.sum()) >= N_ROWS - 1, "GPU and CPU decisions disagree")
-    for name, r in (("gpu", out), ("cpu", ref)):
-        succ = r.success.cpu().numpy()
-        pred, fail = r.pred.cpu().numpy(), r.fail_code.cpu().numpy()
-        counts = (
-            int(succ.sum()),
-            dict(Counter(pred[succ].tolist())),
-            dict(Counter(fail[~succ].tolist())),
-        )
-        print(f"{name}: passes={counts[0]} calls={counts[1]} fails={counts[2]}")
-        if name == "cpu":
-            require(counts == PINS, f"CPU path misses the pins {PINS}")
+    same = int(np.logical_and.reduce([a == b for a, b in zip(_decisions(out), _decisions(ref))]).sum())
+    print(f"adc decision: rows agreeing GPU vs CPU on (success, fail_code, pred): {same}/{N_ROWS}")
+    require(same >= N_ROWS - 1, "GPU and CPU decisions disagree")
+    _check_pins("adc decision gpu", out)
+    require(_check_pins("adc decision cpu", ref) == PINS, f"CPU path misses the pins {PINS}")
     print(f"max |probs gpu - cpu| = {float((probs - ref.probs).abs().max())!r}")
-    return gpu_step, launches
+
+    # b. vbz feed, full outputs
+    wire = vbz_batch(*rows)
+    dec = vbz_decode_batch(torch.as_tensor(wire[0], device=dev), torch.as_tensor(wire[1], device=dev), L)
+    require(torch.equal(dec.to(torch.int16).cpu(), torch.from_numpy(rows[0])), "GPU VBZ decode differs")
+    full, by_path["vbz_full"] = _drive("vbz_full", steps["vbz_full"], wire)
+    for key in ("wdx_range_median_adc", "wdx_range_median_mad"):
+        require(by_path["vbz_full"][key] > 0, f"{key} was never launched by the vbz full path")
+    full_ref = cpu_steps["vbz_full"](*wire)
+    same = _compare_full(full, full_ref)
+    print(f"vbz full: rows agreeing GPU vs CPU on every int, median and MAD column: {same}/{N_ROWS}")
+    require(same >= N_ROWS - 1, "GPU and CPU full outputs disagree")
+    _check_pins("vbz full gpu", full)
+    require(_check_pins("vbz full cpu", full_ref) == PINS, f"CPU path misses the pins {PINS}")
+
+    # c. adc feed, decision outputs, fused rolling detect (K9)
+    fused, by_path["fused_decision"] = _drive("fused_decision", steps["fused_decision"], rows)
+    n = by_path["fused_decision"]
+    require(n["wdx_rolling_detect"] == 1, f"K9 launched {n['wdx_rolling_detect']} times, want 1")
+    require(n["wdx_rolling_mean_var"] == 0 and n["wdx_run_sum"] == 0, "K6 or K7 ran in the fused path")
+    for name, a, b in zip(("success", "fail_code", "pred"), _decisions(fused), _decisions(out)):
+        require(bool((a == b).all()), f"fused decision: {name} differs from the unfused GPU step")
+    print(f"fused decision: (success, fail_code, pred) equal to the unfused GPU step on {N_ROWS}/{N_ROWS} rows")
+    return by_path
 
 
-def time_throughput(gpu_step, card):
-    """Phase 4: reads/s over three B=1000 minibatches after one warm-up."""
+def time_throughput(steps, card):
+    """Phase 4: reads/s of each path over three B=1000 minibatches after
+    one warm-up, in two rounds (the second in reverse path order, since
+    the host clock drifts within a run)."""
     import numpy as np
     import torch
 
@@ -264,14 +450,24 @@ def time_throughput(gpu_step, card):
 
     rng = np.random.default_rng(0)
     batches = [synth_minibatch(rng, B, L) for _ in range(4)]
-    gpu_step(*batches[0])
+    wires = [vbz_batch(*b) for b in batches]
+    inputs = {path: wires if path == "vbz_full" else batches for path in PATHS}
+    for path in PATHS:
+        steps[path](*inputs[path][0])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for batch in batches[1:]:
-        gpu_step(*batch)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    print(f"decision step: {3 * B / dt!r} reads/s ({dt / 3 * 1e3!r} ms per B={B} batch) on {card}")
+    rates = {path: [] for path in PATHS}
+    for order in (PATHS, PATHS[::-1]):
+        for path in order:
+            t0 = time.perf_counter()
+            for batch in inputs[path][1:]:
+                steps[path](*batch)
+            torch.cuda.synchronize()
+            rates[path].append(3 * B / (time.perf_counter() - t0))
+    for path, r in rates.items():
+        mean = sum(r) / len(r)
+        print(f"{path} step: {mean!r} reads/s ({B / mean * 1e3!r} ms per B={B} batch; "
+              f"rounds {r[0]!r}, {r[1]!r} reads/s) on {card}")
+    return rates
 
 
 def main() -> int:
@@ -294,19 +490,23 @@ def main() -> int:
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
     results = check_kernels(dev)
-    gpu_step, launches = run_main_path(dev)
-    time_throughput(gpu_step, card)
+    steps = _steps(dev)
+    by_path = run_main_paths(dev, steps)
+    time_throughput(steps, card)
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
+        counts = {path: by_path[path][key] for path in PATHS}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"warpdemux_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[key],
+            "launches": sum(counts.values()),
+            "launches_by_path": counts,
             **results[key],
         })
+    require(all(k["launches"] > 0 for k in kernels), "a kernel was launched by no main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

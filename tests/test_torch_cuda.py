@@ -38,9 +38,15 @@ def dev():
 
 
 def _signal(dev, B=64, L=10000, seed=2):
+    return _calibrated(dev, B, L, seed)[0]
+
+
+def _calibrated(dev, B=64, L=10000, seed=2):
+    """(x, adc, offset, scale) of bench reads on the card."""
     adc, off, sc, _ = synth_minibatch(np.random.default_rng(seed), B, L)
     t = lambda a: torch.as_tensor(a, device=dev)
-    return (t(adc).float() + t(off)[:, None]) * t(sc)[:, None]
+    adc, off, sc = t(adc), t(off), t(sc)
+    return (adc.float() + off[:, None]) * sc[:, None], adc, off, sc
 
 
 def _launched(name, fn):
@@ -120,6 +126,111 @@ def test_k7_run_sum(dev):
     assert torch.equal(got, bd.run_sum_plain(mask, 100))
 
 
+def _ranges(dev, R, B=64, L=10000, seed=4):
+    rng = np.random.default_rng(seed)
+    starts = torch.as_tensor(rng.integers(0, L, (R, B)).astype(np.int32), device=dev)
+    return starts, starts + torch.as_tensor(rng.integers(-50, 6000, (R, B)).astype(np.int32), device=dev)
+
+
+def test_k4_calibrated_mad(dev):
+    x, adc, off, sc = _calibrated(dev)
+    starts, ends = _ranges(dev, 3)
+    args = (x, starts, ends, True, None, (), (adc, off, sc))
+    km, kd = _launched("wdx_range_median_mad", lambda: select.range_median_mad(*args))
+    pm, pd = select.range_median_mad_plain(*args)
+    assert torch.equal(km.view(torch.int32), pm.view(torch.int32))
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_k8_range_medians_adc(dev, R):
+    x, adc, _, _ = _calibrated(dev)
+    starts, ends = _ranges(dev, R)
+    got = _launched("wdx_range_median_adc", lambda: select.range_medians_adc(x, adc, starts, ends))
+    plain = select.range_medians_adc_plain(x, adc, starts, ends)
+    k4, _ = select.range_median_mad(x, starts, ends, with_mad=False)
+    for want in (plain, k4):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num().view(torch.int32), want.nan_to_num().view(torch.int32))
+
+
+def test_k9_rolling_detect(dev):
+    x, _, _, _ = _calibrated(dev)
+    rng = np.random.default_rng(9)
+    region = torch.as_tensor((rng.random(x.shape) < 0.5).astype(np.float32), device=dev)
+    lens = torch.as_tensor(rng.integers(3000, 10001, 64).astype(np.int32), device=dev)
+    thr = torch.as_tensor(rng.uniform(95, 110, 64).astype(np.float32), device=dev)
+    args = (x, region, thr, lens, 200, 500, 100, 30.0)
+    got = _launched("wdx_rolling_detect", lambda: bd.rolling_detect(*args))
+    for g, w in zip(got, bd.rolling_detect_plain(*args)):
+        assert torch.equal(g, w)
+    for g, w in zip(got[:3], bd.rolling_mean_var(x, 200, 500)):
+        assert torch.equal(g, w)
+    assert int(got[4].max()) > 0
+
+
+def test_vbz_decode_gpu(dev):
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host, vbz_decode_batch
+
+    adc, _, _, _ = synth_minibatch(np.random.default_rng(0), 16, 10000)
+    keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], 10000, 10 * 1024)
+    got = vbz_decode_batch(torch.as_tensor(keys, device=dev), torch.as_tensor(data, device=dev), 10000)
+    assert torch.equal(got.to(torch.int16).cpu(), torch.from_numpy(adc))
+
+
+def test_full_step_gpu_matches_cpu(dev):
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    spc = get_model_spc_config(MODEL)
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 64, 10000)
+    keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], 10000, 10 * 1024)
+    args = (keys, data, off, sc, lens)
+    _cuda.reset_launches()
+    gpu = make_demux_step(load_model(MODEL), spc, input_format="vbz", device=dev)(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches["wdx_range_median_adc"] > 0 and _cuda.launches["wdx_range_median_mad"] > 0
+    cpu = make_demux_step(load_model(MODEL), spc, input_format="vbz")(*args)
+    g, c = gpu.unpack(), cpu.unpack()
+    ok = c.fpt.ok
+    for name in g.detect._fields:
+        gv, cv = getattr(g.detect, name), getattr(c.detect, name)
+        if name.endswith(("_mean", "_std")):
+            np.testing.assert_allclose(gv, cv, rtol=1e-5, atol=1e-4, err_msg=name)
+        else:
+            np.testing.assert_array_equal(gv, cv, err_msg=name)
+    np.testing.assert_array_equal(g.fpt.dwell[ok], c.fpt.dwell[ok])
+    np.testing.assert_allclose(g.fpt.fpt[ok], c.fpt.fpt[ok], rtol=0, atol=1e-4)
+    for name in ("fail_code", "success", "pred"):
+        np.testing.assert_array_equal(getattr(g, name), getattr(c, name), err_msg=name)
+    np.testing.assert_allclose(g.probs, c.probs, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_decision_step_gpu(dev):
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    spc = get_model_spc_config(MODEL)
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 64, 10000)
+    outs = {}
+    for fused in (True, False):
+        step = make_demux_step(
+            load_model(MODEL), spc, input_format="adc", outputs="decision",
+            fused_rolling=fused, device=dev,
+        )
+        _cuda.reset_launches()
+        outs[fused] = step(adc, off, sc, lens)
+        torch.cuda.synchronize()
+        fused_launches = _cuda.launches["wdx_rolling_detect"]
+        unfused_launches = _cuda.launches["wdx_rolling_mean_var"] + _cuda.launches["wdx_run_sum"]
+        assert (fused_launches > 0, unfused_launches > 0) == (fused, not fused)
+    for name in ("success", "fail_code", "pred", "probs"):
+        assert torch.equal(getattr(outs[True], name), getattr(outs[False], name)), name
+
+
 def test_decision_step_gpu_matches_cpu(dev):
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
@@ -127,11 +238,13 @@ def test_decision_step_gpu_matches_cpu(dev):
 
     spc = get_model_spc_config(MODEL)
     adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 64, 10000)
+    kw = dict(input_format="adc", outputs="decision", fused_rolling=False)
     _cuda.reset_launches()
-    gpu = make_demux_step(load_model(MODEL), spc, "adc", device=dev)(adc, off, sc, lens)
+    gpu = make_demux_step(load_model(MODEL), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
-    assert all(n > 0 for n in _cuda.launches.values()), _cuda.launches
-    cpu = make_demux_step(load_model(MODEL), spc, "adc")(adc, off, sc, lens)
+    idle = {"wdx_rolling_detect"}  # the fused kernel replaces K6 + K7
+    assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
+    cpu = make_demux_step(load_model(MODEL), spc, **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     torch.testing.assert_close(gpu.probs.cpu(), cpu.probs, rtol=1e-5, atol=1e-6)

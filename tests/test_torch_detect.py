@@ -1,5 +1,6 @@
-"""Port parity: boundary detection (kernels K6 and K7's plain versions, the
-CNN region prior, the LLR fallback chain) against the JAX package."""
+"""Port parity: boundary detection (kernels K6, K7 and K9's plain versions,
+the CNN region prior, the LLR fallback chain, the region statistics)
+against the JAX package."""
 
 import sys
 from dataclasses import replace
@@ -15,6 +16,7 @@ from warpdemux_tpu.config.utils import get_model_spc_config as jax_spc
 from warpdemux_tpu.detect import boundaries as jax_bd
 from warpdemux_tpu.detect import cnn as jax_cnn
 from warpdemux_tpu.ops.rolling_pallas import (
+    rolling_detect_pallas,
     rolling_mean_var_pallas,
     rolling_run_sum_pallas,
 )
@@ -88,11 +90,17 @@ def test_cnn_region_prior_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+# region means / stds: the port sums in float64, XLA in float32
+MEAN_STD = {"adapter_mean", "adapter_std", "polya_mean", "polya_std", "rna_mean", "rna_std"}
+
+
 def _assert_detect_equal(got, want):
     for name, value in got._asdict().items():
-        np.testing.assert_array_equal(
-            value.numpy(), np.asarray(getattr(want, name)), err_msg=name
-        )
+        w = np.asarray(getattr(want, name))
+        if name in MEAN_STD:
+            np.testing.assert_allclose(value.numpy(), w, rtol=1e-5, atol=1e-4, err_msg=name)
+        else:
+            np.testing.assert_array_equal(value.numpy(), w, err_msg=name)
 
 
 def test_detect_with_fallback_matches_jax_on_bench_reads():
@@ -102,7 +110,7 @@ def test_detect_with_fallback_matches_jax_on_bench_reads():
     x, lens = _bench_rows(64)
     got = bd.detect_boundaries_with_fallback(
         torch.from_numpy(x), torch.from_numpy(lens), spc.detect,
-        load_cnn(spc.cnn_model_name),
+        load_cnn(spc.cnn_model_name), with_stats=False,
     )
     jspc = jax_spc(MODEL)
     want = jax_bd.detect_boundaries_with_fallback(
@@ -119,7 +127,9 @@ def test_detect_llr_matches_jax_on_synthetic_reads(seed):
     sigs, lens, _ = synth_batch(rng, 24)
     lens[:3] = [1500, 2100, 4000]  # too short / short reads
     cfg = replace(get_model_spc_config(MODEL).detect, method="llr", fallback_to_llr=False)
-    got = bd.detect_boundaries_with_fallback(torch.from_numpy(sigs), torch.from_numpy(lens), cfg)
+    got = bd.detect_boundaries_with_fallback(
+        torch.from_numpy(sigs), torch.from_numpy(lens), cfg, with_stats=False
+    )
     want = jax_bd.detect_boundaries_with_fallback(
         sigs, lens, jax_bd.DetectConfig(**cfg.__dict__), with_stats=False
     )
@@ -140,3 +150,95 @@ def test_unported_detect_options_raise(change):
     x, lens = _bench_rows(2)
     with pytest.raises(NotImplementedError):
         bd.detect_boundaries_batch(torch.from_numpy(x), torch.from_numpy(lens), cfg)
+
+
+def test_rolling_detect_matches_jax_kernel_and_the_unfused_stats():
+    """K9's plain version on tests/test_detect.py:190's inputs, with a flat
+    elevated stretch added so that the candidate masks are not empty: the
+    statistics are rolling_mean_var's bit for bit (and within prefix-sum
+    rounding of the Pallas kernel in interpret mode, whose scan differs);
+    each implementation's run sums are exact on the masks rebuilt from its
+    own statistics."""
+    rng = np.random.default_rng(41)
+    B, L = 6, 2048
+    w_mean, w_var, w_run, svm = 200, 500, 100, 30.0
+    x = rng.normal(80, 12, (B, L)).astype(np.float32)
+    x[:, 600:1500] = rng.normal(104, 1.8, (B, 900))
+    in_lens = rng.integers(900, L + 1, B).astype(np.int32)
+    pos = np.arange(L)[None, :]
+    xz = np.where(pos < in_lens[:, None], x, 0.0).astype(np.float32)
+    region = (rng.random((B, L)) < 0.5).astype(np.float32)
+    thr = rng.uniform(85, 100, B).astype(np.float32)
+
+    t = torch.from_numpy
+    got = [a.numpy() for a in bd.rolling_detect(t(xz), t(region), t(thr), t(in_lens),
+                                                w_mean, w_var, w_run, svm)]
+    unfused = bd.rolling_mean_var(t(xz), w_mean, w_var)
+    for g, u in zip(got[:3], unfused):
+        np.testing.assert_array_equal(g, u.numpy())
+    want = [np.asarray(a) for a in rolling_detect_pallas(
+        jnp.asarray(xz), jnp.asarray(region), jnp.asarray(thr), jnp.asarray(in_lens),
+        w_mean, w_var, w_run, svm, interpret=True,
+    )]
+    np.testing.assert_allclose(got[0], want[0], rtol=5e-4, atol=0.05)
+    np.testing.assert_allclose(got[2][:, : L - w_var], want[2][:, : L - w_var], rtol=3e-3, atol=0.1)
+
+    valid = (pos < in_lens[:, None]) & (pos + w_run <= in_lens[:, None])
+    for m, vw, rsp, rsm in ((got[0], got[2], got[3], got[4]), (want[0], want[2], want[3], want[4])):
+        base = (m > thr[:, None]) & (vw < svm) & valid
+        for rs, mask in ((rsp, base), (rsm, base & (region > 0))):
+            np.testing.assert_array_equal(rs, bd.run_sum(t(mask), w_run).numpy())
+    assert got[3].max() == w_run and got[4].max() > 0
+
+
+def test_fused_detect_equals_unfused_on_bench_reads():
+    """fused_rolling (K9) and the unfused path (K6 + K7) decide identically
+    on the production configuration: every field equal."""
+    spc = get_model_spc_config(MODEL)
+    x, lens = _bench_rows(64, seed=5)
+    cnn = load_cnn(spc.cnn_model_name)
+    args = (torch.from_numpy(x), torch.from_numpy(lens), spc.detect, cnn)
+    fused = bd.detect_boundaries_with_fallback(*args, fused_rolling=True)
+    plain = bd.detect_boundaries_with_fallback(*args, fused_rolling=False)
+    assert 0 < int(plain.used_llr_fallback.sum()) and int(plain.success.sum()) > 32
+    for name, value in fused._asdict().items():
+        assert torch.equal(value, getattr(plain, name)), name
+
+
+def test_detect_with_stats_and_adc_matches_jax_on_bench_reads():
+    """with_stats (the full step's region statistics on the merged
+    boundaries) and the adc preimage (K8's gate medians) against the JAX
+    detect given the same inputs: boundaries, codes, medians and MADs
+    exact, means and stds within float32 summation order."""
+    spc = get_model_spc_config(MODEL)
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(6), 48, 10000)
+    x = ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
+    got = bd.detect_boundaries_with_fallback(
+        torch.from_numpy(x), torch.from_numpy(lens), spc.detect,
+        load_cnn(spc.cnn_model_name), adc=torch.from_numpy(adc),
+    )
+    jspc = jax_spc(MODEL)
+    want = jax_bd.detect_boundaries_with_fallback(
+        x, lens, jspc.detect, jax_cnn.load_params(jspc.cnn_model_name), adc=adc,
+    )
+    assert np.asarray(want.rna_mad).min() > 0
+    _assert_detect_equal(got, want)
+
+
+def test_detect_llr_with_stats_matches_jax():
+    """A single llr pass with the region statistics (three ranges, one K4
+    launch with the MAD)."""
+    rng = np.random.default_rng(2)
+    sigs, lens, _ = synth_batch(rng, 24)
+    lens[:2] = [1500, 4000]
+    cfg = replace(get_model_spc_config(MODEL).detect, method="llr", fallback_to_llr=False)
+    got = bd.detect_boundaries_batch(torch.from_numpy(sigs), torch.from_numpy(lens), cfg)
+    want = jax_bd.detect_boundaries_batch(sigs, lens, jax_bd.DetectConfig(**cfg.__dict__))
+    _assert_detect_equal(got, want)
+
+
+def test_fused_rolling_default_reads_the_environment(monkeypatch):
+    monkeypatch.delenv("WDX_FUSED_ROLLING", raising=False)
+    assert bd.fused_rolling_default() is False
+    monkeypatch.setenv("WDX_FUSED_ROLLING", "1")
+    assert bd.fused_rolling_default() is True

@@ -1,0 +1,92 @@
+"""Port parity: the device-independent float32 roundings of
+ops/numerics.py against XLA:CPU, bit for bit.
+
+`xla_log` must give the bits of the jitted jnp.log (XLA's own polynomial,
+not the correctly rounded log), and the LLR refinement's cost must equal
+the jitted JAX expression on the window where the two ends of the scan
+tie to the last bit: row 795 of the seed-0 bench batch.
+"""
+
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from warpdemux_tpu_torch.detect import boundaries as bd
+from warpdemux_tpu_torch.ops.numerics import xla_log
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from bench import synth_minibatch  # noqa: E402
+
+EDGES = [
+    0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.1754944e-38, -1.0, np.inf, -np.inf,
+    np.nan, 1.0, 0.5, 2.0, 0.70710677, 0.7071068, 1e-6, 1e6, 3.4e38,
+]
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+
+
+def test_xla_log_matches_jitted_jnp_log():
+    rng = np.random.default_rng(0)
+    x = np.exp(rng.uniform(np.log(1e-6), np.log(1e6), 1_000_000)).astype(np.float32)
+    x = np.concatenate([x, np.asarray(EDGES, np.float32)])
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = xla_log(torch.from_numpy(x)).numpy()
+    bad = ~_same_bits(got, want)
+    assert not bad.any(), (x[bad][:5], got[bad][:5], want[bad][:5])
+    # torch.log rounds differently on a share of these inputs
+    assert (~_same_bits(torch.log(torch.from_numpy(x)).numpy(), want)).sum() > 1000
+
+
+def _row_795():
+    adc, off, sc, _ = synth_minibatch(np.random.default_rng(0), 1000, 10000)
+    return (adc[795].astype(np.float32) + off[795]) * sc[795]
+
+
+@jax.jit
+def _jax_cost(win):
+    """The cost expression of warpdemux_tpu/detect/boundaries.py
+    _llr_refine, jitted as in the step."""
+    B, W = win.shape
+    z = jnp.zeros((B, 1), win.dtype)
+    c1 = jnp.concatenate([z, jnp.cumsum(win, axis=1)], axis=1)
+    c2 = jnp.concatenate([z, jnp.cumsum(win * win, axis=1)], axis=1)
+    n1 = jnp.arange(1, W, dtype=win.dtype)[None, :]
+    n2 = W - n1
+    s1, s2 = c1[:, 1:W], c2[:, 1:W]
+    v1 = jnp.maximum(s2 / n1 - (s1 / n1) ** 2, 1e-6)
+    sT1 = c1[:, W : W + 1] - s1
+    sT2 = c2[:, W : W + 1] - s2
+    v2 = jnp.maximum(sT2 / n2 - (sT1 / n2) ** 2, 1e-6)
+    return n1 * jnp.log(v1) + n2 * jnp.log(v2)
+
+
+def test_llr_cost_on_the_tied_window_matches_jax():
+    """Coarse start 4054 gives the window [3654, 4454). Its first and last
+    splits tie within one ulp; JAX's argmin is the last split."""
+    win = _row_795()[None, 3654:4454]
+    got = bd._llr_cost(torch.from_numpy(win)).numpy()
+    want = np.asarray(_jax_cost(win))
+    assert _same_bits(got, want).all()
+    assert int(np.argmin(want[0])) == 798
+    # the argmin of the whole refinement: polya_start 4453, as JAX finds
+    x = torch.from_numpy(_row_795()[None])
+    refined = bd._llr_refine(x, torch.tensor([[4054]], dtype=torch.int32), 400)
+    assert int(refined[0, 0]) == 4453
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_llr_cost_matches_jax_on_random_windows(seed):
+    rng = np.random.default_rng(seed)
+    win = rng.normal(90, 6, (8, 800)).astype(np.float32)
+    win[:4, 400:] += 15  # a level step in half of the rows
+    got = bd._llr_cost(torch.from_numpy(win)).numpy()
+    assert _same_bits(got, np.asarray(_jax_cost(win))).all()

@@ -87,3 +87,75 @@ def test_clip_outliers_prefix_matches_jax():
     got = clip_outliers_prefix(torch.from_numpy(x), torch.from_numpy(n), 5.0)
     want = np.asarray(jax_clip(x, n, 5.0))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _adc_inputs(seed):
+    """tests/test_select.py:130's inputs: calibrated int16 rows with heavy
+    ties, even counts, and an empty third range."""
+    rng = np.random.default_rng(seed)
+    B, L = 16, 500
+    adc = rng.integers(-32768, 32767, (B, L)).astype(np.int16)
+    adc[:, :200] = rng.integers(-5, 5, (B, 200))  # heavy ties
+    off = rng.uniform(-260, -200, B).astype(np.float32)
+    s = rng.uniform(0.1, 0.3, B).astype(np.float32)
+    x = (adc.astype(np.float32) + off[:, None]) * s[:, None]
+    starts = np.stack(
+        [np.zeros(B), rng.integers(0, L // 2, B), np.full(B, 10)]
+    ).astype(np.int32)
+    ends = np.stack(
+        [np.full(B, L), rng.integers(L // 2, L, B), np.full(B, 10)]
+    ).astype(np.int32)
+    return x, adc, off, s, starts, ends
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_range_medians_adc_matches_jax_and_the_float_path(seed):
+    """K8's plain version: bit-identical to the JAX package's ADC-domain
+    kernel in interpret mode and to the port's float-key path (K4 with the
+    MAD off), NaN pattern included."""
+    from warpdemux_tpu.ops.select_pallas import range_median_pallas_adc
+    from warpdemux_tpu_torch.ops.select import range_medians_adc
+
+    x, adc, _, _, starts, ends = _adc_inputs(seed)
+    got = range_medians_adc(
+        torch.from_numpy(x), torch.from_numpy(adc), torch.from_numpy(starts),
+        torch.from_numpy(ends),
+    ).numpy()
+    want = np.asarray(range_median_pallas_adc(x, adc, starts, ends, interpret=True))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    flt, _ = range_median_mad(
+        torch.from_numpy(x), torch.from_numpy(starts), torch.from_numpy(ends),
+        with_mad=False,
+    )
+    np.testing.assert_array_equal(_bits(got), _bits(flt))
+    assert np.isnan(got[2]).all() and not np.isnan(got[:2]).any()
+
+
+def test_mad_with_calibration_matches_the_fused_jax_program():
+    """With the calibration preimage, the MAD rounds |x - median| as one
+    fused multiply-add, as the JAX package's jitted program does when it
+    computes x = (adc + offset) * scale in the same program."""
+    import jax
+
+    from warpdemux_tpu.ops.select import range_median_mad as jax_rmm
+
+    x, adc, off, s, starts, ends = _adc_inputs(9)
+
+    @jax.jit
+    def fused(adc, off, s):
+        xc = (adc.astype(np.float32) + off[:, None]) * s[:, None]
+        return jax_rmm(xc, starts, ends, with_mad=True, pallas_ok=False)
+
+    w_meds, w_mads = fused(adc, off, s)
+    meds, mads = range_median_mad(
+        torch.from_numpy(x), torch.from_numpy(starts), torch.from_numpy(ends),
+        calibration=(torch.from_numpy(adc), torch.from_numpy(off), torch.from_numpy(s)),
+    )
+    np.testing.assert_array_equal(_bits(meds), _bits(w_meds))
+    np.testing.assert_array_equal(_bits(mads), _bits(w_mads))
+    # without it, the MAD is the rounded difference of the stored signal
+    _, plain = range_median_mad(
+        torch.from_numpy(x), torch.from_numpy(starts), torch.from_numpy(ends)
+    )
+    _, w_plain = jax_rmm(x, starts, ends, with_mad=True, pallas_ok=False)
+    np.testing.assert_array_equal(_bits(plain), _bits(w_plain))

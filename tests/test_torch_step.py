@@ -38,7 +38,8 @@ def steps():
         jax_model, jax_spc(MODEL), input_format="adc", outputs="decision"
     )
     port_step = make_demux_step(
-        load_model(MODEL), get_model_spc_config(MODEL), input_format="adc"
+        load_model(MODEL), get_model_spc_config(MODEL), input_format="adc",
+        outputs="decision",
     )
     return jax_model, jax_step, port_step
 
@@ -117,23 +118,46 @@ def test_pa_feed_matches_adc_feed(steps):
 
     adc, offset, scale, lens = synth_minibatch(np.random.default_rng(4), 24, L)
     pa = (adc.astype(np.float32) + offset[:, None]) * scale[:, None]
-    pa_step = make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), "pa")
+    pa_step = make_demux_step(
+        load_model(MODEL), get_model_spc_config(MODEL), input_format="pa",
+        outputs="decision",
+    )
     got = _decisions(pa_step(pa, lens))
     want = _decisions(port_step(adc, offset, scale, lens))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize(
-    "kwargs", [{"input_format": "vbz"}, {"outputs": "full"}]
-)
-def test_unported_step_options_raise(kwargs):
+@pytest.mark.parametrize("option", ["consensus_refinement", "start_peak"])
+def test_unported_step_options_raise(option):
+    """The tRNA chemistry's consensus-refined fingerprints and start_peak
+    detector are not ported: the step refuses them when it is built."""
+    from dataclasses import replace
+
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
 
+    spc = get_model_spc_config(MODEL)
+    if option == "consensus_refinement":
+        spc = replace(spc, seg_extra=replace(spc.seg_extra, consensus_refinement=True))
+    else:
+        spc = replace(spc, detect=replace(spc.detect, method="start_peak"))
     with pytest.raises(NotImplementedError):
-        make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), **kwargs)
+        make_demux_step(load_model(MODEL), spc)
+
+
+def test_a_positional_feed_name_fails_loudly():
+    """Options after spc are keywords: a feed name passed by position
+    cannot turn into with_predict."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    with pytest.raises(TypeError):
+        make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), "adc")
+    with pytest.raises(ValueError):
+        make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), input_format="pod5")
 
 
 def test_cpu_tensors_take_the_plain_versions(steps):

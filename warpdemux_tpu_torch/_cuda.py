@@ -44,10 +44,14 @@ SIGNATURES = {
     "wdx_dtw": (_P, _P, _P, _I, _I, _I, _I, _F),
     "wdx_ttest": (_P, _P, _P, _P, _I, _I, _I),
     "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
-    "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I),
+    "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_shift_rows": (_P, _P, _P, _I, _I, _I),
     "wdx_rolling_mean_var": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I),
     "wdx_run_sum": (_P, _P, _I, _I, _I),
+    "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I),
+    "wdx_rolling_detect": (
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    ),
 }
 
 launches: dict[str, int] = {name: 0 for name in SIGNATURES}

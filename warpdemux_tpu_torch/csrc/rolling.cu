@@ -16,9 +16,22 @@
 // a 0/1 mask over [t, min(t + w, L)). One thread counts one window directly
 // (w = min_obs_polya = 100 byte loads from L1); exact.
 //
+// K9 replaces rolling_pallas.py rolling_detect_pallas: K6's statistics
+// and both poly(A) candidate run sums in one launch. One block owns one
+// row: it runs K6's device code (so mean_f, var_f and var_w equal K6's bit
+// for bit), builds the candidate mask
+//   base = mean_f > thr & var_w < var_max & t < len & t + w_run <= len
+// from its own outputs into a scratch row, and counts base and
+// base & (region > 0) over [t, min(t + w_run, L)) as K7 does. The TPU
+// kernel's doubling scan is not carried over: the prefix sums keep
+// XLA:CPU's blocked association, so the fused and unfused detect decide
+// identically.
+//
 // Bound: K6 is memory-bound (4 bytes in, ~9 bytes of scratch traffic per
 // prefix, 12 bytes out per sample); K7 reads w bytes per output from cache
-// and writes 4.
+// and writes 4. K9 moves K6's bytes plus 4 bytes of region in, 2 scratch
+// bytes and 8 bytes of run sums out per sample, and saves the two masks
+// and K7's launches.
 #include "common.cuh"
 
 #define WDX_SCAN_BLOCK 16
@@ -87,11 +100,11 @@ __device__ __forceinline__ void wdx_window_mean_var(const float* c1, const float
   var = v < 0.f ? 0.f : v;  // jnp.maximum(v, 0): NaN stays NaN
 }
 
-__global__ void wdx_rolling_mean_var_kernel(const float* __restrict__ x, float* c1_all,
-                                            float* c2_all, int scratch_len,
-                                            float* __restrict__ mean_f,
-                                            float* __restrict__ var_f, float* __restrict__ var_w,
-                                            int L, int w_mean, int w_var) {
+// K6's work on row blockIdx.x; all threads of the block call.
+__device__ void wdx_row_mean_var(const float* __restrict__ x, float* c1_all, float* c2_all,
+                                 int scratch_len, float* __restrict__ mean_f,
+                                 float* __restrict__ var_f, float* __restrict__ var_w, int L,
+                                 int w_mean, int w_var) {
   const int b = blockIdx.x;
   const float* xr = x + (long long)b * L;
   float* c1 = c1_all + (long long)b * scratch_len;
@@ -107,6 +120,50 @@ __global__ void wdx_rolling_mean_var_kernel(const float* __restrict__ x, float* 
     mean_f[row + t] = m;
     var_f[row + t] = v;
     var_w[row + t] = vw;
+  }
+}
+
+__global__ void wdx_rolling_mean_var_kernel(const float* __restrict__ x, float* c1_all,
+                                            float* c2_all, int scratch_len,
+                                            float* __restrict__ mean_f,
+                                            float* __restrict__ var_f, float* __restrict__ var_w,
+                                            int L, int w_mean, int w_var) {
+  wdx_row_mean_var(x, c1_all, c2_all, scratch_len, mean_f, var_f, var_w, L, w_mean, w_var);
+}
+
+__global__ void wdx_rolling_detect_kernel(const float* __restrict__ x,
+                                          const float* __restrict__ region,
+                                          const float* __restrict__ thr,
+                                          const int* __restrict__ lens, float* c1_all,
+                                          float* c2_all, int scratch_len, uint8_t* base_all,
+                                          float* __restrict__ mean_f, float* __restrict__ var_f,
+                                          float* __restrict__ var_w, int* __restrict__ rs_plain,
+                                          int* __restrict__ rs_masked, int L, int w_mean,
+                                          int w_var, int w_run, float var_max) {
+  wdx_row_mean_var(x, c1_all, c2_all, scratch_len, mean_f, var_f, var_w, L, w_mean, w_var);
+  const int b = blockIdx.x;
+  const long long row = (long long)b * L;
+  const float th = thr[b];
+  const int len = lens[b];
+  // bit 0: the candidate mask; bit 1: the mask inside the CNN region. Each
+  // thread reads back the statistics it wrote itself.
+  uint8_t* base = base_all + row;
+  for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    const bool cand = mean_f[row + t] > th && var_w[row + t] < var_max && t < len &&
+                      t + w_run <= len;
+    base[t] = (uint8_t)((cand ? 1 : 0) | (cand && region[row + t] > 0.f ? 2 : 0));
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    const int hi = min(t + w_run, L);
+    int cp = 0, cm = 0;
+    for (int i = t; i < hi; ++i) {
+      const uint8_t v = base[i];
+      cp += v & 1;
+      cm += v >> 1;
+    }
+    rs_plain[row + t] = cp;
+    rs_masked[row + t] = cm;
   }
 }
 
@@ -137,5 +194,18 @@ WDX_API int wdx_run_sum(const uint8_t* mask, int* out, int B, int L, int w, cuda
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   wdx_run_sum_kernel<<<(unsigned)blocks, threads, 0, stream>>>(mask, out, B, L, w);
+  return (int)cudaGetLastError();
+}
+
+WDX_API int wdx_rolling_detect(const float* x, const float* region, const float* thr,
+                               const int* lens, float* c1_scratch, float* c2_scratch,
+                               int scratch_len, uint8_t* base_scratch, float* mean_f,
+                               float* var_f, float* var_w, int* rs_plain, int* rs_masked, int B,
+                               int L, int w_mean, int w_var, int w_run, float var_max,
+                               cudaStream_t stream) {
+  if (B == 0 || L == 0) return 0;
+  wdx_rolling_detect_kernel<<<B, 1024, 0, stream>>>(
+      x, region, thr, lens, c1_scratch, c2_scratch, scratch_len, base_scratch, mean_f, var_f,
+      var_w, rs_plain, rs_masked, L, w_mean, w_var, w_run, var_max);
   return (int)cudaGetLastError();
 }

@@ -1,29 +1,37 @@
 """Batched adapter / poly(A) boundary detection.
 
 Port of warpdemux_tpu/detect/boundaries.py for the `llr` and `cnn`
-methods and the per-read LLR fallback, as the decision lane runs them
-(gate statistics only; the region summary statistics are output columns
-of the full step and are not computed). RNA004 reads traverse the pore
+methods and the per-read LLR fallback. RNA004 reads traverse the pore
 adapter -> poly(A) -> RNA; detection:
 
-1. forward rolling mean / variance of the calibrated signal (kernel K6),
-2. poly(A) candidates: elevated mean (>= adapter-level proxy *
-   search_scale) and low variance, sustained for min_obs_polya samples
-   (run sums: kernel K7), optionally gated by the CNN region prior,
-3. the first sustained candidate gives the adapter -> poly(A) boundary,
+1. adapter-level proxy: the median of the first min_obs_adapter samples
+   (kernel K8 over the int16 ADC preimage when the feed has one, else K4),
+2. forward rolling mean / variance of the calibrated signal (kernel K6),
+3. poly(A) candidates: elevated mean (>= proxy * search_scale) and low
+   variance, sustained for min_obs_polya samples (run sums: kernel K7),
+   optionally gated by the CNN region prior; with `fused_rolling`, kernel
+   K9 computes the statistics and both run sums in one launch,
+4. the first sustained candidate gives the adapter -> poly(A) boundary,
    the run's lapse gives poly(A) -> RNA,
-4. both are refined to the sample with an exact two-segment Gaussian
+5. both are refined to the sample with an exact two-segment Gaussian
    changepoint scan in a local window (window copy: kernel K5),
-5. gate medians (kernel K4) and the [mvs_polya] check give the fail codes.
+6. gate medians (K8 or K4) and the [mvs_polya] check give the fail codes,
+7. with_stats: mean / std / median / MAD of the adapter, poly(A) and RNA
+   regions (medians and MADs: kernel K4).
 
-First-index semantics (argmax / argmin) are written out explicitly. The
-start_peak method, resolve_limit, [real_range] and [med_shift] gates are
-not ported and raise NotImplementedError.
+The JAX package relies on XLA's common-subexpression elimination to run
+the proxy median and the rolling statistics once for the fallback pair;
+here detect_boundaries_with_fallback computes them once and hands them to
+both passes. First-index semantics (argmax / argmin) are written out
+explicitly. The start_peak method, resolve_limit, [real_range] and
+[med_shift] gates are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +39,9 @@ from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.config.sig_proc import DetectConfig
 from warpdemux_tpu_torch.detect import cnn as cnn_mod
 from warpdemux_tpu_torch.detect.containers import DetectArrays
-from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums
-from warpdemux_tpu_torch.ops.select import range_median_mad
+from warpdemux_tpu_torch.ops.normalize import masked_mean_std
+from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log
+from warpdemux_tpu_torch.ops.select import range_median_mad, range_medians_adc
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
 
 
@@ -57,6 +66,16 @@ def rolling_mean_var_plain(xz: torch.Tensor, w_mean: int, w_var: int):
     return mean_f, var_f, var_w
 
 
+def _scan_scratch_len(L: int) -> int:
+    """Floats a row needs for every level of the blocked scan:
+    L + L/16 + L/256 + ..."""
+    scratch_len, n = L, L
+    while n > BLOCK:
+        n = -(-n // BLOCK)
+        scratch_len += n
+    return scratch_len
+
+
 def rolling_mean_var(xz: torch.Tensor, w_mean: int, w_var: int):
     """(mean[w_mean], var[w_mean], var[w_var]) over forward windows
     [t, min(t+w, L)) of the validity-zeroed signal; K6 on CUDA."""
@@ -65,11 +84,7 @@ def rolling_mean_var(xz: torch.Tensor, w_mean: int, w_var: int):
     B, L = xz.shape
     xz = xz.contiguous()
     _cuda.check(xz, torch.float32, 2, "rolling_mean_var x")
-    # every level of the blocked scan: L + L/16 + L/256 + ... floats a row
-    scratch_len, n = L, L
-    while n > BLOCK:
-        n = -(-n // BLOCK)
-        scratch_len += n
+    scratch_len = _scan_scratch_len(L)
     scratch = torch.empty((2, B, scratch_len), dtype=torch.float32, device=xz.device)
     out = torch.empty((3, B, L), dtype=torch.float32, device=xz.device)
     _cuda.launch(
@@ -102,6 +117,61 @@ def run_sum(mask: torch.Tensor, w: int) -> torch.Tensor:
     return out
 
 
+def rolling_detect_plain(xz, region, thr, in_lens, w_mean, w_var, w_run, var_max):
+    mean_f, var_f, var_w = rolling_mean_var_plain(xz, w_mean, w_var)
+    pos = torch.arange(xz.shape[1], device=xz.device)[None, :]
+    lens = in_lens[:, None]
+    base = (
+        (mean_f > thr[:, None]) & (var_w < var_max) & (pos < lens) & (pos + w_run <= lens)
+    )
+    masked = base & (region > 0)
+    return mean_f, var_f, var_w, run_sum_plain(base, w_run), run_sum_plain(masked, w_run)
+
+
+def rolling_detect(
+    xz: torch.Tensor,
+    region: torch.Tensor,
+    thr: torch.Tensor,
+    in_lens: torch.Tensor,
+    w_mean: int,
+    w_var: int,
+    w_run: int,
+    var_max: float,
+):
+    """Rolling statistics and both poly(A) candidate run sums in one pass.
+
+    Returns (mean_f, var_f, var_w) as rolling_mean_var, and the int32 run
+    sums over [t, min(t + w_run, L)) of the candidate mask
+    base = (mean_f > thr) & (var_w < var_max) & (t < len) & (t + w_run <= len)
+    (rs_plain) and of base & (region > 0) (rs_masked). `region` is the
+    (B, L) float32 CNN region prior, `thr` the (B,) float32 level threshold
+    and `in_lens` the (B,) valid lengths. K9 on CUDA."""
+    in_lens = in_lens.to(torch.int32)
+    if not _cuda.on_cuda(xz, region, thr, in_lens):
+        return rolling_detect_plain(xz, region, thr, in_lens, w_mean, w_var, w_run, var_max)
+    B, L = xz.shape
+    xz, region = xz.contiguous(), region.contiguous()
+    thr, in_lens = thr.contiguous(), in_lens.contiguous()
+    _cuda.check(xz, torch.float32, 2, "rolling_detect x")
+    _cuda.check(region, torch.float32, 2, "rolling_detect region")
+    _cuda.check(thr, torch.float32, 1, "rolling_detect thr")
+    if region.shape != (B, L) or thr.shape != (B,) or in_lens.shape != (B,):
+        raise ValueError("rolling_detect: region must be (B, L), thr and in_lens (B,)")
+    scratch_len = _scan_scratch_len(L)
+    scratch = torch.empty((2, B, scratch_len), dtype=torch.float32, device=xz.device)
+    base = torch.empty((B, L), dtype=torch.uint8, device=xz.device)
+    stats = torch.empty((3, B, L), dtype=torch.float32, device=xz.device)
+    sums = torch.empty((2, B, L), dtype=torch.int32, device=xz.device)
+    _cuda.launch(
+        "wdx_rolling_detect", xz.device, xz.data_ptr(), region.data_ptr(),
+        thr.data_ptr(), in_lens.data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), scratch_len, base.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), stats[2].data_ptr(), sums[0].data_ptr(),
+        sums[1].data_ptr(), B, L, int(w_mean), int(w_var), int(w_run), float(var_max),
+    )
+    return stats[0], stats[1], stats[2], sums[0], sums[1]
+
+
 def _first_true(mask: torch.Tensor, default: int):
     """Per-row index of the FIRST True (int32), else `default`."""
     L = mask.shape[1]
@@ -119,18 +189,32 @@ def _first_argmin(cost: torch.Tensor) -> torch.Tensor:
     return torch.where(is_min, pos, torch.full_like(pos, W)).amin(1)
 
 
-def _llr_refine(x, coarse, radius: int, lo, hi):
-    """Exact two-segment Gaussian changepoint in [coarse - radius,
-    coarse + radius): minimizes n1*log(var1) + n2*log(var2) over the split,
-    clamped to [lo, hi]."""
-    B, L = x.shape
+def _llr_refine(x, coarse, radius: int):
+    """Exact two-segment Gaussian changepoints near K boundaries per row.
+
+    coarse: (K, B) positions. For each, the split of the window
+    [coarse - radius, coarse + radius) (moved inside the row) minimizing
+    n1*log(var1) + n2*log(var2); returns (K, B) absolute positions, not
+    clamped. All K * B windows go through one batch of ops."""
+    K, B = coarse.shape
+    L = x.shape[1]
     W = 2 * radius
     start = torch.clamp(coarse - radius, min=0)
-    start = torch.clamp_max(start, max(L - W, 0))
-    win = shift_rows(x, start, W)
+    start = torch.clamp_max(start, max(L - W, 0)).reshape(K * B)
+    win = shift_rows(x.repeat(K, 1), start, W)
+    return (start + _first_argmin(_llr_cost(win)) + 1).reshape(K, B)
+
+
+def _llr_cost(win):
+    """(B, W - 1) cost n1*log(var1) + n2*log(var2) of the splits 1..W-1 of
+    (B, W) windows, rounded as XLA:CPU rounds the JAX expression: blocked
+    prefix sums, fused multiply-adds where it contracts, its own log. The
+    two ends of a window can tie to the last bit, so the argmin depends on
+    every rounding."""
+    W = win.shape[1]
     c1 = prefix_sums(win)
     c2 = prefix_sums(win * win)
-    n1 = torch.arange(1, W, device=x.device, dtype=torch.float32)[None, :]
+    n1 = torch.arange(1, W, device=win.device, dtype=torch.float32)[None, :]
     n2 = W - n1
     s1, s2 = c1[:, 1:W], c2[:, 1:W]
     q1 = s1 / n1
@@ -139,9 +223,8 @@ def _llr_refine(x, coarse, radius: int, lo, hi):
     sT2 = c2[:, W : W + 1] - s2
     q2 = sT1 / n2
     v2 = torch.clamp_min(fma(-q2, q2, sT2 / n2), 1e-6)
-    cost = n1 * torch.log(v1) + n2 * torch.log(v2)
-    refined = start + _first_argmin(cost) + 1
-    return torch.minimum(torch.maximum(refined, lo), hi)
+    log_v1, log_v2 = xla_log(torch.stack([v1, v2]))
+    return fma(n1, log_v1, n2 * log_v2)
 
 
 def cnn_region_mask(xz, in_lens, cfg: DetectConfig, cnn, L: int) -> torch.Tensor:
@@ -164,57 +247,174 @@ def cnn_region_mask(xz, in_lens, cfg: DetectConfig, cnn, L: int) -> torch.Tensor
     return region
 
 
-def detect_boundaries_batch(
-    signals: torch.Tensor,
-    in_lens: torch.Tensor,
-    cfg: DetectConfig = DetectConfig(),
-    cnn=None,
-    cnn_region: torch.Tensor | None = None,
-) -> DetectArrays:
-    """Detect adapter / poly(A) / RNA boundaries for a (B, L) minibatch
-    with the cfg.method detector ("llr" or "cnn"), gate statistics only.
+def fused_rolling_default() -> bool:
+    """The `fused_rolling` default: the WDX_FUSED_ROLLING environment
+    variable ("1" turns K9 on), as in the JAX package."""
+    return os.environ.get("WDX_FUSED_ROLLING", "0") == "1"
 
-    `cnn`: the BoundaryCNN module (method "cnn"), or a precomputed
-    `cnn_region` (B, L) 0/1 mask from cnn_region_mask."""
+
+def check_supported(cfg: DetectConfig) -> None:
+    """Raise NotImplementedError for the detect options not ported."""
     if cfg.method not in ("llr", "cnn"):
         raise NotImplementedError(f"detect method {cfg.method!r} is not ported")
     if cfg.real_signal_check or cfg.detect_med_shift:
         raise NotImplementedError(
             "the [real_range] and [med_shift] gates are not ported"
         )
+
+
+def _range_medians(x, starts, ends, adc=None):
+    """Median-only ranged medians: over the int16 ADC preimage when the feed
+    has one (K8), else over the float keys (K4). Bit-identical."""
+    if adc is not None:
+        return range_medians_adc(x, adc, starts, ends)
+    return range_median_mad(x, starts, ends, with_mad=False)[0]
+
+
+def _region_stats(sig, starts, ends, given_meds=None, given=()):
+    """(means, stds, medians, MADs), each (R, B), of R [start, end) ranges;
+    0 for empty ranges. Medians and MADs in one K4 launch; `given` ranges
+    take their median from given_meds and only search the MAD."""
+    x = sig.x
+    meds, mads = range_median_mad(
+        x, starts, ends, with_mad=True, given_meds=given_meds, given=given,
+        calibration=sig.calibration,
+    )
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    means, stds = zip(*[
+        masked_mean_std(x, (pos >= s[:, None]) & (pos < e[:, None]))
+        for s, e in zip(starts, ends)
+    ])
+    empty = ends <= starts
+
+    def fix(a):
+        return torch.where(empty, torch.zeros_like(a), a)
+
+    return (
+        fix(torch.stack(means)),
+        fix(torch.stack(stds)),
+        fix(torch.nan_to_num(meds)),
+        fix(torch.nan_to_num(mads)),
+    )
+
+
+class _Signal(NamedTuple):
+    """A minibatch as every detect pass reads it."""
+
+    x: torch.Tensor  # (B, L) float32 calibrated signal
+    in_lens: torch.Tensor  # (B,) int32
+    pos: torch.Tensor  # (1, L) int32 sample index
+    valid: torch.Tensor  # (B, L) bool
+    xz: torch.Tensor  # x zeroed past in_lens
+    adc: torch.Tensor | None  # (B, L) int16 ADC preimage of x, if any
+    calibration: tuple | None  # (adc, offset, scale) when x was calibrated here
+
+
+def _signal(signals, in_lens, adc, calibration) -> _Signal:
     x = signals.to(torch.float32)
-    B, L = x.shape
-    dev = x.device
     in_lens = in_lens.to(torch.int32)
-    pos = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)[None, :]
     valid = pos < in_lens[:, None]
     xz = torch.where(valid, x, torch.zeros_like(x))
+    if adc is not None:
+        adc = adc.to(torch.int16)
+    if calibration is not None:
+        if adc is None:
+            raise ValueError("calibration needs the adc preimage")
+        calibration = (adc, *calibration)
+    return _Signal(x, in_lens, pos, valid, xz, adc, calibration)
 
-    region_mask = None
-    if cfg.method == "cnn":
-        if cnn_region is None:
-            if cnn is None:
-                raise ValueError("method='cnn' requires the BoundaryCNN module")
-            cnn_region = cnn_region_mask(xz, in_lens, cfg, cnn, L)
-        region_mask = cnn_region > 0
 
+class _Rolling(NamedTuple):
+    """What both passes of a fallback pair read: the adapter-level proxy
+    and the rolling statistics, plus K9's run sums when fused."""
+
+    proxy_med: torch.Tensor  # (B,)
+    mean_f: torch.Tensor
+    var_f: torch.Tensor
+    var_w: torch.Tensor
+    rs_plain: torch.Tensor | None
+    rs_masked: torch.Tensor | None
+
+
+def _rolling(sig: _Signal, cfg: DetectConfig, cnn_region, fused: bool) -> _Rolling:
+    B = sig.x.shape[0]
     # adapter level proxy: median of the first min_obs_adapter samples
-    adapter_proxy_med = range_median_mad(
-        x,
-        torch.zeros((1, B), dtype=torch.int32, device=dev),
-        torch.clamp_max(in_lens, cfg.min_obs_adapter)[None],
-        with_mad=False,
-    )[0][0]
+    proxy = _range_medians(
+        sig.x,
+        torch.zeros((1, B), dtype=torch.int32, device=sig.x.device),
+        torch.clamp_max(sig.in_lens, cfg.min_obs_adapter)[None],
+        sig.adc,
+    )[0]
+    if fused and cnn_region is not None:
+        return _Rolling(proxy, *rolling_detect(
+            sig.xz, cnn_region, cfg.search_scale * proxy, sig.in_lens,
+            cfg.mean_window, cfg.var_window, cfg.min_obs_polya, cfg.search_var_max,
+        ))
+    stats = rolling_mean_var(sig.xz, cfg.mean_window, cfg.var_window)
+    return _Rolling(proxy, *stats, None, None)
+
+
+def detect_boundaries_batch(
+    signals: torch.Tensor,
+    in_lens: torch.Tensor,
+    cfg: DetectConfig = DetectConfig(),
+    cnn=None,
+    cnn_region: torch.Tensor | None = None,
+    *,
+    with_stats: bool = True,
+    adc: torch.Tensor | None = None,
+    calibration: tuple | None = None,
+    fused_rolling: bool | None = None,
+) -> DetectArrays:
+    """Detect adapter / poly(A) / RNA boundaries for a (B, L) minibatch
+    with the cfg.method detector ("llr" or "cnn").
+
+    `cnn`: the BoundaryCNN module (method "cnn"), or a precomputed
+    `cnn_region` (B, L) 0/1 mask from cnn_region_mask.
+    with_stats=False skips the region summary statistics (their fields are
+    0); only the gate medians are computed.
+    `adc`: the int16 ADC preimage of `signals` (adc and vbz feeds); the
+    median-only launches then bisect it (K8).
+    `calibration`: (offset (B,), scale (B,)) when the caller computed
+    signals = (adc + offset) * scale in the same step; the region MADs
+    then round their deviations as XLA:CPU does when it fuses the two
+    (range_median_mad).
+    fused_rolling: run K9 in place of K6 + K7 when a CNN region prior is
+    present (None: fused_rolling_default())."""
+    check_supported(cfg)
+    sig = _signal(signals, in_lens, adc, calibration)
+    if cfg.method == "cnn" and cnn_region is None:
+        if cnn is None:
+            raise ValueError("method='cnn' requires the BoundaryCNN module")
+        cnn_region = cnn_region_mask(sig.xz, sig.in_lens, cfg, cnn, sig.x.shape[1])
+    if fused_rolling is None:
+        fused_rolling = fused_rolling_default()
+    rolled = _rolling(sig, cfg, cnn_region, fused_rolling)
+    return _detect_pass(sig, cfg, cnn_region, rolled, with_stats)
+
+
+def _detect_pass(
+    sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling, with_stats: bool
+) -> DetectArrays:
+    x, in_lens, pos, valid = sig.x, sig.in_lens, sig.pos, sig.valid
+    B = x.shape[0]
+    dev = x.device
+    region_mask = cnn_region > 0 if cfg.method == "cnn" else None
+    mean_f, var_f, var_w = rolled.mean_f, rolled.var_f, rolled.var_w
 
     # poly(A) candidates: elevated + flat + fully inside the valid region
-    thr = cfg.search_scale * adapter_proxy_med[:, None]
+    thr = cfg.search_scale * rolled.proxy_med[:, None]
     W = cfg.min_obs_polya
     win_ok = (pos + W) <= in_lens[:, None]
-    mean_f, var_f, var_w = rolling_mean_var(xz, cfg.mean_window, cfg.var_window)
     cand = (mean_f > thr) & (var_w < cfg.search_var_max) & valid & win_ok
     if region_mask is not None:
         cand = cand & region_mask
-    sustained = (run_sum(cand, W) == W) & cand
+    if rolled.rs_plain is not None:  # K9 counted both masks already
+        runs = rolled.rs_plain if region_mask is None else rolled.rs_masked
+    else:
+        runs = run_sum(cand, W)
+    sustained = (runs == W) & cand
     coarse_ps, found = _first_true(sustained, 0)
 
     sust_prev = torch.cat([torch.zeros_like(sustained[:, :1]), sustained[:, :-1]], 1)
@@ -229,8 +429,9 @@ def detect_boundaries_batch(
     coarse_pe = torch.minimum(coarse_pe + cfg.mean_window // 2, in_lens)
 
     zero_i = torch.zeros_like(in_lens)
-    polya_start = _llr_refine(xz, coarse_ps, cfg.llr_refine_window, zero_i, in_lens)
-    polya_end = _llr_refine(xz, coarse_pe, cfg.llr_refine_window, polya_start, in_lens)
+    ps, pe = _llr_refine(sig.xz, torch.stack([coarse_ps, coarse_pe]), cfg.llr_refine_window)
+    polya_start = torch.minimum(torch.maximum(ps, zero_i), in_lens)
+    polya_end = torch.minimum(torch.maximum(pe, polya_start), in_lens)
     polya_start = torch.where(found, polya_start, zero_i)
     polya_end = torch.where(found, polya_end, zero_i)
 
@@ -239,12 +440,22 @@ def detect_boundaries_batch(
     adapter_end = polya_start
     rna_start = polya_end
 
-    # gate medians of the adapter and poly(A) regions (0 when empty)
-    starts = torch.stack([adapter_start, polya_start])
-    ends = torch.stack([adapter_end, polya_end])
-    gmeds, _ = range_median_mad(x, starts, ends, with_mad=False)
-    gmeds = torch.where(ends <= starts, torch.zeros_like(gmeds), torch.nan_to_num(gmeds))
-    ad_med, pa_med = gmeds[0], gmeds[1]
+    zero_f = torch.zeros(B, dtype=torch.float32, device=dev)
+    if with_stats:
+        means, stds, meds, mads = _region_stats(
+            sig,
+            torch.stack([adapter_start, polya_start, rna_start]),
+            torch.stack([adapter_end, polya_end, in_lens]),
+        )
+    else:
+        # gate medians of the adapter and poly(A) regions (0 when empty)
+        starts = torch.stack([adapter_start, polya_start])
+        ends = torch.stack([adapter_end, polya_end])
+        gmeds = _range_medians(x, starts, ends, sig.adc)
+        gmeds = torch.where(ends <= starts, torch.zeros_like(gmeds), torch.nan_to_num(gmeds))
+        means = stds = mads = zero_f.expand(3, B)
+        meds = torch.cat([gmeds, zero_f[None]])
+    ad_med, pa_med = meds[0], meds[1]
 
     # fail taxonomy (lower code = earlier gate)
     adapter_len = adapter_end - adapter_start
@@ -258,8 +469,7 @@ def detect_boundaries_batch(
     fail = set_fail(fail, found & (adapter_len < cfg.min_obs_adapter), 3)
     fail = set_fail(fail, found & (adapter_len > cfg.max_obs_adapter), 4)
 
-    mvs_shift_val = torch.zeros(B, dtype=torch.float32, device=dev)
-    mvs_minvar_val = torch.zeros(B, dtype=torch.float32, device=dev)
+    mvs_shift_val = mvs_minvar_val = zero_f
     if cfg.mvs_detect_check:
         # [mvs_polya] validation of the detected region: median shift
         # adapter -> poly(A), the flattest var_window inside the poly(A),
@@ -299,10 +509,20 @@ def detect_boundaries_batch(
         polya_start=polya_start,
         polya_end=polya_end,
         polya_candidates=polya_candidates,
+        adapter_mean=means[0],
+        adapter_std=stds[0],
         adapter_med=ad_med,
+        adapter_mad=mads[0],
+        polya_mean=means[1],
+        polya_std=stds[1],
         polya_med=pa_med,
+        polya_mad=mads[1],
         rna_start=rna_start,
         rna_len=in_lens - rna_start,
+        rna_mean=means[2],
+        rna_std=stds[2],
+        rna_med=meds[2],
+        rna_mad=mads[2],
         used_llr_fallback=torch.zeros(B, dtype=torch.bool, device=dev),
         mvs_med_shift=mvs_shift_val,
         mvs_min_polya_var=mvs_minvar_val,
@@ -324,32 +544,44 @@ def detect_boundaries_with_fallback(
     in_lens: torch.Tensor,
     cfg: DetectConfig = DetectConfig(),
     cnn=None,
+    *,
+    with_stats: bool = True,
+    adc: torch.Tensor | None = None,
+    calibration: tuple | None = None,
+    fused_rolling: bool | None = None,
 ) -> DetectArrays:
     """Primary detect + per-read LLR fallback.
 
     The LLR detector runs on the whole minibatch beside the primary and is
-    selected row-wise wherever the primary failed. The CNN region prior is
-    computed once and handed to both passes."""
+    selected row-wise wherever the primary failed. The CNN region prior,
+    the adapter-level proxy and the rolling statistics (K9's run sums when
+    fused) are computed once and handed to both passes, which skip the
+    region statistics; with_stats computes them once on the merged
+    boundaries, reusing the passes' gate medians. `adc`, `calibration` and
+    fused_rolling as in detect_boundaries_batch."""
     if cfg.method == "llr" or not cfg.fallback_to_llr:
-        return detect_boundaries_batch(signals, in_lens, cfg, cnn)
+        return detect_boundaries_batch(
+            signals, in_lens, cfg, cnn, with_stats=with_stats, adc=adc,
+            calibration=calibration, fused_rolling=fused_rolling,
+        )
+    check_supported(cfg)
+    sig = _signal(signals, in_lens, adc, calibration)
     cnn_region = None
-    if cfg.method == "cnn" and cnn is not None:
-        x32 = signals.to(torch.float32)
-        L = x32.shape[1]
-        lens32 = in_lens.to(torch.int32)
-        pos = torch.arange(L, device=x32.device)[None, :]
-        xz = torch.where(pos < lens32[:, None], x32, torch.zeros_like(x32))
-        cnn_region = cnn_region_mask(xz, lens32, cfg, cnn, L)
-    primary = detect_boundaries_batch(signals, in_lens, cfg, cnn, cnn_region)
-    llr = detect_boundaries_batch(
-        signals, in_lens, replace(cfg, method="llr", fallback_to_llr=False),
-        cnn_region=cnn_region,
-    )
+    if cfg.method == "cnn":
+        if cnn is None:
+            raise ValueError("method='cnn' requires the BoundaryCNN module")
+        cnn_region = cnn_region_mask(sig.xz, sig.in_lens, cfg, cnn, sig.x.shape[1])
+    if fused_rolling is None:
+        fused_rolling = fused_rolling_default()
+    rolled = _rolling(sig, cfg, cnn_region, fused_rolling)
+    llr_cfg = replace(cfg, method="llr", fallback_to_llr=False)
+    primary = _detect_pass(sig, cfg, cnn_region, rolled, with_stats=False)
+    llr = _detect_pass(sig, llr_cfg, cnn_region, rolled, with_stats=False)
     use_llr = ~primary.success
     merged = DetectArrays(
         *[torch.where(use_llr, l, p) for p, l in zip(primary, llr)]
     )
-    return merged._replace(
+    merged = merged._replace(
         used_llr_fallback=use_llr,
         prim_adapter_start=primary.adapter_start,
         prim_adapter_end=primary.adapter_end,
@@ -361,4 +593,30 @@ def detect_boundaries_with_fallback(
         llr_polya_start=llr.polya_start,
         llr_polya_end=llr.polya_end,
         llr_fail=llr.fail_code,
+    )
+    if not with_stats:
+        return merged
+    # the gate passes already bisected the adapter and poly(A) medians over
+    # the same ranges: only their MADs and the RNA region are searched
+    zero_f = torch.zeros_like(merged.adapter_med)
+    means, stds, meds, mads = _region_stats(
+        sig,
+        torch.stack([merged.adapter_start, merged.polya_start, merged.rna_start]),
+        torch.stack([merged.adapter_end, merged.polya_end, sig.in_lens]),
+        given_meds=torch.stack([merged.adapter_med, merged.polya_med, zero_f]),
+        given=(True, True, False),
+    )
+    return merged._replace(
+        adapter_mean=means[0],
+        adapter_std=stds[0],
+        adapter_med=meds[0],
+        adapter_mad=mads[0],
+        polya_mean=means[1],
+        polya_std=stds[1],
+        polya_med=meds[1],
+        polya_mad=mads[1],
+        rna_mean=means[2],
+        rna_std=stds[2],
+        rna_med=meds[2],
+        rna_mad=mads[2],
     )

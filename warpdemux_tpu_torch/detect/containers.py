@@ -1,16 +1,17 @@
 """Detection result container and the fail taxonomy.
 
 Port of warpdemux_tpu/detect/containers.py: one struct of (B,) tensors per
-minibatch; fail reasons are integer codes mapped to strings on the host.
-The container holds what the decision lane computes; the region summary
-statistics (the mean/std/median/MAD output columns of the full step) join
-it when the full output is ported.
+minibatch, with the JAX package's fields in its order; fail reasons are
+integer codes mapped to strings on the host. Where the region summary
+statistics are skipped (with_stats=False, the decision lane) their fields
+hold zeros. The CSV summary frame (to_summary_frame, pandas) is not ported.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Integer fail codes (0 = success), the same taxonomy as the JAX package.
@@ -32,6 +33,10 @@ FAIL_REASONS = [
 ]
 
 
+def fail_code_to_reason(codes: np.ndarray) -> list[str]:
+    return [FAIL_REASONS[int(c)] for c in codes]
+
+
 class DetectArrays(NamedTuple):
     """Batched detection results; every field is a (B,) tensor."""
 
@@ -42,10 +47,22 @@ class DetectArrays(NamedTuple):
     polya_start: torch.Tensor  # int32
     polya_end: torch.Tensor  # int32
     polya_candidates: torch.Tensor  # int32 distinct sustained runs
-    adapter_med: torch.Tensor  # gate medians (0 for empty regions)
+    # region statistics (0 for empty regions); the medians double as the
+    # gate medians
+    adapter_mean: torch.Tensor
+    adapter_std: torch.Tensor
+    adapter_med: torch.Tensor
+    adapter_mad: torch.Tensor
+    polya_mean: torch.Tensor
+    polya_std: torch.Tensor
     polya_med: torch.Tensor
+    polya_mad: torch.Tensor
     rna_start: torch.Tensor  # int32
     rna_len: torch.Tensor  # int32
+    rna_mean: torch.Tensor
+    rna_std: torch.Tensor
+    rna_med: torch.Tensor
+    rna_mad: torch.Tensor
     used_llr_fallback: torch.Tensor  # bool
     mvs_med_shift: torch.Tensor  # [mvs_polya] check values
     mvs_min_polya_var: torch.Tensor

@@ -13,8 +13,11 @@ device's summation order and contraction choices:
   rounding) where the expression allows it, e.g. s2/n - mean*mean.
 - `exact_sqrt`: XLA's float32 sqrt is correctly rounded; PyTorch's
   vectorized CPU sqrt is not always.
+- `xla_log`: XLA:CPU's float32 log is the Cephes/Eigen polynomial, off
+  the correctly rounded result by one ulp on a few percent of inputs;
+  torch.log (and CUDA's logf) round differently.
 
-Both give the same bits on CPU and CUDA; the kernels run the same trees
+All give the same bits on CPU and CUDA; the kernels run the same trees
 and call __fmaf_rn at the same places.
 """
 
@@ -62,3 +65,64 @@ def exact_sqrt(a: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (via float64, whose correctly
     rounded root rounds to the correctly rounded float32 root)."""
     return torch.sqrt(a.double()).to(torch.float32)
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32 (as a Python float)."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+# Cephes/Eigen logf: polynomial coefficients, then ln(2) split in two
+_LOG_P = tuple(_f32(p) for p in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+))
+_LOG_Q1 = _f32(-2.12194440e-4)
+_LOG_Q2 = _f32(0.693359375)
+_SQRT_HALF = _f32(0.707106781186547524)
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def xla_log(a: torch.Tensor) -> torch.Tensor:
+    """float32 natural log with the bits of XLA:CPU's `jnp.log`.
+
+    The algorithm of the kernel XLA compiles for log: range reduction to a
+    mantissa m in [sqrt(1/2) - 1, sqrt(2) - 1) and an exponent e, a degree-8
+    polynomial in m evaluated as three FMA chains in m**3, and
+    e * ln(2) added in two parts, with the same fused multiply-adds (each
+    emulated as `fma` does: an exact float64 product, one float64 add,
+    one rounding to float32).
+
+    Domain: finite x > 0, for which the bits equal XLA's. The other inputs
+    give what XLA:CPU gives: -inf for zero and for subnormals (which it
+    reads as zero), +inf for +inf, NaN for negative numbers and NaN.
+    """
+    x = a.to(torch.float32)
+    bits = torch.clamp_min(x, _TINY).view(torch.int32)
+    e = ((bits >> 23) - 126).to(torch.float32)
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < _SQRT_HALF
+    e = torch.where(small, e - 1.0, e)
+    m = torch.where(small, (m - 1.0) + m, m - 1.0)
+    x2 = m * m
+    x3 = m * x2
+    m64, x3_64 = m.double(), x3.double()
+
+    def fma64(a64, b, c):
+        # float32 fma(a, b, c) for a given in float64 (b, c: float32 values)
+        return (a64 * b + c).to(torch.float32)
+
+    def chain(p0, p1, p2):
+        return fma64(fma64(m64, p0, p1).double(), m64, p2)
+
+    A = chain(*_LOG_P[0:3])
+    B = chain(*_LOG_P[3:6])
+    C = chain(*_LOG_P[6:9])
+    y = fma64(fma64(A.double(), x3_64, B).double(), x3_64, C)
+    t = fma64(y.double(), x3_64, e * _LOG_Q1)
+    r = fma64(e.double(), _LOG_Q2, fma64(x2.double(), -0.5, m) + t)
+    r = torch.where(x == float("inf"), x, r)
+    r = torch.where((x < 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
+    # zero and subnormal inputs (read as zero) give -inf, of either sign
+    return torch.where(x.abs() < _TINY, torch.full_like(r, float("-inf")), r)

@@ -12,9 +12,14 @@ statistics for even counts, NaN for an empty range); MAD = median of
 |x - median|.
 
 CUDA tensors go to kernel K4 (csrc/select.cu, one block per (range, row));
-CPU tensors go to the plain bisection over (R, B, L) masks. The detect
-gate medians of the adc feed also come here: the JAX package's int16
-ADC-domain kernel (K8) is bit-identical to this one with the MAD off.
+CPU tensors go to the plain bisection over (R, B, L) masks.
+
+`range_medians_adc` is the median-only path of the adc and vbz feeds: the
+int16 ADC preimage of the calibrated signal is bisected as a 16-bit key
+(16 rounds instead of the sign pass and 31), and the order statistics are
+read back out of the calibrated float32 values (kernel K8 on CUDA). It is
+bit-identical to range_median_mad(with_mad=False) as long as the
+calibration (adc + offset) * scale is monotone (scale > 0).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from warpdemux_tpu_torch import _cuda
+from warpdemux_tpu_torch.ops.numerics import fma
 
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
@@ -71,7 +77,9 @@ def median_from_keys(key, mask, n):
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
-def range_median_mad_plain(x, starts, ends, with_mad=True, given_meds=None, given=()):
+def range_median_mad_plain(
+    x, starts, ends, with_mad=True, given_meds=None, given=(), calibration=None
+):
     """Plain version of range_median_mad over (R, B, L) masks."""
     B, L = x.shape
     pos = torch.arange(L, device=x.device)[None, None, :]
@@ -84,7 +92,12 @@ def range_median_mad_plain(x, starts, ends, with_mad=True, given_meds=None, give
         meds = torch.where(g, given_meds.to(torch.float32), meds)
     if not with_mad:
         return meds, None
-    y = (x[None] - meds[..., None]).abs()
+    if calibration is None:
+        y = (x[None] - meds[..., None]).abs()
+    else:
+        adc, offset, scale = calibration
+        ao = adc.to(torch.float32) + offset.to(torch.float32)[:, None]
+        y = fma(ao[None], scale.to(torch.float32)[None, :, None], -meds[..., None]).abs()
     return meds, median_from_keys(order_keys(y), masks, n)
 
 
@@ -95,6 +108,7 @@ def range_median_mad(
     with_mad: bool = True,
     given_meds: torch.Tensor | None = None,
     given: tuple = (),
+    calibration: tuple | None = None,
 ):
     """Exact median (+ MAD) over R contiguous [start, end) ranges per row.
 
@@ -103,13 +117,19 @@ def range_median_mad(
       starts, ends: (R, B) int (clamped to [0, L]).
       given_meds / given: optional (R, B) precomputed medians and per-range
         flags; flagged ranges pass given_meds through and only search the MAD.
+      calibration: optional (adc (B, L) int16, offset (B,), scale (B,))
+        with x = (adc + offset) * scale computed in the same step. The MAD
+        deviations are then |fma(adc + offset, scale, -median)|: XLA:CPU
+        fuses the calibration into the subtraction with that one rounding.
     Returns:
       (meds (R, B) float32, mads (R, B) float32 or None).
     """
     starts = starts.to(torch.int32)
     ends = ends.to(torch.int32)
-    if not _cuda.on_cuda(x, starts, ends):
-        return range_median_mad_plain(x, starts, ends, with_mad, given_meds, given)
+    if not _cuda.on_cuda(x, starts, ends, *(calibration or ())):
+        return range_median_mad_plain(
+            x, starts, ends, with_mad, given_meds, given, calibration
+        )
     R, B = starts.shape
     L = x.shape[1]
     if ends.shape != (R, B) or x.shape[0] != B:
@@ -128,11 +148,86 @@ def range_median_mad(
         _cuda.check(gm, torch.float32, 2, "range_median_mad given_meds")
         if gm.shape != (R, B):
             raise ValueError("given_meds must be (R, B) like starts")
+    cal = (None, None, None)
+    if calibration is not None:
+        adc, offset, scale = calibration
+        cal = (
+            adc.contiguous(),
+            offset.to(torch.float32).contiguous(),
+            scale.to(torch.float32).contiguous(),
+        )
+        _cuda.check(cal[0], torch.int16, 2, "range_median_mad adc")
+        if cal[0].shape != x.shape or cal[1].shape != (B,) or cal[2].shape != (B,):
+            raise ValueError("calibration must be adc (B, L), offset and scale (B,)")
     meds = torch.empty((R, B), dtype=torch.float32, device=x.device)
     mads = torch.empty((R, B), dtype=torch.float32, device=x.device)
     _cuda.launch(
         "wdx_range_median_mad", x.device, x.data_ptr(), starts.data_ptr(),
         ends.data_ptr(), None if gm is None else gm.data_ptr(), given_mask,
-        int(with_mad), meds.data_ptr(), mads.data_ptr(), R, B, L,
+        int(with_mad), *[None if t is None else t.data_ptr() for t in cal],
+        meds.data_ptr(), mads.data_ptr(), R, B, L,
     )
     return (meds, mads) if with_mad else (meds, None)
+
+
+_I16_BIAS = 32768  # adc + bias -> [0, 65535]
+
+
+def range_medians_adc_plain(x, adc, starts, ends):
+    """Plain version of range_medians_adc over (R, B, L) masks."""
+    B, L = x.shape
+    pos = torch.arange(L, device=x.device)[None, None, :]
+    masks = (pos >= starts[..., None]) & (pos < ends[..., None])
+    n = masks.sum(-1).to(torch.int32)
+    key = (adc.to(torch.int32) + _I16_BIAS)[None]
+    kz = torch.where(masks, key, torch.full_like(key, 1 << 20))
+    rank = torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)
+    lo_key = torch.zeros_like(rank)
+    for bit in range(15, -1, -1):
+        t = lo_key | (1 << bit)
+        cnt = (kz < t[..., None]).sum(-1)
+        lo_key = torch.where(cnt <= rank, t, lo_key)
+    inf = torch.full_like(masks, float("inf"), dtype=torch.float32)
+    xb = x.to(torch.float32)[None].expand_as(inf)
+    lo = torch.where(masks & (key == lo_key[..., None]), xb, inf).amin(-1)
+    nxt = torch.where(masks & (key > lo_key[..., None]), xb, inf).amin(-1)
+    cnt_le = (masks & (key <= lo_key[..., None])).sum(-1)
+    need_next = (n % 2 == 0) & (cnt_le <= n // 2)
+    hi = torch.where(need_next, nxt, lo)
+    med = torch.where(n % 2 == 1, lo, 0.5 * (lo + hi))
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def range_medians_adc(
+    x: torch.Tensor, adc: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """Exact medians of x over R [start, end) ranges per row, bisected over
+    x's int16 ADC preimage.
+
+    Args:
+      x: (B, L) float32 calibrated signal, a monotone image of adc.
+      adc: (B, L) int16 ADC counts.
+      starts, ends: (R, B) int (clamped to [0, L]).
+    Returns:
+      (R, B) float32 medians (numpy semantics; NaN for an empty range).
+    """
+    starts = starts.to(torch.int32)
+    ends = ends.to(torch.int32)
+    if x.shape != adc.shape:
+        raise ValueError("x and adc must have the same (B, L) shape")
+    if not _cuda.on_cuda(x, adc, starts, ends):
+        return range_medians_adc_plain(x, adc, starts, ends)
+    R, B = starts.shape
+    L = x.shape[1]
+    if ends.shape != (R, B) or x.shape[0] != B:
+        raise ValueError("starts/ends must be (R, B) for x of shape (B, L)")
+    x, adc = x.contiguous(), adc.contiguous()
+    starts, ends = starts.contiguous(), ends.contiguous()
+    _cuda.check(x, torch.float32, 2, "range_medians_adc x")
+    _cuda.check(adc, torch.int16, 2, "range_medians_adc adc")
+    meds = torch.empty((R, B), dtype=torch.float32, device=x.device)
+    _cuda.launch(
+        "wdx_range_median_adc", x.device, x.data_ptr(), adc.data_ptr(),
+        starts.data_ptr(), ends.data_ptr(), meds.data_ptr(), R, B, L,
+    )
+    return meds

@@ -1,26 +1,100 @@
-"""The per-minibatch decision step: raw signal -> barcode calls.
+"""The per-minibatch demux step: raw signal -> barcode calls.
 
-Port of warpdemux_tpu/pipeline/step.py `make_demux_step` for the decision
-lane (outputs="decision") with the "pa" and "adc" feeds:
+Port of warpdemux_tpu/pipeline/step.py `make_demux_step` with the "pa",
+"adc" and "vbz" feeds and both output modes:
 
-    calibrate (adc feed) -> detect_boundaries_with_fallback
+    [vbz decode] -> calibrate (adc, vbz) -> detect_boundaries_with_fallback
         -> fingerprints_from_boundaries -> DTW -> exp kernel -> SVM proba
-        -> argmax / margin / thresholds
+        -> argmax / margin / thresholds -> pack (outputs="full")
 
 On CUDA tensors every kernel of the chain is a hand-written kernel from
-csrc/ (K1-K7); on CPU tensors each takes its plain PyTorch version.
+csrc/ (K1-K8, K9 in place of K6 + K7 with fused_rolling); on CPU tensors
+each takes its plain PyTorch version.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from warpdemux_tpu_torch.config.sig_proc import SigProcConfig
-from warpdemux_tpu_torch.detect.boundaries import detect_boundaries_with_fallback
+from warpdemux_tpu_torch.detect.boundaries import (
+    check_supported,
+    detect_boundaries_with_fallback,
+    fused_rolling_default,
+)
+from warpdemux_tpu_torch.detect.containers import DetectArrays
 from warpdemux_tpu_torch.models.registry import load_cnn
-from warpdemux_tpu_torch.ops.fingerprint import fingerprints_from_boundaries
+from warpdemux_tpu_torch.ops.fingerprint import (
+    FingerprintArrays,
+    fingerprints_from_boundaries,
+)
+from warpdemux_tpu_torch.ops.vbz_device import vbz_decode_batch
+from warpdemux_tpu_torch.pipeline.schema import PackSchema
+
+INPUT_FORMATS = ("pa", "adc", "vbz")
+OUTPUTS = ("full", "decision")
+
+
+class DemuxStepOutput(NamedTuple):
+    """Host view of a full step's outputs (numpy arrays)."""
+
+    detect: DetectArrays
+    fpt: FingerprintArrays
+    fail_code: np.ndarray  # (B,) int32 merged detect + fingerprint codes
+    success: np.ndarray  # (B,) bool
+    pred: np.ndarray  # (B,) int32 barcode (-1 noise; valid where success)
+    conf: np.ndarray  # (B,)
+    probs: np.ndarray  # (B, k)
+    consensus: None = None  # the tRNA consensus columns (not ported)
+
+
+class PackedStepOutput(NamedTuple):
+    """Device outputs of one full step, packed into (B, C) buffers laid
+    out by pipeline/schema.PackSchema; pred/conf/success stay separate so
+    the decision fetch is small."""
+
+    big_i: torch.Tensor  # (B, C_i) int32
+    big_f: torch.Tensor  # (B, C_f) float32
+    cons_i: None  # the tRNA consensus columns (not ported)
+    success: torch.Tensor  # (B,) bool
+    pred: torch.Tensor  # (B,) int32
+    conf: torch.Tensor  # (B,) float32
+
+    @property
+    def probs(self) -> torch.Tensor:
+        schema = PackSchema.from_buffers(self.big_i, self.big_f)
+        return self.big_f[:, schema.float_slices["probs"]]
+
+    def unpack(self) -> DemuxStepOutput:
+        """Copy to the host and split the buffers into named columns."""
+        big_i = self.big_i.cpu().numpy()
+        big_f = self.big_f.cpu().numpy()
+        schema = PackSchema.from_buffers(big_i, big_f)
+        ci = schema.unpack(big_i, np.int32)
+        cf = schema.unpack(big_f, np.float32)
+        cols = {**ci, **cf}
+        det = DetectArrays(**{
+            **{f: cols[f] for f in DetectArrays._fields if f in cols},
+            "success": ci["det_fail"] == 0,
+            "fail_code": ci["det_fail"],
+            "used_llr_fallback": ci["used_llr_fallback"].astype(bool),
+        })
+        fpt = FingerprintArrays(**{
+            **{f: cols[f] for f in FingerprintArrays._fields if f in cols},
+            "ok": ci["fpt_ok"].astype(bool),
+        })
+        return DemuxStepOutput(
+            detect=det,
+            fpt=fpt,
+            fail_code=ci["merged_fail"],
+            success=self.success.cpu().numpy(),
+            pred=self.pred.cpu().numpy(),
+            conf=self.conf.cpu().numpy(),
+            probs=cf["probs"],
+        )
 
 
 class DecisionStepOutput(NamedTuple):
@@ -33,52 +107,101 @@ class DecisionStepOutput(NamedTuple):
     probs: torch.Tensor  # (B, k) float32 per-class probabilities
 
 
+def _pack(det: DetectArrays, fpt: FingerprintArrays, fail, success, pred, conf, probs):
+    schema = PackSchema(k=fpt.fpt.shape[1], kc=probs.shape[1])
+    int_vals = {f: getattr(det, f) for f in DetectArrays._fields}
+    int_vals.update(
+        det_fail=det.fail_code, fpt_ok=fpt.ok, merged_fail=fail, dwell=fpt.dwell
+    )
+    float_vals = {f: getattr(det, f) for f in DetectArrays._fields}
+    float_vals.update(fpt._asdict(), probs=probs)
+    return PackedStepOutput(
+        big_i=schema.pack(int_vals, torch.int32),
+        big_f=schema.pack(float_vals, torch.float32),
+        cons_i=None,
+        success=success,
+        pred=pred.to(torch.int32),
+        conf=conf.to(torch.float32),
+    )
+
+
 def make_demux_step(
     model,
     spc: SigProcConfig,
+    *,
+    with_predict: bool = True,
     input_format: str = "pa",
-    outputs: str = "decision",
+    outputs: str = "full",
+    fused_rolling: bool | None = None,
     device="cpu",
 ):
-    """Build the decision step on `device`.
+    """Build the demux step on `device`.
 
-    `model` is a DTWSVMModel (moved to `device`).
+    `model` is a DTWSVMModel (moved to `device`), or None for a run
+    without classification; with_predict=False skips it too. Without it
+    pred is -1, conf 0 and probs zeros of shape (B, 1).
 
     input_format:
       "pa":  step(signals (B, L) float32 picoamps, in_lens (B,))
       "adc": step(adc (B, L) int16, offset (B,) float32, scale (B,) float32,
              in_lens (B,)); the calibration (adc + offset) * scale runs on
-             `device`.
-    Inputs may be numpy arrays or tensors; the step returns a
-    DecisionStepOutput of tensors on `device`.
+             `device` and the detect medians bisect the int16 counts (K8).
+      "vbz": step(keys (B, L/8) uint8, data (B, D) uint8, offset, scale,
+             in_lens): the VBZ inner layout, decoded on `device`
+             (ops/vbz_device), then as "adc".
+    outputs:
+      "full":     a PackedStepOutput: every boundary, region-statistics and
+                  fingerprint column in the PackSchema layout.
+      "decision": a DecisionStepOutput (no region statistics computed).
+    fused_rolling: detect with kernel K9 in place of K6 + K7 (None: the
+      WDX_FUSED_ROLLING environment variable).
+    Inputs may be numpy arrays or tensors; outputs are tensors on `device`.
     """
-    if input_format not in ("pa", "adc"):
-        raise NotImplementedError(f"input_format {input_format!r} is not ported")
-    if outputs != "decision":
-        raise NotImplementedError(f"outputs {outputs!r} is not ported")
+    if input_format not in INPUT_FORMATS:
+        raise ValueError(f"input_format must be one of {INPUT_FORMATS}, got {input_format!r}")
+    if outputs not in OUTPUTS:
+        raise ValueError(f"outputs must be one of {OUTPUTS}, got {outputs!r}")
     if spc.seg_extra.consensus_refinement:
         raise NotImplementedError("consensus-refined fingerprints are not ported")
+    check_supported(spc.detect)
     device = torch.device(device)
     dcfg, fcfg = spc.detect, spc.fingerprint
-    model = model.to(device)
+    classify = with_predict and model is not None
+    if classify:
+        model = model.to(device)
     cnn = load_cnn(spc.cnn_model_name, device) if dcfg.method == "cnn" else None
+    if fused_rolling is None:
+        fused_rolling = fused_rolling_default()
+    full = outputs == "full"
 
     def as_t(a, dtype):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     @torch.inference_mode()
-    def step(*args) -> DecisionStepOutput:
-        if input_format == "adc":
+    def step(*args):
+        adc = calibration = None
+        if input_format == "vbz":
+            keys, data, offset, scale, in_lens = args
+            keys = as_t(keys, torch.uint8)
+            adc = vbz_decode_batch(keys, as_t(data, torch.uint8), keys.shape[1] * 8)
+            adc = adc.to(torch.int16)
+        elif input_format == "adc":
             adc, offset, scale, in_lens = args
-            offset = as_t(offset, torch.float32)
-            scale = as_t(scale, torch.float32)
-            signals = (as_t(adc, torch.int16).to(torch.float32) + offset[:, None]) * scale[:, None]
+            adc = as_t(adc, torch.int16)
         else:
             signals, in_lens = args
             signals = as_t(signals, torch.float32)
+        if adc is not None:
+            offset = as_t(offset, torch.float32)
+            scale = as_t(scale, torch.float32)
+            signals = (adc.to(torch.float32) + offset[:, None]) * scale[:, None]
+            calibration = (offset, scale)
         in_lens = as_t(in_lens, torch.int32)
 
-        det = detect_boundaries_with_fallback(signals, in_lens, dcfg, cnn)
+        det = detect_boundaries_with_fallback(
+            signals, in_lens, dcfg, cnn, with_stats=full, adc=adc,
+            calibration=calibration, fused_rolling=fused_rolling,
+        )
         fpt = fingerprints_from_boundaries(
             signals, in_lens, det.adapter_start, det.adapter_end, fcfg
         )
@@ -90,8 +213,16 @@ def make_demux_step(
             det.fail_code,
         )
         success = fail == 0
-        fpts = torch.where(success[:, None], fpt.fpt, torch.zeros_like(fpt.fpt))
-        pred, conf, probs = model(fpts)
+        if classify:
+            fpts = torch.where(success[:, None], fpt.fpt, torch.zeros_like(fpt.fpt))
+            pred, conf, probs = model(fpts)
+        else:
+            B = signals.shape[0]
+            pred = torch.full((B,), -1, dtype=torch.int32, device=device)
+            conf = torch.zeros(B, dtype=torch.float32, device=device)
+            probs = torch.zeros((B, 1), dtype=torch.float32, device=device)
+        if full:
+            return _pack(det, fpt, fail, success, pred, conf, probs)
         return DecisionStepOutput(pred, conf, fail, success, probs)
 
     return step
