@@ -7,13 +7,23 @@ Run from the repository root with no arguments:
 
 Phases (each raises on failure; nothing is caught):
 
-1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels of csrc/ from source.
+1. Print the card's name and power limit (nvidia-smi), build the CUDA
+   kernels of csrc/ from source and print what ptxas reported for each
+   (registers, spills).
 2. For each kernel K1-K9, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
-   the card and time both. K8 is also held against K4 and timed beside it;
-   K9 against K6 and timed beside K6 + 2 x K7 on the same inputs.
+   the card and time both; print its bound (the larger of its bytes over
+   the card's memory rate and its operations over the float32 rate, from
+   this run's inputs) and the share of it reached. K1 is also held at its
+   generic instance, at edge tiles and on non-finite fingerprints; K6 at
+   lengths off the scan's block size, with windows longer than the row and
+   at a row too long for shared memory (its device-scratch variant, K9's
+   too), and it must allocate nothing beside its outputs at L=10000. K4 is
+   also timed at the two other shapes the paths launch it with. K5 and K7
+   are timed beside the one PyTorch call that computes the same function
+   (torch.gather, F.conv1d). K8 is also held against K4 and timed beside
+   it; K9 against K6 and timed beside K6 + 2 x K7 on the same inputs.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -46,6 +56,16 @@ B, L = 1000, 10000
 N_ROWS = 256  # rows held against the CPU path and the pins
 PINS = (237, {-1: 236, 7: 1}, {2: 15, 5: 4})  # tests/test_bench_population.py
 ULP_REL = 2.0**-23
+# NVIDIA's published peaks of one H100 SXM: device memory rate, and the
+# float32 rate outside the tensor cores (integer compares and adds are
+# counted at the same rate)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations a sample that the function needs, whatever algorithm computes
+# it: an exact selection (a median) takes a handful of compares a sample,
+# a MAD a subtract and an abs more and a second selection
+SELECT_OPS = 4
+MAD_OPS = 2 + SELECT_OPS
 
 KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_dtw": ("K1 dtw", "dtw.cu", "warpdemux_tpu/ops/dtw_pallas.py:94"),
@@ -81,8 +101,8 @@ def max_abs(a, b):
     import torch
 
     a, b = a.double(), b.double()
-    both_nan = torch.isnan(a) & torch.isnan(b)
-    d = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
+    same = (torch.isnan(a) & torch.isnan(b)) | (a == b)  # equal infinities too
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
     return float(d.max()) if d.numel() else 0.0
 
 
@@ -91,10 +111,27 @@ def require(cond, what):
         raise AssertionError(what)
 
 
-def check_kernels(dev):
-    """Phase 2: kernel vs plain version on the card, at the step's shapes."""
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes moved over its memory rate and the operations over its
+    float32 rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def dtw_band_cells(m, window):
+    return sum(1 for i in range(m) for j in range(m) if abs(i - j) <= window - 1)
+
+
+def check_kernels(dev, card):
+    """Phase 2: kernel vs plain version on the card, at the step's shapes,
+    with each kernel's bound from this run's inputs (every input byte read
+    once, every output byte written once; the operations the function needs
+    on these inputs, not those of the kernel's own algorithm) and, for K5
+    and K7, one PyTorch call of the same function."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from bench import synth_minibatch
     from warpdemux_tpu_torch.detect import boundaries as bd
@@ -105,24 +142,46 @@ def check_kernels(dev):
     t = lambda a: torch.as_tensor(a, device=dev)
     results = {}
 
-    def record(key, err, ms, plain_ms):
-        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    def record(key, err, ms, plain_ms, n_bytes, n_ops, library_ms=None):
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        results[key] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        }
         print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+        print(f"{KERNELS[key][0]}: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
+              f"share of bound reached={bound_ms / ms!r}; library_ms={library_ms!r} on {card}")
 
-    # K1: banded DTW against WDX4 (N=851) and WDX10 (N=2601) support vectors
+    def same_bits(a, b):  # equal, NaN where the other has NaN
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    # K1: banded DTW against WDX4 (N=851) and WDX10 (N=2601) support
+    # vectors (the static m=25, window=15 instance), then the generic
+    # instance and edge tiles, non-finite fingerprints included
     X = t(rng.normal(0, 1, (B, 25)).astype(np.float32))
     for model in ("WDX10_rna004_v1_0", MODEL):  # WDX4 last: its numbers are kept
         Y = t(load_model_arrays(model)["X_sv"].astype(np.float32))
         k = dtw.dtw_distance_matrix(X, Y, 15, 0.1)
         p = dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1)
-        rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
-        require(rel <= 4 * ULP_REL, f"K1 N={Y.shape[0]}: rel err {rel}")
-        print(f"K1 N={Y.shape[0]}: max_rel_err={rel!r}")
+        require(torch.equal(k, p), f"K1 N={Y.shape[0]}: differs from the plain version")
+        n_ops = B * Y.shape[0] * dtw_band_cells(25, 15) * 6  # sub, min, add, min, fma (2)
+        n_bytes = (B + Y.shape[0]) * 25 * 4 + B * Y.shape[0] * 4
+        ms = time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1))
+        print(f"K1 N={Y.shape[0]}: max_abs_err={max_abs(k, p)!r} kernel_ms={ms!r} "
+              f"bound_ms={bound(n_bytes, n_ops)[0]!r} on {card}")
     record(
-        "wdx_dtw", max_abs(k, p),
-        time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1)),
-        time_ms(lambda: dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1), reps=2),
+        "wdx_dtw", max_abs(k, p), ms,
+        time_ms(lambda: dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1), reps=2), n_bytes, n_ops,
     )
+    for m, window, penalty, b, n in ((25, 15, 0.1, 37, 131), (20, 8, 0.1, 37, 131), (32, 32, 0.5, 9, 300), (25, 1, 0.0, 5, 7)):
+        Xe = rng.normal(0, 1, (b, m)).astype(np.float32)
+        Ye = rng.normal(0, 1, (n, m)).astype(np.float32)
+        Xe[1, 3], Xe[2, m - 1], Xe[3, 0], Ye[n - 1, 2] = np.nan, np.inf, -np.inf, np.nan
+        k = dtw.dtw_distance_matrix(t(Xe), t(Ye), window, penalty)
+        p = dtw.dtw_distance_matrix_plain(t(Xe), t(Ye), window, penalty)
+        require(same_bits(k, p), f"K1 m={m} window={window} B={b} N={n}: differs from the plain version")
+        require(bool(k[1].isnan().all()) and bool(torch.isfinite(k[0, : n - 1]).all()), "K1: NaN pattern")
+        print(f"K1 m={m} window={window} B={b} N={n} (non-finite rows included): max_abs_err={max_abs(k, p)!r}")
 
     # K2: t-test scores over (B, 6272) adapter buffers
     A = 6272
@@ -133,10 +192,14 @@ def check_kernels(dev):
     p = segmentation.windowed_t_test_plain(xa, n_valid, w, 12)
     rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
     require(rel <= 4 * ULP_REL, f"K2: rel err {rel}")
+    # per score: both windows' running sums of x and x*x slide by one sample
+    # (8 adds and multiplies), 8 more for the variances and the quotient
+    n_scores = torch.clamp_min(n_valid - 2 * w, 0).long()
     record(
         "wdx_ttest", max_abs(k, p),
         time_ms(lambda: segmentation.windowed_t_test(xa, n_valid, w, 12)),
         time_ms(lambda: segmentation.windowed_t_test_plain(xa, n_valid, w, 12)),
+        2 * B * A * 4 + 2 * B * 4, int(n_scores.sum()) * 16,
     )
 
     # K3: distance suppression of the t-score peaks
@@ -146,15 +209,19 @@ def check_kernels(dev):
     k = peaks.suppress_by_distance(scores, is_peak, dist, 7)
     p = peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)
     require(torch.equal(k, p), "K3: keep masks differ")
+    # one round of the fixpoint: every peak compared with its 2 (d - 1) neighbours
     record(
         "wdx_suppress", max_abs(k.int(), p.int()),
         time_ms(lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7)),
         time_ms(lambda: peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)),
+        B * A * (4 + 1 + 1) + B * 4, int((is_peak.sum(1) * 2 * (dist - 1)).sum()),
     )
 
     # K4: gate medians (R=2 over L=10000, empty ranges included), the
     # outlier-clip median + MAD (R=1 over A=6272) and the full step's
-    # region statistics (R=3, MAD deviations through the calibration)
+    # region statistics (R=3, the adapter and poly(A) medians given, MAD
+    # deviations through the calibration). The step launches it with the
+    # last two.
     adc16, off, sc, _ = synth_minibatch(np.random.default_rng(2), B, L)
     adc16 = t(adc16)
     adc16[:, :3000] = adc16[:, :3000] // 16 * 16  # heavy ties
@@ -167,21 +234,43 @@ def check_kernels(dev):
     zero = torch.zeros_like(a_len)
     s3 = torch.cat([starts, starts[1:]])
     e3 = torch.cat([ends, torch.full_like(ends[1:], L)])
+
+    def covered(st, en, width):  # samples inside each of the R ranges
+        return (en.clamp(0, width) - st.clamp(0, width)).clamp_min(0).sum(1).tolist()
+
+    def k4_work(st, en, width, searched, with_mad, calibrated):
+        """(bytes, operations): a range's samples read once; a selection a
+        median (`searched`: per range, False where it is given), a MAD on
+        top, two more to calibrate a sample."""
+        n = covered(st, en, width)
+        n_bytes = sum(n) * (6 if calibrated else 4) + st.numel() * (8 + 4 * (1 + with_mad))
+        return n_bytes, sum(c * (SELECT_OPS * find + MAD_OPS * with_mad + 2 * calibrated) for c, find in zip(n, searched))
+
+    meds3 = select.range_median_mad(x, s3, e3, False)[0]
     errs = []
     for args in (
         (x, starts, ends, False),
         (xa, zero, a_len, True),
         (x, s3, e3, True, None, (), (adc16, off, sc)),
+        (x, s3, e3, True, meds3, (True, True, False), (adc16, off, sc)),
     ):
         km, kd = select.range_median_mad(*args)
         pm, pd = select.range_median_mad_plain(*args)
         errs += [max_abs(km, pm)] + ([max_abs(kd, pd)] if args[3] else [])
         require(torch.equal(km.isnan(), pm.isnan()), "K4: NaN pattern differs")
     require(max(errs) == 0.0, f"K4: errors {errs}")
-    record(
+    stats_args = (x, s3, e3, True, meds3, (True, True, False), (adc16, off, sc))
+    for name, args, work in (
+        ("gate medians, R=2 over L=10000 (K8's shape)", (x, starts, ends, False), k4_work(starts, ends, L, (True, True), False, False)),
+        ("region statistics of the full output, R=3, two medians given, calibrated MADs", stats_args, k4_work(s3, e3, L, (False, False, True), True, True)),
+    ):
+        ms = time_ms(lambda: select.range_median_mad(*args))
+        print(f"K4 {name}: kernel_ms={ms!r} bound_ms={bound(*work)[0]!r} by {bound(*work)[1]} on {card}")
+    record(  # the launch every path makes: the outlier clip on the adapter buffer
         "wdx_range_median_mad", max(errs),
-        time_ms(lambda: select.range_median_mad(x, starts, ends, False)),
-        time_ms(lambda: select.range_median_mad_plain(x, starts, ends, False)),
+        time_ms(lambda: select.range_median_mad(xa, zero, a_len, True)),
+        time_ms(lambda: select.range_median_mad_plain(xa, zero, a_len, True)),
+        *k4_work(zero, a_len, A, (True,), True, False),
     )
 
     # K8: the same gate medians (R=2) and the adapter-level proxy (R=1)
@@ -202,14 +291,16 @@ def check_kernels(dev):
         k8_ms = time_ms(lambda: select.range_medians_adc(x, adc16, st, en))
         k4_ms = time_ms(lambda: select.range_median_mad(x, st, en, False))
         print(f"K8 {shape}: kernel_ms={k8_ms!r} beside K4 kernel_ms={k4_ms!r}")
+    n = sum(covered(starts, ends, L))
     record(
         "wdx_range_median_adc", max(errs),
         time_ms(lambda: select.range_medians_adc(x, adc16, starts, ends)),
         time_ms(lambda: select.range_medians_adc_plain(x, adc16, starts, ends)),
+        n * 6 + starts.numel() * 12, n * SELECT_OPS,
     )
 
     # K5: LLR refine windows (800 of 10000) and adapter extraction
-    # (6272 of 16272)
+    # (6272 of 16272); the library call is torch.gather on a prebuilt index
     s800 = t(rng.integers(0, L - 800, B).astype(np.int32))
     xpad = torch.cat([x, torch.zeros((B, A), device=dev)], 1)
     sA = t(rng.integers(0, L, B).astype(np.int32))
@@ -219,35 +310,64 @@ def check_kernels(dev):
         p = window_gather.shift_rows_plain(src, st, n)
         require(torch.equal(k, p), f"K5: out_len {n} differs")
         errs.append(max_abs(k, p))
+    index = sA[:, None].long() + torch.arange(A, device=dev)[None, :]
+    require(torch.equal(torch.gather(xpad, 1, index), k), "K5: torch.gather differs")
     record(
         "wdx_shift_rows", max(errs),
         time_ms(lambda: window_gather.shift_rows(xpad, sA, A)),
         time_ms(lambda: window_gather.shift_rows_plain(xpad, sA, A)),
+        2 * B * A * 4 + B * 4, 0,
+        library_ms=time_ms(lambda: torch.gather(xpad, 1, index)),
     )
 
-    # K6: rolling mean/var of the calibrated signal (w 200 and 500)
+    # K6: rolling mean/var of the calibrated signal (w 200 and 500); the
+    # row's prefix sums live in shared memory, so the launch allocates its
+    # three outputs and nothing else
     k = bd.rolling_mean_var(x, 200, 500)
     p = bd.rolling_mean_var_plain(x, 200, 500)
     err = max(max_abs(a, b) for a, b in zip(k, p))
-    # tests/test_detect.py:106 tolerance (prefix-sum rounding)
-    torch.testing.assert_close(k[0], p[0], rtol=5e-4, atol=0.05)
-    for a, b, win in ((k[1], p[1], 200), (k[2], p[2], 500)):
-        torch.testing.assert_close(a[:, : L - win], b[:, : L - win], rtol=3e-3, atol=0.1)
-        torch.testing.assert_close(a[:, L - win :], b[:, L - win :], rtol=0, atol=5.0)
+    require(all(same_bits(a, b) for a, b in zip(k, p)), "K6: differs from the plain version")
+    del k
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k = bd.rolling_mean_var(x, 200, 500)
+    extra = torch.cuda.max_memory_allocated() - before - 3 * B * L * 4
+    require(extra < 2**20, f"K6 allocated {extra} bytes beside its outputs")
+    print(f"K6 at L={L}: {extra} bytes allocated beside the three outputs")
     record(
         "wdx_rolling_mean_var", err,
         time_ms(lambda: bd.rolling_mean_var(x, 200, 500)),
         time_ms(lambda: bd.rolling_mean_var_plain(x, 200, 500)),
+        4 * B * L * 4, B * L * 24,  # per sample: 2 prefix adds, a square, 6 + 4 edge adds and differences, 4 quotients, 2 fma (4), 2 clamps
     )
+    # edge lengths: no multiple of 16 (nor of 4: scalar loads), shorter than
+    # a block, windows longer than the row, and a row too long for shared
+    # memory (the device-scratch variant)
+    for b, length, w_mean, w_var in ((33, 9999, 200, 500), (33, 7, 3, 5), (33, 300, 400, 1000), (33, 4100, 200, 500), (8, 30000, 200, 500)):
+        xe = t(rng.normal(80, 12, (b, length)).astype(np.float32))
+        variant = "shared memory" if bd._scan_buffers(b, length, dev)[2] is None else "device scratch"
+        k = bd.rolling_mean_var(xe, w_mean, w_var)
+        p = bd.rolling_mean_var_plain(xe, w_mean, w_var)
+        require(all(same_bits(a, b) for a, b in zip(k, p)), f"K6 L={length} ({variant}): differs from the plain version")
+        print(f"K6 B={b} L={length} w=({w_mean}, {w_var}) ({variant}): max_abs_err={max(max_abs(a, b) for a, b in zip(k, p))!r}")
+    require(bd._scan_buffers(B, L, dev)[2] is None and bd._scan_buffers(8, 30000, dev)[2] is not None,
+            "K6: the variants were not both run")
 
-    # K7: sustained-run counts of a candidate mask (w 100)
+    # K7: sustained-run counts of a candidate mask (w 100); the library call
+    # is a convolution of the float mask (right-padded) with a ones kernel
     mask = t(rng.random((B, L)) < 0.4)
     k, p = bd.run_sum(mask, 100), bd.run_sum_plain(mask, 100)
     require(torch.equal(k, p), "K7 differs")
+    padded = F.pad(mask.float(), (0, 99))[:, None, :]
+    ones = torch.ones((1, 1, 100), device=dev)
+    require(torch.equal(F.conv1d(padded, ones)[:, 0].to(torch.int32), k), "K7: conv1d differs")
     record(
         "wdx_run_sum", max_abs(k, p),
         time_ms(lambda: bd.run_sum(mask, 100)),
         time_ms(lambda: bd.run_sum_plain(mask, 100)),
+        B * L * (1 + 4), B * L * 2,  # a sliding count: one sample in, one out
+        library_ms=time_ms(lambda: F.conv1d(padded, ones)),
     )
 
     # K9: rolling stats + both candidate run sums of the calibrated reads,
@@ -265,6 +385,13 @@ def check_kernels(dev):
         require(torch.equal(a, b), f"K9: {name} differs from K6")
     require(int(k[4].max()) > 0, "K9: the masked run sums are all 0")
     print(f"K9 candidates: {int((k[3] == 100).sum())} sustained, {int((k[4] == 100).sum())} inside the region")
+    # the device-scratch variant (a row too long for shared memory)
+    xe = t(rng.normal(100, 3, (8, 30000)).astype(np.float32))
+    long_args = (xe, t(np.ones((8, 30000), np.float32)), t(np.full(8, 99.0, np.float32)),
+                 t(np.full(8, 29000, np.int32)), 200, 500, 100, 30.0)
+    require(all(torch.equal(a, b) for a, b in zip(bd.rolling_detect(*long_args), bd.rolling_detect_plain(*long_args))),
+            "K9 L=30000 (device scratch): differs from the plain version")
+    print("K9 B=8 L=30000 (device scratch): max_abs_err=0.0")
 
     def unfused():  # K6 + 2 x K7 on the masks the unfused detect builds
         m, _, vw = bd.rolling_mean_var(x, 200, 500)
@@ -280,6 +407,7 @@ def check_kernels(dev):
         "wdx_rolling_detect", max(max_abs(a, b) for a, b in zip(k, p)),
         time_ms(lambda: bd.rolling_detect(*args)),
         time_ms(lambda: bd.rolling_detect_plain(*args)),
+        B * L * (4 + 4 + 12 + 8) + B * 8, B * L * (24 + 6 + 2 * 2),  # K6, the mask's compares, two sliding counts
     )
     return results
 
@@ -296,7 +424,7 @@ def _steps(dev):
         "vbz_full": dict(input_format="vbz", outputs="full", fused_rolling=False),
         "fused_decision": dict(input_format="adc", outputs="decision", fused_rolling=True),
     }
-    return {path: make_demux_step(load_model(MODEL), spc, device=dev, **kw[path]) for path in PATHS}
+    return {path: make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw[path]) for path in PATHS}
 
 
 def vbz_batch(adc, off, sc, lens):
@@ -488,8 +616,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
+    print("\n".join(_cuda.ptxas_summary(_cuda.build_log(_cuda.build()).read_text())))
 
-    results = check_kernels(dev)
+    results = check_kernels(dev, card)
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
     time_throughput(steps, card)

@@ -32,8 +32,8 @@ def setup():
         jax_load_model(MODEL), jax_spc(MODEL), input_format="adc", outputs="decision"
     )
     port_step = make_demux_step(
-        load_model(MODEL), get_model_spc_config(MODEL), input_format="adc",
-        outputs="decision",
+        load_model(MODEL, "cpu"), get_model_spc_config(MODEL), input_format="adc",
+        outputs="decision", device="cpu",
     )
     batch = synth_minibatch(np.random.default_rng(0), BENCH_B, L)
     return jax_step, port_step, batch

@@ -68,6 +68,26 @@ def test_k1_dtw(dev, n_ref):
     torch.testing.assert_close(got, want, rtol=4 * 2.0**-23, atol=0)
 
 
+@pytest.mark.parametrize(
+    "m, window, penalty, b, n",
+    [(25, 15, 0.1, 37, 131), (20, 8, 0.1, 37, 131), (32, 32, 0.5, 9, 300), (25, 1, 0.0, 5, 7)],
+)
+def test_k1_dtw_instances_and_edge_tiles(dev, m, window, penalty, b, n):
+    """The static instance at a B and N that divide no tile, the generic
+    instance at other lattices, NaN and infinite samples included: bit for
+    bit the plain version."""
+    rng = np.random.default_rng(m + window)
+    X = rng.normal(0, 1, (b, m)).astype(np.float32)
+    Y = rng.normal(0, 1, (n, m)).astype(np.float32)
+    X[1, 3], X[2, m - 1], X[3, 0], Y[n - 1, 2] = np.nan, np.inf, -np.inf, np.nan
+    X, Y = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    got = _launched("wdx_dtw", lambda: dtw.dtw_distance_matrix(X, Y, window, penalty))
+    want = dtw.dtw_distance_matrix_plain(X, Y, window, penalty)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert bool(got[1].isnan().all()) and bool(torch.isfinite(got[0, : n - 1]).all())
+
+
 def test_k2_ttest(dev):
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.normal(80, 12, (64, 6272)).astype(np.float32), device=dev)
@@ -118,6 +138,42 @@ def test_k6_rolling_mean_var(dev):
     got = _launched("wdx_rolling_mean_var", lambda: bd.rolling_mean_var(x, 200, 500))
     for g, w in zip(got, bd.rolling_mean_var_plain(x, 200, 500)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "b, length, w_mean, w_var",
+    [(33, 9999, 200, 500), (33, 7, 3, 5), (33, 300, 400, 1000), (33, 4100, 200, 500), (8, 30000, 200, 500)],
+)
+def test_k6_rolling_mean_var_edge_lengths(dev, b, length, w_mean, w_var):
+    """Lengths that are no multiple of 16 (nor of 4), shorter than a block,
+    windows longer than the row, and a row too long for shared memory (the
+    device-scratch variant)."""
+    x = torch.as_tensor(np.random.default_rng(length).normal(80, 12, (b, length)).astype(np.float32), device=dev)
+    assert (bd._scan_buffers(b, length, dev)[2] is not None) == (length == 30000)
+    got = _launched("wdx_rolling_mean_var", lambda: bd.rolling_mean_var(x, w_mean, w_var))
+    for g, w in zip(got, bd.rolling_mean_var_plain(x, w_mean, w_var)):
+        assert torch.equal(g, w)
+
+
+def test_k6_allocates_no_scratch_at_the_step_length(dev):
+    x = _signal(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = bd.rolling_mean_var(x, 200, 500)
+    assert torch.cuda.max_memory_allocated() - before - 3 * x.numel() * 4 < 2**20
+    del out
+
+
+def test_k9_rolling_detect_long_rows(dev):
+    """A row too long for shared memory takes K9's device-scratch variant."""
+    x = torch.as_tensor(np.random.default_rng(9).normal(100, 3, (8, 30000)).astype(np.float32), device=dev)
+    args = (x, torch.ones_like(x), torch.full((8,), 99.0, device=dev),
+            torch.full((8,), 29000, dtype=torch.int32, device=dev), 200, 500, 100, 30.0)
+    got = _launched("wdx_rolling_detect", lambda: bd.rolling_detect(*args))
+    for g, w in zip(got, bd.rolling_detect_plain(*args)):
+        assert torch.equal(g, w)
+    assert int(got[4].max()) == 100
 
 
 def test_k7_run_sum(dev):
@@ -189,10 +245,10 @@ def test_full_step_gpu_matches_cpu(dev):
     keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], 10000, 10 * 1024)
     args = (keys, data, off, sc, lens)
     _cuda.reset_launches()
-    gpu = make_demux_step(load_model(MODEL), spc, input_format="vbz", device=dev)(*args)
+    gpu = make_demux_step(load_model(MODEL, dev), spc, input_format="vbz", device=dev)(*args)
     torch.cuda.synchronize()
     assert _cuda.launches["wdx_range_median_adc"] > 0 and _cuda.launches["wdx_range_median_mad"] > 0
-    cpu = make_demux_step(load_model(MODEL), spc, input_format="vbz")(*args)
+    cpu = make_demux_step(load_model(MODEL, "cpu"), spc, input_format="vbz", device="cpu")(*args)
     g, c = gpu.unpack(), cpu.unpack()
     ok = c.fpt.ok
     for name in g.detect._fields:
@@ -218,7 +274,7 @@ def test_fused_decision_step_gpu(dev):
     outs = {}
     for fused in (True, False):
         step = make_demux_step(
-            load_model(MODEL), spc, input_format="adc", outputs="decision",
+            load_model(MODEL, dev), spc, input_format="adc", outputs="decision",
             fused_rolling=fused, device=dev,
         )
         _cuda.reset_launches()
@@ -240,11 +296,11 @@ def test_decision_step_gpu_matches_cpu(dev):
     adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 64, 10000)
     kw = dict(input_format="adc", outputs="decision", fused_rolling=False)
     _cuda.reset_launches()
-    gpu = make_demux_step(load_model(MODEL), spc, device=dev, **kw)(adc, off, sc, lens)
+    gpu = make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
     idle = {"wdx_rolling_detect"}  # the fused kernel replaces K6 + K7
     assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
-    cpu = make_demux_step(load_model(MODEL), spc, **kw)(adc, off, sc, lens)
+    cpu = make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu", **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     torch.testing.assert_close(gpu.probs.cpu(), cpu.probs, rtol=1e-5, atol=1e-6)

@@ -60,6 +60,52 @@ def test_rolling_mean_var_matches_jax():
         np.testing.assert_allclose(g[:, L - win :], w[:, L - win :], atol=5.0)
 
 
+@pytest.mark.parametrize(
+    "L, w_mean, w_var",
+    [(2047, 300, 150), (9, 3, 5), (300, 400, 1000), (4100, 200, 500), (70001, 200, 500)],
+    ids=["not-a-multiple-of-16", "shorter-than-a-block", "windows-longer-than-the-row",
+         "three-levels", "five-levels"],
+)
+def test_rolling_mean_var_plain_matches_jax_at_edge_lengths(L, w_mean, w_var):
+    """The plain version (kernel K6's yardstick) at the lengths where the
+    blocked scan's levels end unevenly: bit for bit the jitted jnp path,
+    except the variances of the windows of 2 and 4 samples at the row's end.
+    There XLA:CPU knows the count when it compiles the loop's remainder,
+    multiplies by 1/n and fuses that product, not mean * mean, into the
+    subtraction: one more float32 rounding of mean**2, at most 2**-9 for the
+    means here (below 180). No run of min_obs_polya samples starts there."""
+    x = np.random.default_rng(L).normal(80, 12, (3, L)).astype(np.float32)
+    got = bd.rolling_mean_var_plain(torch.from_numpy(x), w_mean, w_var)
+    want = jax.jit(lambda a: jax_bd._rolling_stats(a, w_mean, w_var))(x)
+    loose = np.zeros(L, bool)
+    loose[[t for t in (L - 2, L - 4) if t >= 0]] = True
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        np.testing.assert_array_equal(g[:, ~loose], w[:, ~loose])
+        np.testing.assert_allclose(g[:, loose], w[:, loose], rtol=0, atol=2.0**-9)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # means: everywhere
+
+
+@pytest.mark.parametrize("L", [1, 16, 17, 10000, 25731, 25732, 70001])
+def test_scan_buffers_follow_the_shared_memory_limit(L):
+    """K6's launch geometry: the prefix buffers (level 0 padded by one float
+    per block of 16, the levels above behind it) go into shared memory
+    while two of them fit 232,448 bytes, else into a device scratch tensor
+    of the unpadded length."""
+    row_len, shared_bytes, scratch = bd._scan_buffers(2, L, "cpu")
+    levels, n = [], L
+    while n > 16:
+        n = -(-n // 16)
+        levels.append(n)
+    if L <= 25731:
+        assert scratch is None and shared_bytes == 8 * row_len <= bd.MAX_SHARED_BYTES
+        assert row_len == L + (L - 1) // 16 + sum(levels)
+        # K9's candidate bytes ride along
+        assert bd._scan_buffers(2, L, "cpu", extra_shared=L)[1] in (0, shared_bytes + L)
+    else:
+        assert shared_bytes == 0 and scratch.shape == (2, 2, L + sum(levels))
+
+
 @pytest.mark.parametrize("w", [1, 100, 130, 5000])
 def test_run_sum_exact(w):
     rng = np.random.default_rng(w)
@@ -75,7 +121,7 @@ def test_cnn_region_prior_matches_jax():
     lens[:4] = [3000, 7000, 7168, 9000]
     pos = np.arange(x.shape[1])[None]
     xz = np.where(pos < lens[:, None], x, 0).astype(np.float32)
-    cnn = load_cnn(spc.cnn_model_name)
+    cnn = load_cnn(spc.cnn_model_name, "cpu")
     got = bd.cnn_region_mask(
         torch.from_numpy(xz), torch.from_numpy(lens), spc.detect, cnn, x.shape[1]
     ).numpy()
@@ -110,7 +156,7 @@ def test_detect_with_fallback_matches_jax_on_bench_reads():
     x, lens = _bench_rows(64)
     got = bd.detect_boundaries_with_fallback(
         torch.from_numpy(x), torch.from_numpy(lens), spc.detect,
-        load_cnn(spc.cnn_model_name), with_stats=False,
+        load_cnn(spc.cnn_model_name, "cpu"), with_stats=False,
     )
     jspc = jax_spc(MODEL)
     want = jax_bd.detect_boundaries_with_fallback(
@@ -196,7 +242,7 @@ def test_fused_detect_equals_unfused_on_bench_reads():
     on the production configuration: every field equal."""
     spc = get_model_spc_config(MODEL)
     x, lens = _bench_rows(64, seed=5)
-    cnn = load_cnn(spc.cnn_model_name)
+    cnn = load_cnn(spc.cnn_model_name, "cpu")
     args = (torch.from_numpy(x), torch.from_numpy(lens), spc.detect, cnn)
     fused = bd.detect_boundaries_with_fallback(*args, fused_rolling=True)
     plain = bd.detect_boundaries_with_fallback(*args, fused_rolling=False)
@@ -215,7 +261,7 @@ def test_detect_with_stats_and_adc_matches_jax_on_bench_reads():
     x = ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
     got = bd.detect_boundaries_with_fallback(
         torch.from_numpy(x), torch.from_numpy(lens), spc.detect,
-        load_cnn(spc.cnn_model_name), adc=torch.from_numpy(adc),
+        load_cnn(spc.cnn_model_name, "cpu"), adc=torch.from_numpy(adc),
     )
     jspc = jax_spc(MODEL)
     want = jax_bd.detect_boundaries_with_fallback(

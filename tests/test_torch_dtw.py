@@ -10,6 +10,7 @@ from warpdemux_tpu.ops.dtw import dtw_distance_matrix, dtw_distance_matrix_ref
 from warpdemux_tpu.ops.dtw_pallas import dtw_distance_matrix_pallas
 from warpdemux_tpu_torch.models.registry import load_model_arrays
 from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix as torch_dtw
+from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix_plain
 
 
 def _support_vectors(name):
@@ -53,3 +54,34 @@ def test_dtw_self_distance_is_zero():
     Y = _support_vectors("WDX4_rna004_v1_0")[:32]
     D = torch_dtw(torch.from_numpy(Y), torch.from_numpy(Y), 15, 0.1)
     assert torch.all(torch.diagonal(D) == 0)
+
+
+@pytest.mark.parametrize("m, window, penalty", [(20, 8, 0.1), (32, 32, 0.5)])
+def test_dtw_plain_matches_jax_at_other_lattices(m, window, penalty):
+    """The plain version (the yardstick of kernel K1's generic instance)
+    at fingerprint lengths and windows other than the models': bit for bit
+    the jitted jnp wavefront, and the float64 golden reference to 1e-5."""
+    rng = np.random.default_rng(m)
+    X = rng.normal(0, 1, (7, m)).astype(np.float32)
+    Y = rng.normal(0, 1, (33, m)).astype(np.float32)
+    got = dtw_distance_matrix_plain(torch.from_numpy(X), torch.from_numpy(Y), window, penalty).numpy()
+    np.testing.assert_array_equal(got, np.asarray(dtw_distance_matrix(X, Y, window, penalty)))
+    golden = dtw_distance_matrix_ref(X.astype(np.float64), Y.astype(np.float64), window, penalty)
+    np.testing.assert_allclose(got, golden, rtol=1e-5, atol=1e-5)
+
+
+def test_dtw_plain_non_finite_fingerprints_match_jax():
+    """NaN and infinite samples come out as in the jnp wavefront: a NaN
+    anywhere in a fingerprint makes its distances NaN (minimum propagates
+    it), an infinite sample makes them infinite; the other pairs are
+    untouched (exact)."""
+    rng = np.random.default_rng(5)
+    X = rng.normal(0, 1, (6, 25)).astype(np.float32)
+    Y = rng.normal(0, 1, (20, 25)).astype(np.float32)
+    X[1, 3], X[2, 24], X[3, 0], Y[19, 2] = np.nan, np.inf, -np.inf, np.nan
+    got = dtw_distance_matrix_plain(torch.from_numpy(X), torch.from_numpy(Y), 15, 0.1).numpy()
+    want = np.asarray(dtw_distance_matrix(X, Y, 15, 0.1))
+    np.testing.assert_array_equal(got, want)  # NaN == NaN here
+    assert np.isnan(got[1]).all() and np.isnan(got[:, 19]).all()
+    assert np.isinf(got[2, :19]).all() and np.isinf(got[3, :19]).all()
+    assert np.isfinite(got[[0, 4, 5], :19]).all()

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of warpdemux_tpu_torch imports
-jax or the JAX package, and the package loads with jax unavailable."""
+"""The PyTorch port stands alone: no module of warpdemux_tpu_torch, and
+neither of the GPU scripts at the repository root, imports jax or the JAX
+package, and the package loads with jax unavailable."""
 
 import ast
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parents[1] / "warpdemux_tpu_torch"
-MODULES = sorted(PKG.rglob("*.py"))
+SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "tune_kernels.py"]
+MODULES = sorted(PKG.rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "warpdemux_tpu")
 
 
@@ -22,7 +24,9 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
+@pytest.mark.parametrize(
+    "path", MODULES, ids=lambda p: p.name if p in SCRIPTS else str(p.relative_to(PKG))
+)
 def test_module_imports_neither_jax_nor_the_jax_package(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
@@ -39,7 +43,7 @@ def test_package_loads_without_jax():
         "from warpdemux_tpu_torch.config.utils import get_model_spc_config\n"
         "from warpdemux_tpu_torch.models.registry import load_model\n"
         "from warpdemux_tpu_torch.pipeline.step import make_demux_step\n"
-        "make_demux_step(load_model('WDX4_rna004_v1_0'), get_model_spc_config('WDX4_rna004_v1_0'))\n"
+        "make_demux_step(load_model('WDX4_rna004_v1_0', 'cpu'), get_model_spc_config('WDX4_rna004_v1_0'), device='cpu')\n"
         "print('ok')\n"
     )
     out = subprocess.run(

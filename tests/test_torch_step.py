@@ -38,8 +38,8 @@ def steps():
         jax_model, jax_spc(MODEL), input_format="adc", outputs="decision"
     )
     port_step = make_demux_step(
-        load_model(MODEL), get_model_spc_config(MODEL), input_format="adc",
-        outputs="decision",
+        load_model(MODEL, "cpu"), get_model_spc_config(MODEL), input_format="adc",
+        outputs="decision", device="cpu",
     )
     return jax_model, jax_step, port_step
 
@@ -119,8 +119,8 @@ def test_pa_feed_matches_adc_feed(steps):
     adc, offset, scale, lens = synth_minibatch(np.random.default_rng(4), 24, L)
     pa = (adc.astype(np.float32) + offset[:, None]) * scale[:, None]
     pa_step = make_demux_step(
-        load_model(MODEL), get_model_spc_config(MODEL), input_format="pa",
-        outputs="decision",
+        load_model(MODEL, "cpu"), get_model_spc_config(MODEL), input_format="pa",
+        outputs="decision", device="cpu",
     )
     got = _decisions(pa_step(pa, lens))
     want = _decisions(port_step(adc, offset, scale, lens))
@@ -144,7 +144,7 @@ def test_unported_step_options_raise(option):
     else:
         spc = replace(spc, detect=replace(spc.detect, method="start_peak"))
     with pytest.raises(NotImplementedError):
-        make_demux_step(load_model(MODEL), spc)
+        make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu")
 
 
 def test_a_positional_feed_name_fails_loudly():
@@ -155,9 +155,9 @@ def test_a_positional_feed_name_fails_loudly():
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
 
     with pytest.raises(TypeError):
-        make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), "adc")
+        make_demux_step(load_model(MODEL, "cpu"), get_model_spc_config(MODEL), "adc", device="cpu")
     with pytest.raises(ValueError):
-        make_demux_step(load_model(MODEL), get_model_spc_config(MODEL), input_format="pod5")
+        make_demux_step(load_model(MODEL, "cpu"), get_model_spc_config(MODEL), input_format="pod5", device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions(steps):
@@ -169,7 +169,7 @@ def test_cpu_tensors_take_the_plain_versions(steps):
     adc, offset, scale, lens = synth_minibatch(np.random.default_rng(9), 4, L)
     port_step(adc, offset, scale, lens)
     assert set(_cuda.launches.values()) == {0}
-    assert _cuda._library is None
+    assert not _cuda._libraries
 
 
 def test_mixed_devices_raise():
@@ -178,3 +178,28 @@ def test_mixed_devices_raise():
     x = torch.zeros((2, 10))
     with pytest.raises(ValueError):
         shift_rows(x, torch.zeros(2, dtype=torch.int32, device="meta"), 4)
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+    """make_demux_step, load_model and load_cnn run on the CUDA device
+    unless a device is named; without one they raise and never carry on on
+    the CPU. device="cpu" runs the plain PyTorch path."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_cnn, load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spc = get_model_spc_config(MODEL)
+    for call in (
+        lambda: load_model(MODEL),
+        lambda: load_cnn(spc.cnn_model_name),
+        lambda: make_demux_step(None, spc, input_format="adc"),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = load_model(MODEL, "cpu")
+    assert model.X_sv.device.type == "cpu"
+    assert next(load_cnn(spc.cnn_model_name, "cpu").buffers()).device.type == "cpu"
+    step = make_demux_step(model, spc, input_format="adc", outputs="decision", device="cpu")
+    out = step(*synth_minibatch(np.random.default_rng(9), 2, L))
+    assert out.pred.device.type == "cpu" and out.pred.shape == (2,)

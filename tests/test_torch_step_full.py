@@ -71,7 +71,7 @@ def port_model_spc():
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
 
-    return load_model(MODEL), get_model_spc_config(MODEL)
+    return load_model(MODEL, "cpu"), get_model_spc_config(MODEL)
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def outputs(batch, port_model_spc):
 
     _, keys, data, off, sc, lens = batch
     jax_step = jax_make_step(jax_load_model(MODEL), jax_spc(MODEL), input_format="vbz")
-    port_step = make_demux_step(*port_model_spc, input_format="vbz")
+    port_step = make_demux_step(*port_model_spc, input_format="vbz", device="cpu")
     return port_step(keys, data, off, sc, lens), jax_step(keys, data, off, sc, lens)
 
 
@@ -151,7 +151,7 @@ def test_vbz_and_adc_full_outputs_are_identical(batch, port_model_spc, outputs):
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
 
     adc, _, _, off, sc, lens = batch
-    adc_out = make_demux_step(*port_model_spc, input_format="adc")(adc, off, sc, lens)
+    adc_out = make_demux_step(*port_model_spc, input_format="adc", device="cpu")(adc, off, sc, lens)
     for a, b in zip(adc_out, outputs[0]):
         if a is not None:
             assert a.dtype == b.dtype
@@ -165,9 +165,9 @@ def test_full_step_without_classification(batch, port_model_spc, outputs, model)
     _, keys, data, off, sc, lens = batch
     m, spc = port_model_spc
     if model == "none":
-        step = make_demux_step(None, spc, input_format="vbz")
+        step = make_demux_step(None, spc, input_format="vbz", device="cpu")
     else:
-        step = make_demux_step(m, spc, with_predict=False, input_format="vbz")
+        step = make_demux_step(m, spc, with_predict=False, input_format="vbz", device="cpu")
     out = step(keys[:8], data[:8], off[:8], sc[:8], lens[:8])
     assert out.probs.shape == (8, 1)
     assert (out.pred == -1).all() and (out.conf == 0).all() and (out.probs == 0).all()

@@ -23,7 +23,7 @@ RNA004_MODELS = [
 @pytest.mark.parametrize("name", RNA004_MODELS)
 def test_predict_proba_and_labels_match_jax(name):
     jm = jax_load_model(name)
-    tm = load_model(name)
+    tm = load_model(name, "cpu")
     rng = np.random.default_rng(5)
     X = np.asarray(jm.X_sv)
     fpts = np.concatenate(
@@ -52,7 +52,7 @@ def test_model_forward_matches_jax_predict(name):
     """The whole classifier (DTW -> kernel -> proba -> labels) on the same
     fingerprints: identical labels, probabilities within rtol 1e-5."""
     jm = jax_load_model(name)
-    tm = load_model(name)
+    tm = load_model(name, "cpu")
     rng = np.random.default_rng(11)
     X = np.asarray(jm.X_sv)
     fpts = (

@@ -1,12 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels under csrc/.
 
-Every `*.cu` file in csrc/ is compiled for Hopper (sm_90a) by one `nvcc`
-call into a shared library with a plain C interface, loaded with ctypes.
-The sources include no PyTorch headers, so the build takes seconds. The
-library lands in `build/torch_kernels/` at the repository root, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time: the first
-launch builds.
+Every `*.cu` file in csrc/ is compiled for Hopper (sm_90a) by an `nvcc`
+call of its own, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes. The sources
+include no PyTorch headers, so the build takes seconds. The library lands
+in `build/torch_kernels/` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused; what ptxas said of each kernel (registers, shared memory, spills)
+lands beside it as `<library>.log`. Nothing here runs at import time: the
+first launch builds.
 
 Each launch runs on PyTorch's current stream and returns the CUDA error
 code, which `launch` turns into an exception. `launches` counts the
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -31,7 +34,7 @@ NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
     "-fmad=false",
-    "-shared",
+    "-Xptxas=-v",
     "-Xcompiler",
     "-fPIC",
 )
@@ -46,17 +49,21 @@ SIGNATURES = {
     "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_shift_rows": (_P, _P, _P, _I, _I, _I),
-    "wdx_rolling_mean_var": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I),
+    "wdx_rolling_mean_var": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I),
     "wdx_run_sum": (_P, _P, _I, _I, _I),
     "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_rolling_detect": (
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
 }
 
 launches: dict[str, int] = {name: 0 for name in SIGNATURES}
 
-_library: ctypes.CDLL | None = None
+# -DNAME=value overrides of the sources' tile sizes; a sweep (tune_kernels.py)
+# sets them, and the next launch builds and loads that variant
+defines: tuple[str, ...] = ()
+
+_libraries: dict[tuple, ctypes.CDLL] = {}  # by the defines they were built with
 
 
 def reset_launches() -> None:
@@ -76,6 +83,20 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all be on cpu or all on cuda, got {types}")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA GPU unless the caller
+    names another (`device="cpu"` for the CPU path). With no device given
+    and no CUDA GPU this raises; nothing moves to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: warpdemux_tpu_torch runs on the GPU by default; "
+            'pass device="cpu" to run the plain PyTorch path on the CPU'
+        )
+    return torch.device("cuda")
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -84,39 +105,86 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> Path:
-    """Compile csrc/ into the kernel library (reused when up to date)."""
+def compile_library(sources, out: Path, defines=()) -> None:
+    """Compile `sources` (one nvcc each, in parallel) and link them into the
+    shared library `out`; what the compilers printed (ptxas -v) is written
+    to `<out>.log` before the library appears."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    stem = f"{out.name}.{os.getpid()}"
+    objects = [out.with_name(f"{stem}.{Path(src).stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]  # waits for every compiler
+    try:
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(proc.args)}\n{log}")
+        tmp = out.with_name(f"{stem}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stderr}")
+        build_log(out).write_text("".join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+
+
+def build_log(library_path: Path) -> Path:
+    return library_path.with_name(library_path.name + ".log")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of a compile log: registers, spills, shared memory."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            info = " ".join(lines[i + 1 : i + 4])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+            smem = re.search(r"(\d+) bytes smem", info)
+            out.append(
+                f"ptxas {entry.group(1)[:60]}: registers={regs and regs.group(1)} "
+                f"spill stores/loads={spill and '/'.join(spill.groups())} "
+                f"static smem={smem.group(1) if smem else 0}"
+            )
+    return out
+
+
+def build(defines=()) -> Path:
+    """Compile csrc/ with `defines` into a kernel library (reused when up
+    to date)."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             digest.update(path.name.encode() + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     out = BUILD_DIR / f"libwdx_kernels_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    if not out.exists():
+        compile_library(sources, out, defines)
     return out
 
 
 def library() -> ctypes.CDLL:
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, built with the module's `defines`."""
+    if defines not in _libraries:
+        lib = ctypes.CDLL(str(build(defines)))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = [*argtypes, _P]
             fn.restype = ctypes.c_int
-        _library = lib
-    return _library
+        _libraries[defines] = lib
+    return _libraries[defines]
 
 
 def launch(name: str, device: torch.device, *args) -> None:

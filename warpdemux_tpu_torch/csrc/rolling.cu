@@ -1,4 +1,4 @@
-// K6 + K7: forward rolling-window statistics of the boundary detector.
+// K6 + K7 + K9: forward rolling-window statistics of the boundary detector.
 //
 // K6 replaces warpdemux_tpu/ops/rolling_pallas.py rolling_mean_var_pallas:
 // mean and variance over [t, min(t + w, L)) for w_mean (mean and var) and
@@ -7,10 +7,26 @@
 // association of ops/numerics.blocked_cumsum (XLA:CPU's blocked scan):
 // sequential float32 sums inside blocks of 16 samples, the block totals
 // scanned the same way one level up, each block's exclusive offset added
-// on the way down; every level is a pass of the block's threads over a
-// scratch row in device memory. var = fma(-mean, mean, s2 / n) with one
-// rounding, as XLA:CPU contracts it. The result is bit-identical to the
-// plain version (up to its float64 emulation of the fused multiply-add).
+// on the way down. var = fma(-mean, mean, s2 / n) with one rounding, as
+// XLA:CPU contracts it. The result is bit-identical to the plain version
+// (up to its float64 emulation of the fused multiply-add).
+//
+// Bound: memory, 4 bytes read and 12 written per sample. So the row is
+// read once and nothing but the outputs goes back to device memory:
+//   - both prefix-sum arrays, every level of them, live in the block's
+//     dynamic shared memory (2 x 11,292 floats = 90 KB at L = 10000; two
+//     blocks fit an SM). Level 0 is stored at the padded index i + i/16, so
+//     that threads 16 samples apart fall in different banks;
+//   - level 0: a thread loads its block of 16 samples as four float4 (its
+//     neighbours take the neighbouring 64 bytes) and carries the running
+//     sums of x and of x*x side by side in registers;
+//   - the levels above (625, 40 and 3 totals at L = 10000) are the work of
+//     one warp between two block barriers;
+//   - the last step down is folded into the output pass, which reads
+//     c[t] = local[t] + offset[t/16 - 1] (the same single add) for its three
+//     window edges from shared memory and writes the outputs coalesced.
+// A row too long for shared memory (L above 25,731) runs the same code
+// over a scratch row in device memory (unpadded); the wrapper picks by L.
 //
 // K7 replaces rolling_pallas.py rolling_run_sum_pallas: the int32 count of
 // a 0/1 mask over [t, min(t + w, L)). One thread counts one window directly
@@ -21,139 +37,226 @@
 // row: it runs K6's device code (so mean_f, var_f and var_w equal K6's bit
 // for bit), builds the candidate mask
 //   base = mean_f > thr & var_w < var_max & t < len & t + w_run <= len
-// from its own outputs into a scratch row, and counts base and
+// in the output pass into a byte row (shared memory after the prefix sums,
+// or device scratch for a long row), and counts base and
 // base & (region > 0) over [t, min(t + w_run, L)) as K7 does. The TPU
 // kernel's doubling scan is not carried over: the prefix sums keep
 // XLA:CPU's blocked association, so the fused and unfused detect decide
-// identically.
-//
-// Bound: K6 is memory-bound (4 bytes in, ~9 bytes of scratch traffic per
-// prefix, 12 bytes out per sample); K7 reads w bytes per output from cache
-// and writes 4. K9 moves K6's bytes plus 4 bytes of region in, 2 scratch
-// bytes and 8 bytes of run sums out per sample, and saves the two masks
-// and K7's launches.
+// identically. K9 moves K6's bytes plus 4 bytes of region in and 8 bytes of
+// run sums out per sample, and saves the two masks and K7's launches.
 #include "common.cuh"
 
 #define WDX_SCAN_BLOCK 16
 #define WDX_SCAN_MAX_LEVELS 8
+#ifndef WDX_ROLLING_THREADS
+#define WDX_ROLLING_THREADS 512
+#endif
 
-// Level sizes / offsets of the blocked scan of n values; returns the count.
-__device__ int wdx_scan_levels(int n, int* sizes, int* offsets) {
+// Where the levels of a row's blocked scan of L values lie in its buffer.
+// Level 0 takes [0, L) (padded: index i + i/16); level k >= 1 starts at
+// offs[k].
+struct WdxScanLayout {
+  int n_levels;
+  int sizes[WDX_SCAN_MAX_LEVELS];
+  int offs[WDX_SCAN_MAX_LEVELS];
+  int total;  // floats of the whole buffer
+};
+
+template <bool PAD>
+__host__ __device__ inline WdxScanLayout wdx_scan_layout(int L) {
+  WdxScanLayout s;
   int lev = 0;
-  sizes[0] = n;
-  offsets[0] = 0;
-  while (sizes[lev] > WDX_SCAN_BLOCK && lev + 1 < WDX_SCAN_MAX_LEVELS) {
-    sizes[lev + 1] = (sizes[lev] + WDX_SCAN_BLOCK - 1) / WDX_SCAN_BLOCK;
-    offsets[lev + 1] = offsets[lev] + sizes[lev];
+  s.sizes[0] = L;
+  s.offs[0] = 0;
+  int end = PAD ? L + (L - 1) / WDX_SCAN_BLOCK : L;
+  while (s.sizes[lev] > WDX_SCAN_BLOCK && lev + 1 < WDX_SCAN_MAX_LEVELS) {
+    s.sizes[lev + 1] = (s.sizes[lev] + WDX_SCAN_BLOCK - 1) / WDX_SCAN_BLOCK;
+    s.offs[lev + 1] = end;
+    end += s.sizes[lev + 1];
     ++lev;
   }
-  return lev + 1;
+  s.n_levels = lev + 1;
+  s.total = end;
+  return s;
 }
 
-// Inclusive blocked prefix sum of xr (squared if `square`) into buf[0, L);
-// buf holds every level (the wrapper sizes it). All threads of the block call.
-__device__ void wdx_blocked_scan(const float* __restrict__ xr, bool square, float* buf, int L) {
-  int sizes[WDX_SCAN_MAX_LEVELS], offs[WDX_SCAN_MAX_LEVELS];
-  const int n_levels = wdx_scan_levels(L, sizes, offs);
-  for (int lev = 0; lev < n_levels; ++lev) {  // up: in-block running sums
-    const int n = sizes[lev];
-    const int n_blocks = (n + WDX_SCAN_BLOCK - 1) / WDX_SCAN_BLOCK;
-    for (int blk = threadIdx.x; blk < n_blocks; blk += blockDim.x) {
-      const int lo = blk * WDX_SCAN_BLOCK;
-      const int hi = min(lo + WDX_SCAN_BLOCK, n);
-      float s = 0.f;
-      for (int i = lo; i < hi; ++i) {
-        float v;
-        if (lev == 0) {
-          v = xr[i];
-          if (square) v = v * v;
-        } else {  // the total of block i one level down
-          v = buf[offs[lev - 1] + min(i * WDX_SCAN_BLOCK + WDX_SCAN_BLOCK - 1, sizes[lev - 1] - 1)];
-        }
-        s = i == lo ? v : s + v;
-        buf[offs[lev] + i] = s;
+template <bool PAD>
+__device__ __forceinline__ int wdx_scan_index(const WdxScanLayout& s, int lev, int i) {
+  if (lev == 0) return PAD ? i + i / WDX_SCAN_BLOCK : i;
+  return s.offs[lev] + i;
+}
+
+// Blocked prefix sums of row xr and of its squares into c1 and c2: level 0
+// holds the running sums inside each block of 16 (its offsets are added by
+// wdx_prefix), the levels above are complete. Returns the index of level 1,
+// or -1 when there is none. All threads of the block call.
+template <bool PAD>
+__device__ int wdx_row_prefix_sums(const float* __restrict__ xr, float* c1, float* c2, int L) {
+  const WdxScanLayout s = wdx_scan_layout<PAD>(L);
+  const int n_blocks = (L + WDX_SCAN_BLOCK - 1) / WDX_SCAN_BLOCK;
+  const bool vec = L % 4 == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0;
+  for (int blk = threadIdx.x; blk < n_blocks; blk += blockDim.x) {
+    const int lo = blk * WDX_SCAN_BLOCK;
+    const int n = min(WDX_SCAN_BLOCK, L - lo);
+    float v[WDX_SCAN_BLOCK];
+    if (vec) {  // n is a multiple of 4
+#pragma unroll
+      for (int q = 0; q < WDX_SCAN_BLOCK / 4; ++q) {
+        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (4 * q < n) f = reinterpret_cast<const float4*>(xr + lo)[q];
+        v[4 * q] = f.x;
+        v[4 * q + 1] = f.y;
+        v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < WDX_SCAN_BLOCK; ++k) v[k] = k < n ? xr[lo + k] : 0.f;
+    }
+    const int o = wdx_scan_index<PAD>(s, 0, lo);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < WDX_SCAN_BLOCK; ++k) {
+      if (k < n) {
+        const float x = v[k];
+        const float xx = x * x;
+        s1 = k == 0 ? x : s1 + x;
+        s2 = k == 0 ? xx : s2 + xx;
+        c1[o + k] = s1;
+        c2[o + k] = s2;
       }
     }
-    __syncthreads();
   }
-  for (int lev = n_levels - 2; lev >= 0; --lev) {  // down: block offsets
-    for (int i = threadIdx.x; i < sizes[lev]; i += blockDim.x) {
-      const int blk = i / WDX_SCAN_BLOCK;
-      if (blk > 0) buf[offs[lev] + i] = buf[offs[lev] + i] + buf[offs[lev + 1] + blk - 1];
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the levels above 0: one warp, both arrays
+    const int lane = threadIdx.x;
+    for (int lev = 1; lev < s.n_levels; ++lev) {  // up: in-block running sums
+      const int n = s.sizes[lev];
+      const int nb = (n + WDX_SCAN_BLOCK - 1) / WDX_SCAN_BLOCK;
+      for (int task = lane; task < 2 * nb; task += 32) {
+        float* c = task < nb ? c1 : c2;
+        const int lo = (task < nb ? task : task - nb) * WDX_SCAN_BLOCK;
+        const int hi = min(lo + WDX_SCAN_BLOCK, n);
+        float acc = 0.f;
+        for (int i = lo; i < hi; ++i) {  // the total of block i one level down
+          const int last = min(i * WDX_SCAN_BLOCK + WDX_SCAN_BLOCK - 1, s.sizes[lev - 1] - 1);
+          const float v = c[wdx_scan_index<PAD>(s, lev - 1, last)];
+          acc = i == lo ? v : acc + v;
+          c[s.offs[lev] + i] = acc;
+        }
+      }
+      __syncwarp();
     }
-    __syncthreads();
+    for (int lev = s.n_levels - 2; lev >= 1; --lev) {  // down: block offsets
+      const int n = s.sizes[lev];
+      for (int task = lane; task < 2 * n; task += 32) {
+        float* c = task < n ? c1 : c2;
+        const int i = task < n ? task : task - n;
+        const int blk = i / WDX_SCAN_BLOCK;
+        if (blk > 0) c[s.offs[lev] + i] = c[s.offs[lev] + i] + c[s.offs[lev + 1] + blk - 1];
+      }
+      __syncwarp();
+    }
   }
+  __syncthreads();
+  return s.n_levels > 1 ? s.offs[1] : -1;
 }
 
-__device__ __forceinline__ float wdx_prefix(const float* c, int t) {
-  return t == 0 ? 0.f : c[t - 1];  // sum of the first t samples
+// Sum of the first t samples: the last step down of the blocked scan.
+template <bool PAD>
+__device__ __forceinline__ float wdx_prefix(const float* c, int level1, int t) {
+  if (t == 0) return 0.f;
+  const int i = t - 1;
+  const int blk = i / WDX_SCAN_BLOCK;
+  float v = c[PAD ? i + blk : i];
+  if (level1 >= 0 && blk > 0) v = v + c[level1 + blk - 1];
+  return v;
 }
 
-__device__ __forceinline__ void wdx_window_mean_var(const float* c1, const float* c2, int t,
-                                                    int w, int L, float& mean, float& var) {
-  const int hi = min(t + w, L);
-  const float n = (float)(hi - t);
-  const float s1 = wdx_prefix(c1, hi) - wdx_prefix(c1, t);
-  const float s2 = wdx_prefix(c2, hi) - wdx_prefix(c2, t);
+__device__ __forceinline__ void wdx_mean_var(float s1, float s2, float n, float& mean, float& var) {
   mean = s1 / n;
   const float v = __fmaf_rn(-mean, mean, s2 / n);
   var = v < 0.f ? 0.f : v;  // jnp.maximum(v, 0): NaN stays NaN
 }
 
-// K6's work on row blockIdx.x; all threads of the block call.
-__device__ void wdx_row_mean_var(const float* __restrict__ x, float* c1_all, float* c2_all,
-                                 int scratch_len, float* __restrict__ mean_f,
-                                 float* __restrict__ var_f, float* __restrict__ var_w, int L,
-                                 int w_mean, int w_var) {
-  const int b = blockIdx.x;
-  const float* xr = x + (long long)b * L;
-  float* c1 = c1_all + (long long)b * scratch_len;
-  float* c2 = c2_all + (long long)b * scratch_len;
-  wdx_blocked_scan(xr, false, c1, L);
-  wdx_blocked_scan(xr, true, c2, L);
+// The poly(A) candidate inputs of K9's row (unused by K6).
+struct WdxDetectRow {
+  const float* region;  // the row's CNN region prior
+  uint8_t* base;        // out: bit 0 the candidate mask, bit 1 inside the region
+  float thr;
+  int len;
+  int w_run;
+  float var_max;
+};
 
-  const long long row = (long long)b * L;
+// K6's work on row blockIdx.x over the prefix buffers c1 and c2; with
+// DETECT also K9's candidate bytes. All threads of the block call.
+template <bool PAD, bool DETECT>
+__device__ void wdx_row_mean_var(const float* __restrict__ x, float* c1, float* c2,
+                                 float* __restrict__ mean_f, float* __restrict__ var_f,
+                                 float* __restrict__ var_w, int L, int w_mean, int w_var,
+                                 const WdxDetectRow& det) {
+  const long long row = (long long)blockIdx.x * L;
+  const int level1 = wdx_row_prefix_sums<PAD>(x + row, c1, c2, L);
   for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    const float lo1 = wdx_prefix<PAD>(c1, level1, t);
+    const float lo2 = wdx_prefix<PAD>(c2, level1, t);
+    const int hi_m = min(t + w_mean, L);
+    const int hi_v = min(t + w_var, L);
     float m, v, mw, vw;
-    wdx_window_mean_var(c1, c2, t, w_mean, L, m, v);
-    wdx_window_mean_var(c1, c2, t, w_var, L, mw, vw);
+    wdx_mean_var(wdx_prefix<PAD>(c1, level1, hi_m) - lo1, wdx_prefix<PAD>(c2, level1, hi_m) - lo2,
+                 (float)(hi_m - t), m, v);
+    wdx_mean_var(wdx_prefix<PAD>(c1, level1, hi_v) - lo1, wdx_prefix<PAD>(c2, level1, hi_v) - lo2,
+                 (float)(hi_v - t), mw, vw);
     mean_f[row + t] = m;
     var_f[row + t] = v;
     var_w[row + t] = vw;
+    if (DETECT) {
+      const bool cand = m > det.thr && vw < det.var_max && t < det.len && t + det.w_run <= det.len;
+      det.base[t] = (uint8_t)((cand ? 1 : 0) | (cand && det.region[t] > 0.f ? 2 : 0));
+    }
   }
 }
 
-__global__ void wdx_rolling_mean_var_kernel(const float* __restrict__ x, float* c1_all,
-                                            float* c2_all, int scratch_len,
-                                            float* __restrict__ mean_f,
-                                            float* __restrict__ var_f, float* __restrict__ var_w,
-                                            int L, int w_mean, int w_var) {
-  wdx_row_mean_var(x, c1_all, c2_all, scratch_len, mean_f, var_f, var_w, L, w_mean, w_var);
+extern __shared__ float wdx_rolling_smem[];
+
+// SHARED: the prefix buffers (row_len floats each) are the block's dynamic
+// shared memory; else rows of the scratch tensors c1_all and c2_all.
+template <bool SHARED>
+__global__ void __launch_bounds__(WDX_ROLLING_THREADS)
+    wdx_rolling_mean_var_kernel(const float* __restrict__ x, float* c1_all, float* c2_all,
+                                int row_len, float* __restrict__ mean_f,
+                                float* __restrict__ var_f, float* __restrict__ var_w, int L,
+                                int w_mean, int w_var) {
+  float* c1 = SHARED ? wdx_rolling_smem : c1_all + (long long)blockIdx.x * row_len;
+  float* c2 = SHARED ? wdx_rolling_smem + row_len : c2_all + (long long)blockIdx.x * row_len;
+  wdx_row_mean_var<SHARED, false>(x, c1, c2, mean_f, var_f, var_w, L, w_mean, w_var,
+                                  WdxDetectRow());
 }
 
-__global__ void wdx_rolling_detect_kernel(const float* __restrict__ x,
-                                          const float* __restrict__ region,
-                                          const float* __restrict__ thr,
-                                          const int* __restrict__ lens, float* c1_all,
-                                          float* c2_all, int scratch_len, uint8_t* base_all,
-                                          float* __restrict__ mean_f, float* __restrict__ var_f,
-                                          float* __restrict__ var_w, int* __restrict__ rs_plain,
-                                          int* __restrict__ rs_masked, int L, int w_mean,
-                                          int w_var, int w_run, float var_max) {
-  wdx_row_mean_var(x, c1_all, c2_all, scratch_len, mean_f, var_f, var_w, L, w_mean, w_var);
+template <bool SHARED>
+__global__ void __launch_bounds__(WDX_ROLLING_THREADS)
+    wdx_rolling_detect_kernel(const float* __restrict__ x, const float* __restrict__ region,
+                              const float* __restrict__ thr, const int* __restrict__ lens,
+                              float* c1_all, float* c2_all, int row_len, uint8_t* base_all,
+                              float* __restrict__ mean_f, float* __restrict__ var_f,
+                              float* __restrict__ var_w, int* __restrict__ rs_plain,
+                              int* __restrict__ rs_masked, int L, int w_mean, int w_var,
+                              int w_run, float var_max) {
   const int b = blockIdx.x;
   const long long row = (long long)b * L;
-  const float th = thr[b];
-  const int len = lens[b];
-  // bit 0: the candidate mask; bit 1: the mask inside the CNN region. Each
-  // thread reads back the statistics it wrote itself.
-  uint8_t* base = base_all + row;
-  for (int t = threadIdx.x; t < L; t += blockDim.x) {
-    const bool cand = mean_f[row + t] > th && var_w[row + t] < var_max && t < len &&
-                      t + w_run <= len;
-    base[t] = (uint8_t)((cand ? 1 : 0) | (cand && region[row + t] > 0.f ? 2 : 0));
-  }
+  float* c1 = SHARED ? wdx_rolling_smem : c1_all + (long long)b * row_len;
+  float* c2 = SHARED ? wdx_rolling_smem + row_len : c2_all + (long long)b * row_len;
+  WdxDetectRow det;
+  det.region = region + row;
+  det.base = SHARED ? reinterpret_cast<uint8_t*>(wdx_rolling_smem + 2 * row_len) : base_all + row;
+  det.thr = thr[b];
+  det.len = lens[b];
+  det.w_run = w_run;
+  det.var_max = var_max;
+  wdx_row_mean_var<SHARED, true>(x, c1, c2, mean_f, var_f, var_w, L, w_mean, w_var, det);
   __syncthreads();
+  const uint8_t* base = det.base;
   for (int t = threadIdx.x; t < L; t += blockDim.x) {
     const int hi = min(t + w_run, L);
     int cp = 0, cm = 0;
@@ -179,12 +282,43 @@ __global__ void wdx_run_sum_kernel(const uint8_t* __restrict__ mask, int* __rest
   out[idx] = c;
 }
 
+// shared_bytes > 0 selects the shared-memory variant (the scratch pointers
+// are then unused); it and row_len must cover what the layout needs.
+static int wdx_check_rolling(int L, int row_len, int shared_bytes, int extra_bytes) {
+  const int need = shared_bytes > 0 ? wdx_scan_layout<true>(L).total : wdx_scan_layout<false>(L).total;
+  if (row_len < need) return (int)cudaErrorInvalidValue;
+  if (shared_bytes > 0 && (long long)shared_bytes < 2LL * row_len * (long long)sizeof(float) + extra_bytes)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Dynamic shared memory above 48 KB has to be granted per kernel; the
+// carve-out hint lets two blocks of 90 KB share an SM.
+template <typename Kernel>
+static int wdx_allow_shared(Kernel kernel, int shared_bytes) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+}
+
 WDX_API int wdx_rolling_mean_var(const float* x, float* c1_scratch, float* c2_scratch,
-                                 int scratch_len, float* mean_f, float* var_f, float* var_w,
-                                 int B, int L, int w_mean, int w_var, cudaStream_t stream) {
+                                 int row_len, int shared_bytes, float* mean_f, float* var_f,
+                                 float* var_w, int B, int L, int w_mean, int w_var,
+                                 cudaStream_t stream) {
   if (B == 0 || L == 0) return 0;
-  wdx_rolling_mean_var_kernel<<<B, 1024, 0, stream>>>(x, c1_scratch, c2_scratch, scratch_len,
-                                                      mean_f, var_f, var_w, L, w_mean, w_var);
+  int err = wdx_check_rolling(L, row_len, shared_bytes, 0);
+  if (err) return err;
+  if (shared_bytes > 0) {
+    err = wdx_allow_shared(wdx_rolling_mean_var_kernel<true>, shared_bytes);
+    if (err) return err;
+    wdx_rolling_mean_var_kernel<true><<<B, WDX_ROLLING_THREADS, shared_bytes, stream>>>(
+        x, nullptr, nullptr, row_len, mean_f, var_f, var_w, L, w_mean, w_var);
+  } else {
+    wdx_rolling_mean_var_kernel<false><<<B, WDX_ROLLING_THREADS, 0, stream>>>(
+        x, c1_scratch, c2_scratch, row_len, mean_f, var_f, var_w, L, w_mean, w_var);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -199,13 +333,23 @@ WDX_API int wdx_run_sum(const uint8_t* mask, int* out, int B, int L, int w, cuda
 
 WDX_API int wdx_rolling_detect(const float* x, const float* region, const float* thr,
                                const int* lens, float* c1_scratch, float* c2_scratch,
-                               int scratch_len, uint8_t* base_scratch, float* mean_f,
-                               float* var_f, float* var_w, int* rs_plain, int* rs_masked, int B,
-                               int L, int w_mean, int w_var, int w_run, float var_max,
-                               cudaStream_t stream) {
+                               int row_len, int shared_bytes, uint8_t* base_scratch,
+                               float* mean_f, float* var_f, float* var_w, int* rs_plain,
+                               int* rs_masked, int B, int L, int w_mean, int w_var, int w_run,
+                               float var_max, cudaStream_t stream) {
   if (B == 0 || L == 0) return 0;
-  wdx_rolling_detect_kernel<<<B, 1024, 0, stream>>>(
-      x, region, thr, lens, c1_scratch, c2_scratch, scratch_len, base_scratch, mean_f, var_f,
-      var_w, rs_plain, rs_masked, L, w_mean, w_var, w_run, var_max);
+  int err = wdx_check_rolling(L, row_len, shared_bytes, L);
+  if (err) return err;
+  if (shared_bytes > 0) {
+    err = wdx_allow_shared(wdx_rolling_detect_kernel<true>, shared_bytes);
+    if (err) return err;
+    wdx_rolling_detect_kernel<true><<<B, WDX_ROLLING_THREADS, shared_bytes, stream>>>(
+        x, region, thr, lens, nullptr, nullptr, row_len, nullptr, mean_f, var_f, var_w, rs_plain,
+        rs_masked, L, w_mean, w_var, w_run, var_max);
+  } else {
+    wdx_rolling_detect_kernel<false><<<B, WDX_ROLLING_THREADS, 0, stream>>>(
+        x, region, thr, lens, c1_scratch, c2_scratch, row_len, base_scratch, mean_f, var_f,
+        var_w, rs_plain, rs_masked, L, w_mean, w_var, w_run, var_max);
+  }
   return (int)cudaGetLastError();
 }

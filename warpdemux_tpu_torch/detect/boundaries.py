@@ -66,14 +66,35 @@ def rolling_mean_var_plain(xz: torch.Tensor, w_mean: int, w_var: int):
     return mean_f, var_f, var_w
 
 
-def _scan_scratch_len(L: int) -> int:
-    """Floats a row needs for every level of the blocked scan:
-    L + L/16 + L/256 + ..."""
-    scratch_len, n = L, L
+# Dynamic shared memory a block may take on the kernels' target (sm_90)
+MAX_SHARED_BYTES = 232448
+
+
+def _scan_row_len(L: int, padded: bool) -> int:
+    """Floats a row's prefix buffer needs for every level of the blocked
+    scan, L + L/16 + L/256 + ...; `padded`: level 0 at index i + i // 16
+    (the shared-memory layout of csrc/rolling.cu)."""
+    row_len, n = L, L
+    if padded and L > 0:
+        row_len += (L - 1) // BLOCK
     while n > BLOCK:
         n = -(-n // BLOCK)
-        scratch_len += n
-    return scratch_len
+        row_len += n
+    return row_len
+
+
+def _scan_buffers(B: int, L: int, device, extra_shared: int = 0):
+    """(row_len, shared_bytes, scratch) of a K6 / K9 launch over (B, L).
+
+    Both prefix-sum arrays of a row (and `extra_shared` bytes more) go into
+    the block's shared memory where they fit: then scratch is None. Longer
+    rows get shared_bytes 0 and a (2, B, row_len) scratch tensor."""
+    row_len = _scan_row_len(L, padded=True)
+    shared_bytes = 2 * 4 * row_len + extra_shared
+    if shared_bytes <= MAX_SHARED_BYTES:
+        return row_len, shared_bytes, None
+    row_len = _scan_row_len(L, padded=False)
+    return row_len, 0, torch.empty((2, B, row_len), dtype=torch.float32, device=device)
 
 
 def rolling_mean_var(xz: torch.Tensor, w_mean: int, w_var: int):
@@ -84,13 +105,13 @@ def rolling_mean_var(xz: torch.Tensor, w_mean: int, w_var: int):
     B, L = xz.shape
     xz = xz.contiguous()
     _cuda.check(xz, torch.float32, 2, "rolling_mean_var x")
-    scratch_len = _scan_scratch_len(L)
-    scratch = torch.empty((2, B, scratch_len), dtype=torch.float32, device=xz.device)
+    row_len, shared_bytes, scratch = _scan_buffers(B, L, xz.device)
+    c1, c2 = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
     out = torch.empty((3, B, L), dtype=torch.float32, device=xz.device)
     _cuda.launch(
-        "wdx_rolling_mean_var", xz.device, xz.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), scratch_len, out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), B, L, int(w_mean), int(w_var),
+        "wdx_rolling_mean_var", xz.device, xz.data_ptr(), c1, c2, row_len, shared_bytes,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, L,
+        int(w_mean), int(w_var),
     )
     return out[0], out[1], out[2]
 
@@ -157,17 +178,21 @@ def rolling_detect(
     _cuda.check(thr, torch.float32, 1, "rolling_detect thr")
     if region.shape != (B, L) or thr.shape != (B,) or in_lens.shape != (B,):
         raise ValueError("rolling_detect: region must be (B, L), thr and in_lens (B,)")
-    scratch_len = _scan_scratch_len(L)
-    scratch = torch.empty((2, B, scratch_len), dtype=torch.float32, device=xz.device)
-    base = torch.empty((B, L), dtype=torch.uint8, device=xz.device)
+    # the candidate byte row rides in shared memory with the prefix sums
+    row_len, shared_bytes, scratch = _scan_buffers(B, L, xz.device, extra_shared=L)
+    if scratch is None:
+        c1 = c2 = base = 0
+    else:
+        base_row = torch.empty((B, L), dtype=torch.uint8, device=xz.device)
+        c1, c2, base = scratch[0].data_ptr(), scratch[1].data_ptr(), base_row.data_ptr()
     stats = torch.empty((3, B, L), dtype=torch.float32, device=xz.device)
     sums = torch.empty((2, B, L), dtype=torch.int32, device=xz.device)
     _cuda.launch(
         "wdx_rolling_detect", xz.device, xz.data_ptr(), region.data_ptr(),
-        thr.data_ptr(), in_lens.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), scratch_len, base.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), stats[2].data_ptr(), sums[0].data_ptr(),
-        sums[1].data_ptr(), B, L, int(w_mean), int(w_var), int(w_run), float(var_max),
+        thr.data_ptr(), in_lens.data_ptr(), c1, c2, row_len, shared_bytes, base,
+        stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+        sums[0].data_ptr(), sums[1].data_ptr(), B, L, int(w_mean), int(w_var),
+        int(w_run), float(var_max),
     )
     return stats[0], stats[1], stats[2], sums[0], sums[1]
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from warpdemux_tpu_torch._cuda import resolve_device
 from warpdemux_tpu_torch.config.utils import CNN_DIR, MODEL_DIR
 from warpdemux_tpu_torch.detect.cnn import BoundaryCNN
 from warpdemux_tpu_torch.models.dtw_svm import DTWSVMModel
@@ -72,9 +73,12 @@ def cnn_from_arrays(arrays: dict, device) -> BoundaryCNN:
     )
 
 
-def load_model(name: str, device="cpu") -> DTWSVMModel:
-    return dtw_svm_from_arrays(load_model_arrays(name), device, name=name)
+def load_model(name: str, device=None) -> DTWSVMModel:
+    """The named model on `device`: by default the CUDA GPU (RuntimeError
+    where there is none); `device="cpu"` for the CPU."""
+    return dtw_svm_from_arrays(load_model_arrays(name), resolve_device(device), name=name)
 
 
-def load_cnn(name: str, device="cpu") -> BoundaryCNN:
-    return cnn_from_arrays(load_cnn_arrays(name), device)
+def load_cnn(name: str, device=None) -> BoundaryCNN:
+    """The named boundary CNN on `device`; the default as in load_model."""
+    return cnn_from_arrays(load_cnn_arrays(name), resolve_device(device))

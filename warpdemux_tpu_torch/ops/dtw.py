@@ -9,11 +9,13 @@ is compared with every reference fingerprint of the model:
 - Sakoe-Chiba band |i - j| <= window - 1 (equal lengths),
 - result sqrt(D[m, m]).
 
-CUDA tensors go to kernel K1 (csrc/dtw.cu, one thread per pair); CPU
-tensors go to the plain anti-diagonal wavefront, the same recurrence as the
-jnp version. Each cell is one fused multiply-add, (q_i - r_j)^2 + best,
-rounded once, as XLA:CPU contracts it; the final square root is correctly
-rounded.
+CUDA tensors go to kernel K1 (csrc/dtw.cu: a block per tile of references
+by queries, a thread per reference; a fully unrolled instance for m = 25,
+window = 15, a generic one for any m <= 32); CPU tensors go to the plain
+anti-diagonal wavefront, the same recurrence as the jnp version. Each cell
+is one fused multiply-add, (q_i - r_j)^2 + best, rounded once, as XLA:CPU
+contracts it; the minimum propagates NaN; the final square root is
+correctly rounded.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from warpdemux_tpu_torch._cuda import resolve_device
 from warpdemux_tpu_torch.config.sig_proc import SigProcConfig
 from warpdemux_tpu_torch.detect.boundaries import (
     check_supported,
@@ -133,9 +134,11 @@ def make_demux_step(
     input_format: str = "pa",
     outputs: str = "full",
     fused_rolling: bool | None = None,
-    device="cpu",
+    device=None,
 ):
-    """Build the demux step on `device`.
+    """Build the demux step on `device`: by default the CUDA GPU
+    (RuntimeError where there is none); `device="cpu"` runs the plain
+    PyTorch path on the CPU.
 
     `model` is a DTWSVMModel (moved to `device`), or None for a run
     without classification; with_predict=False skips it too. Without it
@@ -164,7 +167,7 @@ def make_demux_step(
     if spc.seg_extra.consensus_refinement:
         raise NotImplementedError("consensus-refined fingerprints are not ported")
     check_supported(spc.detect)
-    device = torch.device(device)
+    device = resolve_device(device)
     dcfg, fcfg = spc.detect, spc.fingerprint
     classify = with_predict and model is not None
     if classify:
