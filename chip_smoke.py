@@ -13,17 +13,26 @@ Phases (each raises on failure; nothing is caught):
 2. For each kernel K1-K9, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
-   the card and time both; print its bound (the larger of its bytes over
+   the card and time both (the kernel twice: as a caller sees it, and with
+   the launches queued behind a spin kernel, which leaves the device's
+   time alone); print its bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 rate, from
    this run's inputs) and the share of it reached. K1 is also held at its
    generic instance, at edge tiles and on non-finite fingerprints; K6 at
    lengths off the scan's block size, with windows longer than the row and
    at a row too long for shared memory (its device-scratch variant, K9's
    too), and it must allocate nothing beside its outputs at L=10000. K4 is
-   also timed at the two other shapes the paths launch it with. K5 and K7
-   are timed beside the one PyTorch call that computes the same function
-   (torch.gather, F.conv1d). K8 is also held against K4 and timed beside
-   it; K9 against K6 and timed beside K6 + 2 x K7 on the same inputs.
+   also timed at the two other shapes the paths launch it with, beside an
+   empty launch of its grid, and held at ranges of 1, 2 and 3 samples,
+   all-equal ranges, signed zeros, infinities and NaNs, range starts off
+   the vector alignment and a row too long for shared memory (its
+   streaming variant). K7 is held at short and odd lengths, windows longer
+   than the row, row starts off the vector alignment, constant masks and
+   a row too long for its uint16 prefix counts (its direct variant).
+   K5 and K7 are timed beside the one PyTorch call that computes the same
+   function (torch.gather, F.conv1d). K8 is also held against K4 and timed
+   beside it; K9 against K6 and K7 (at edge lengths too) and timed beside
+   K6 + 2 x K7 on the same inputs.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -81,12 +90,19 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 
 
-def time_ms(fn, reps=10):
-    """Mean device time of fn() in ms (CUDA events, after two warm-ups)."""
+def time_ms(fn, reps=10, queued=False):
+    """Mean time of fn() in ms: CUDA events around `reps` calls made back
+    to back, after two warm-ups. That is the larger of the device's time
+    and the host's time to make one call, which is what a kernel of a few
+    tens of microseconds costs a caller. queued=True keeps the device busy
+    with a spin kernel of about 10 ms while the host enqueues the calls, so
+    the events bracket the device's time alone."""
     import torch
 
     for _ in range(2):
         fn()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -119,6 +135,60 @@ def bound(n_bytes, n_ops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def k7_edge_cases():
+    """[(name, mask (B, L) bool, w)]: the run-sum inputs that K7, its plain
+    version and the JAX package are all held to: rows of 1, 7 and 9999
+    samples with windows from 1 to longer than the row, and constant masks."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    cases = [
+        (f"L={L} w={w}", rng.random((5 if L == 1 else 33, L)) < 0.4, w)
+        for L in (1, 7, 9999) for w in (1, 3, 100, 5000)
+    ]
+    cases.append(("L=300 w=5000", rng.random((33, 300)) < 0.4, 5000))
+    for L, w in ((9999, 100), (10000, 100), (7, 3)):
+        cases.append((f"all-True L={L} w={w}", np.ones((9, L), bool), w))
+        cases.append((f"all-False L={L} w={w}", np.zeros((9, L), bool), w))
+    return cases
+
+
+def k4_edge_cases(with_nan=True):
+    """[(name, x (B, L) float32, starts (R, B), ends (R, B))]: the ranges
+    that K4, its plain version and (without NaNs) the JAX package are all
+    held to, median and MAD."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    i32 = lambda rows, B: np.repeat(np.asarray(rows, np.int32)[:, None], B, axis=1)
+    cases = []
+    x = rng.normal(80, 12, (6, 40)).astype(np.float32)
+    cases.append(("n = 1, 2, 3", x, i32([5, 7, 11], 6), i32([6, 9, 14], 6)))
+    x = np.full((4, 50), 73.25, np.float32)
+    x[1], x[2] = -0.0, 0.0
+    cases.append(("all-equal", x, i32([0, 3, 10], 4), i32([50, 33, 11], 4)))
+    x = rng.normal(0, 1, (6, 101)).astype(np.float32)
+    x[:, ::5], x[:, 1::5] = 0.0, -0.0
+    x[3, :60] = np.where(np.arange(60) % 2 == 0, 0.0, -0.0)
+    cases.append(("mixed signs with -0.0 and +0.0", x, i32([0, 0, 2], 6), i32([101, 100, 52], 6)))
+    x = (np.round(rng.normal(80, 12, (6, 700)) / 4) * 4).astype(np.float32)
+    cases.append(("heavy ties", x, i32([0, 1, 100], 6), i32([700, 651, 356], 6)))
+    x = rng.normal(80, 12, (6, 32)).astype(np.float32)
+    x[0, 3], x[1, 5], x[1, 6], x[2, :] = np.inf, -np.inf, np.inf, np.inf
+    x[3, 4:20] = np.inf
+    cases.append(("inf", x, i32([0, 1, 4], 6), i32([32, 31, 9], 6)))
+    x = rng.normal(80, 12, (6, 256)).astype(np.float32)
+    cases.append(("range starts off the vector alignment", x, i32([1, 2, 3], 6), i32([256, 131, 8], 6)))
+    if with_nan:
+        x = rng.normal(80, 12, (6, 32)).astype(np.float32)
+        x[0, 3], x[0, 9] = np.inf, np.nan
+        x[1, :20] = np.nan  # the median itself
+        x[2, 7] = np.copysign(np.float32(np.nan), np.float32(-1))  # sorts below -inf
+        x[3, 2], x[3, 3] = np.nan, -np.inf
+        cases.append(("inf and NaN", x, i32([0, 1, 4], 6), i32([32, 31, 9], 6)))
+    return cases
+
+
 def dtw_band_cells(m, window):
     return sum(1 for i in range(m) for j in range(m) if abs(i - j) <= window - 1)
 
@@ -134,6 +204,7 @@ def check_kernels(dev, card):
     import torch.nn.functional as F
 
     from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
     from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, window_gather
@@ -142,18 +213,27 @@ def check_kernels(dev, card):
     t = lambda a: torch.as_tensor(a, device=dev)
     results = {}
 
-    def record(key, err, ms, plain_ms, n_bytes, n_ops, library_ms=None):
+    def record(key, err, kernel, plain, n_bytes, n_ops, library=None, plain_reps=10):
+        """Times the wrapper `kernel` (as a caller sees it, and the device's
+        time alone), its `plain` version and the one `library` call."""
+        ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
+        plain_ms = time_ms(plain, reps=plain_reps)
+        library_ms = None if library is None else time_ms(library)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         results[key] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
-        print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+        print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} device_ms={device_ms!r} plain_ms={plain_ms!r}")
         print(f"{KERNELS[key][0]}: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
-              f"share of bound reached={bound_ms / ms!r}; library_ms={library_ms!r} on {card}")
+              f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r}); "
+              f"library_ms={library_ms!r} on {card}")
 
     def same_bits(a, b):  # equal, NaN where the other has NaN
         return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    def bits(a):
+        return a.contiguous().view(torch.int32)
 
     # K1: banded DTW against WDX4 (N=851) and WDX10 (N=2601) support
     # vectors (the static m=25, window=15 instance), then the generic
@@ -170,8 +250,8 @@ def check_kernels(dev, card):
         print(f"K1 N={Y.shape[0]}: max_abs_err={max_abs(k, p)!r} kernel_ms={ms!r} "
               f"bound_ms={bound(n_bytes, n_ops)[0]!r} on {card}")
     record(
-        "wdx_dtw", max_abs(k, p), ms,
-        time_ms(lambda: dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1), reps=2), n_bytes, n_ops,
+        "wdx_dtw", max_abs(k, p), lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1),
+        lambda: dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1), n_bytes, n_ops, plain_reps=2,
     )
     for m, window, penalty, b, n in ((25, 15, 0.1, 37, 131), (20, 8, 0.1, 37, 131), (32, 32, 0.5, 9, 300), (25, 1, 0.0, 5, 7)):
         Xe = rng.normal(0, 1, (b, m)).astype(np.float32)
@@ -197,8 +277,8 @@ def check_kernels(dev, card):
     n_scores = torch.clamp_min(n_valid - 2 * w, 0).long()
     record(
         "wdx_ttest", max_abs(k, p),
-        time_ms(lambda: segmentation.windowed_t_test(xa, n_valid, w, 12)),
-        time_ms(lambda: segmentation.windowed_t_test_plain(xa, n_valid, w, 12)),
+        lambda: segmentation.windowed_t_test(xa, n_valid, w, 12),
+        lambda: segmentation.windowed_t_test_plain(xa, n_valid, w, 12),
         2 * B * A * 4 + 2 * B * 4, int(n_scores.sum()) * 16,
     )
 
@@ -212,8 +292,8 @@ def check_kernels(dev, card):
     # one round of the fixpoint: every peak compared with its 2 (d - 1) neighbours
     record(
         "wdx_suppress", max_abs(k.int(), p.int()),
-        time_ms(lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7)),
-        time_ms(lambda: peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)),
+        lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7),
+        lambda: peaks.suppress_by_distance_plain(scores, is_peak, dist, 7),
         B * A * (4 + 1 + 1) + B * 4, int((is_peak.sum(1) * 2 * (dist - 1)).sum()),
     )
 
@@ -259,17 +339,53 @@ def check_kernels(dev, card):
         errs += [max_abs(km, pm)] + ([max_abs(kd, pd)] if args[3] else [])
         require(torch.equal(km.isnan(), pm.isnan()), "K4: NaN pattern differs")
     require(max(errs) == 0.0, f"K4: errors {errs}")
+    # edge ranges, then a row at the largest length the staged variant takes
+    # and one beyond it (the streaming variant): bits equal, NaNs included
+    long_cases = []
+    for length in (select._STAGED_MAX_LEN, select._STAGED_MAX_LEN + 1):
+        xe = rng.normal(80, 12, (4, length)).astype(np.float32)
+        xe[:, :3000] = np.round(xe[:, :3000])
+        st = np.stack([np.zeros(4), rng.integers(0, length // 2, 4)]).astype(np.int32)
+        en = np.stack([np.full(4, length), st[1] + rng.integers(1, length // 2, 4)]).astype(np.int32)
+        long_cases.append((f"L={length}", xe, st, en))
+    for name, xe, st, en in k4_edge_cases() + long_cases:
+        variant = "staged in shared memory" if select._staged_bytes(xe.shape[1]) else "streaming"
+        km, kd = select.range_median_mad(t(xe), t(st), t(en), True)
+        pm, pd = select.range_median_mad_plain(t(xe), t(st), t(en), True)
+        require(torch.equal(bits(km), bits(pm)) and torch.equal(bits(kd), bits(pd)),
+                f"K4 {name} ({variant}): differs from the plain version")
+        print(f"K4 {name} ({variant}): max_abs_err={max(max_abs(km, pm), max_abs(kd, pd))!r}, "
+              f"{int(km.isnan().sum())} NaN medians and {int(kd.isnan().sum())} NaN MADs, bits equal")
+    require(select._staged_bytes(select._STAGED_MAX_LEN) > 0 and select._staged_bytes(select._STAGED_MAX_LEN + 1) == 0
+            and select._staged_bytes(L) > 0,
+            "K4: the variants were not both run")
+    def both_ms(fn):  # as a caller sees it, and the device's time alone
+        return f"kernel_ms={time_ms(fn)!r} device_ms={time_ms(fn, queued=True)!r}"
+
+    print(f"empty launch of K4's clip grid ({B} blocks of 256 threads): "
+          f"{both_ms(lambda: _cuda.empty_launch(dev, B, 256))} on {card}")
+    # what the clip's time is made of: the launch, the staging pass (an
+    # all-equal range is selected without a round), the median's rounds, the
+    # MAD's restaging and rounds
+    flat = torch.full_like(xa, 80.0)
+    clip_meds = select.range_median_mad(xa, zero, a_len, False)[0]
+    for name, args in (
+        ("all-equal rows, median only (staging, no round)", (flat, zero, a_len, False)),
+        ("median only", (xa, zero, a_len, False)),
+        ("median given, MAD only", (xa, zero, a_len, True, clip_meds, (True,))),
+    ):
+        print(f"K4 clip, {name}: {both_ms(lambda: select.range_median_mad(*args))}")
     stats_args = (x, s3, e3, True, meds3, (True, True, False), (adc16, off, sc))
     for name, args, work in (
         ("gate medians, R=2 over L=10000 (K8's shape)", (x, starts, ends, False), k4_work(starts, ends, L, (True, True), False, False)),
         ("region statistics of the full output, R=3, two medians given, calibrated MADs", stats_args, k4_work(s3, e3, L, (False, False, True), True, True)),
     ):
-        ms = time_ms(lambda: select.range_median_mad(*args))
-        print(f"K4 {name}: kernel_ms={ms!r} bound_ms={bound(*work)[0]!r} by {bound(*work)[1]} on {card}")
+        print(f"K4 {name}: {both_ms(lambda: select.range_median_mad(*args))} "
+              f"bound_ms={bound(*work)[0]!r} by {bound(*work)[1]} on {card}")
     record(  # the launch every path makes: the outlier clip on the adapter buffer
         "wdx_range_median_mad", max(errs),
-        time_ms(lambda: select.range_median_mad(xa, zero, a_len, True)),
-        time_ms(lambda: select.range_median_mad_plain(xa, zero, a_len, True)),
+        lambda: select.range_median_mad(xa, zero, a_len, True),
+        lambda: select.range_median_mad_plain(xa, zero, a_len, True),
         *k4_work(zero, a_len, A, (True,), True, False),
     )
 
@@ -288,14 +404,13 @@ def check_kernels(dev, card):
             errs.append(max_abs(k, want))
     require(max(errs) == 0.0, f"K8: errors {errs}")
     for (st, en), shape in (((starts, ends), "R=2"), (proxy, "R=1")):
-        k8_ms = time_ms(lambda: select.range_medians_adc(x, adc16, st, en))
-        k4_ms = time_ms(lambda: select.range_median_mad(x, st, en, False))
-        print(f"K8 {shape}: kernel_ms={k8_ms!r} beside K4 kernel_ms={k4_ms!r}")
+        print(f"K8 {shape}: {both_ms(lambda: select.range_medians_adc(x, adc16, st, en))} "
+              f"beside K4 {both_ms(lambda: select.range_median_mad(x, st, en, False))}")
     n = sum(covered(starts, ends, L))
     record(
         "wdx_range_median_adc", max(errs),
-        time_ms(lambda: select.range_medians_adc(x, adc16, starts, ends)),
-        time_ms(lambda: select.range_medians_adc_plain(x, adc16, starts, ends)),
+        lambda: select.range_medians_adc(x, adc16, starts, ends),
+        lambda: select.range_medians_adc_plain(x, adc16, starts, ends),
         n * 6 + starts.numel() * 12, n * SELECT_OPS,
     )
 
@@ -314,10 +429,10 @@ def check_kernels(dev, card):
     require(torch.equal(torch.gather(xpad, 1, index), k), "K5: torch.gather differs")
     record(
         "wdx_shift_rows", max(errs),
-        time_ms(lambda: window_gather.shift_rows(xpad, sA, A)),
-        time_ms(lambda: window_gather.shift_rows_plain(xpad, sA, A)),
+        lambda: window_gather.shift_rows(xpad, sA, A),
+        lambda: window_gather.shift_rows_plain(xpad, sA, A),
         2 * B * A * 4 + B * 4, 0,
-        library_ms=time_ms(lambda: torch.gather(xpad, 1, index)),
+        library=lambda: torch.gather(xpad, 1, index),
     )
 
     # K6: rolling mean/var of the calibrated signal (w 200 and 500); the
@@ -337,8 +452,8 @@ def check_kernels(dev, card):
     print(f"K6 at L={L}: {extra} bytes allocated beside the three outputs")
     record(
         "wdx_rolling_mean_var", err,
-        time_ms(lambda: bd.rolling_mean_var(x, 200, 500)),
-        time_ms(lambda: bd.rolling_mean_var_plain(x, 200, 500)),
+        lambda: bd.rolling_mean_var(x, 200, 500),
+        lambda: bd.rolling_mean_var_plain(x, 200, 500),
         4 * B * L * 4, B * L * 24,  # per sample: 2 prefix adds, a square, 6 + 4 edge adds and differences, 4 quotients, 2 fma (4), 2 clamps
     )
     # edge lengths: no multiple of 16 (nor of 4: scalar loads), shorter than
@@ -362,12 +477,23 @@ def check_kernels(dev, card):
     padded = F.pad(mask.float(), (0, 99))[:, None, :]
     ones = torch.ones((1, 1, 100), device=dev)
     require(torch.equal(F.conv1d(padded, ones)[:, 0].to(torch.int32), k), "K7: conv1d differs")
+    # edge lengths and windows, constant masks, row starts off the 16-byte
+    # alignment, and a row too long for uint16 counts (the direct variant)
+    cases = [(name, t(m), w) for name, m, w in k7_edge_cases()]
+    cases.append(("row starts off the vector alignment, L=9984 w=100", t(rng.random(33 * 9984 + 1) < 0.4)[1:].view(33, 9984), 100))
+    require(cases[-1][1].data_ptr() % 16 != 0 and cases[-1][1].is_contiguous(), "K7: the view is aligned")
+    cases.append(("L=70000 w=100", t(rng.random((4, 70000)) < 0.4), 100))
+    for name, m, w in cases:
+        variant = "prefix count" if bd._run_sum_shared_bytes(m.shape[1]) else "direct"
+        require(torch.equal(bd.run_sum(m, w), bd.run_sum_plain(m, w)), f"K7 {name} ({variant}): differs from the plain version")
+        print(f"K7 {name} ({variant}): max_abs_err=0.0")
+    require(bd._run_sum_shared_bytes(L) > 0 and bd._run_sum_shared_bytes(70000) == 0, "K7: the variants were not both run")
     record(
         "wdx_run_sum", max_abs(k, p),
-        time_ms(lambda: bd.run_sum(mask, 100)),
-        time_ms(lambda: bd.run_sum_plain(mask, 100)),
+        lambda: bd.run_sum(mask, 100),
+        lambda: bd.run_sum_plain(mask, 100),
         B * L * (1 + 4), B * L * 2,  # a sliding count: one sample in, one out
-        library_ms=time_ms(lambda: F.conv1d(padded, ones)),
+        library=lambda: F.conv1d(padded, ones),
     )
 
     # K9: rolling stats + both candidate run sums of the calibrated reads,
@@ -392,6 +518,19 @@ def check_kernels(dev, card):
     require(all(torch.equal(a, b) for a, b in zip(bd.rolling_detect(*long_args), bd.rolling_detect_plain(*long_args))),
             "K9 L=30000 (device scratch): differs from the plain version")
     print("K9 B=8 L=30000 (device scratch): max_abs_err=0.0")
+    # edge lengths of the shared-memory variant's packed prefix counts
+    for b, length, w_run in ((33, 9999, 100), (5, 7, 3), (33, 300, 500), (9, 1, 1)):
+        xe = t(rng.normal(100, 3, (b, length)).astype(np.float32))
+        edge = (xe, t((rng.random((b, length)) < 0.7).astype(np.float32)), t(np.full(b, 99.5, np.float32)),
+                t(rng.integers(length // 2, length + 1, b).astype(np.int32)), 20, 50, w_run, 30.0)
+        require(bd._scan_buffers(b, length, dev, extra_shared=length)[2] is None, "K9: not the shared-memory variant")
+        for name, a, want in zip(("mean_f", "var_f", "var_w", "rs_plain", "rs_masked"), bd.rolling_detect(*edge), bd.rolling_detect_plain(*edge)):
+            require(same_bits(a, want) if a.is_floating_point() else torch.equal(a, want),
+                    f"K9 B={b} L={length}: {name} differs from the plain version")
+        print(f"K9 B={b} L={length} w_run={w_run} (shared memory): max_abs_err=0.0")
+    k9_shared = bd._scan_buffers(B, L, dev, extra_shared=-(-L // 16) * 16, static_shared=bd._RUN_SUM_STATIC_BYTES)[1]
+    require(0 < 2 * (k9_shared + bd._RUN_SUM_STATIC_BYTES + 1024) <= 233472, "K9: two blocks no longer fit an SM")
+    print(f"K9 at L={L}: {k9_shared} bytes of dynamic shared memory a block; two blocks fit an SM's 233472")
 
     def unfused():  # K6 + 2 x K7 on the masks the unfused detect builds
         m, _, vw = bd.rolling_mean_var(x, 200, 500)
@@ -402,11 +541,12 @@ def check_kernels(dev, card):
     require(all(torch.equal(a, b) for a, b in zip(unfused(), k[3:])), "K9: run sums differ from K6 + K7")
     print(f"K9 beside K6 + 2 x K7 (with the mask building between them): "
           f"K9 kernel_ms={time_ms(lambda: bd.rolling_detect(*args))!r} "
-          f"unfused_ms={time_ms(unfused)!r}")
+          f"unfused_ms={time_ms(unfused)!r}; the device's time alone: "
+          f"K9 {time_ms(lambda: bd.rolling_detect(*args), queued=True)!r} unfused {time_ms(unfused, queued=True)!r}")
     record(
         "wdx_rolling_detect", max(max_abs(a, b) for a, b in zip(k, p)),
-        time_ms(lambda: bd.rolling_detect(*args)),
-        time_ms(lambda: bd.rolling_detect_plain(*args)),
+        lambda: bd.rolling_detect(*args),
+        lambda: bd.rolling_detect_plain(*args),
         B * L * (4 + 4 + 12 + 8) + B * 8, B * L * (24 + 6 + 2 * 2),  # K6, the mask's compares, two sliding counts
     )
     return results

@@ -21,6 +21,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
+from chip_smoke import k4_edge_cases, k7_edge_cases  # noqa: E402
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
 from warpdemux_tpu_torch.models.registry import load_model_arrays  # noqa: E402
@@ -126,6 +127,35 @@ def test_k4_range_median_mad(dev, with_mad):
         assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
 
 
+@pytest.mark.parametrize("case", range(len(k4_edge_cases())), ids=[c[0] for c in k4_edge_cases()])
+def test_k4_edge_ranges(dev, case):
+    """Ranges of 1, 2 and 3 samples, all-equal ranges, signed zeros, heavy
+    ties, infinities and NaNs, range starts off the float4 alignment: the
+    bits of the plain version, NaNs included."""
+    _, x, starts, ends = k4_edge_cases()[case]
+    args = tuple(torch.as_tensor(a, device=dev) for a in (x, starts, ends))
+    km, kd = _launched("wdx_range_median_mad", lambda: select.range_median_mad(*args))
+    pm, pd = select.range_median_mad_plain(*args)
+    assert torch.equal(km.view(torch.int32), pm.view(torch.int32))
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+
+
+@pytest.mark.parametrize("length", [select._STAGED_MAX_LEN, select._STAGED_MAX_LEN + 1, 60000])
+def test_k4_long_rows(dev, length):
+    """The longest row whose keys fit shared memory, and one beyond it (the
+    streaming variant)."""
+    rng = np.random.default_rng(length)
+    x = rng.normal(80, 12, (4, length)).astype(np.float32)
+    x[:, :3000] = np.round(x[:, :3000])
+    starts = np.stack([np.zeros(4), rng.integers(0, length // 2, 4)]).astype(np.int32)
+    ends = np.stack([np.full(4, length), starts[1] + rng.integers(1, length // 2, 4)]).astype(np.int32)
+    assert (select._staged_bytes(length) > 0) == (length == select._STAGED_MAX_LEN)
+    args = tuple(torch.as_tensor(a, device=dev) for a in (x, starts, ends))
+    km, kd = _launched("wdx_range_median_mad", lambda: select.range_median_mad(*args))
+    pm, pd = select.range_median_mad_plain(*args)
+    assert torch.equal(km, pm) and torch.equal(kd, pd)
+
+
 def test_k5_shift_rows(dev):
     x = _signal(dev)
     starts = torch.as_tensor(np.random.default_rng(5).integers(-10, 9300, 64).astype(np.int32), device=dev)
@@ -180,6 +210,49 @@ def test_k7_run_sum(dev):
     mask = torch.as_tensor(np.random.default_rng(7).random((64, 10000)) < 0.4, device=dev)
     got = _launched("wdx_run_sum", lambda: bd.run_sum(mask, 100))
     assert torch.equal(got, bd.run_sum_plain(mask, 100))
+
+
+@pytest.mark.parametrize("case", range(len(k7_edge_cases())), ids=[c[0] for c in k7_edge_cases()])
+def test_k7_run_sum_edge_cases(dev, case):
+    """Rows of 1, 7 and 9999 samples (no multiple of 16: byte loads and
+    scalar stores), windows longer than the row, constant masks."""
+    _, mask, w = k7_edge_cases()[case]
+    mask = torch.as_tensor(mask, device=dev)
+    assert bd._run_sum_shared_bytes(mask.shape[1]) > 0
+    got = _launched("wdx_run_sum", lambda: bd.run_sum(mask, w))
+    assert torch.equal(got, bd.run_sum_plain(mask, w))
+
+
+def test_k7_run_sum_row_starts_off_the_vector_alignment(dev):
+    flat = torch.as_tensor(np.random.default_rng(8).random(33 * 9984 + 1) < 0.4, device=dev)
+    mask = flat[1:].view(33, 9984)
+    assert mask.is_contiguous() and mask.data_ptr() % 16 != 0
+    got = _launched("wdx_run_sum", lambda: bd.run_sum(mask, 100))
+    assert torch.equal(got, bd.run_sum_plain(mask, 100))
+
+
+def test_k7_run_sum_long_rows(dev):
+    """A row too long for a uint16 count in shared memory takes the direct
+    kernel."""
+    mask = torch.as_tensor(np.random.default_rng(9).random((4, 70000)) < 0.4, device=dev)
+    assert bd._run_sum_shared_bytes(70000) == 0
+    got = _launched("wdx_run_sum", lambda: bd.run_sum(mask, 100))
+    assert torch.equal(got, bd.run_sum_plain(mask, 100))
+
+
+@pytest.mark.parametrize("b, length, w_run", [(33, 9999, 100), (5, 7, 3), (33, 300, 500), (9, 1, 1)])
+def test_k9_rolling_detect_edge_lengths(dev, b, length, w_run):
+    """The shared-memory variant's packed prefix counts at lengths that are
+    no multiple of 16 and with a window longer than the row."""
+    rng = np.random.default_rng(length)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    args = (t(rng.normal(100, 3, (b, length)).astype(np.float32)),
+            t((rng.random((b, length)) < 0.7).astype(np.float32)), t(np.full(b, 99.5, np.float32)),
+            t(rng.integers(length // 2, length + 1, b).astype(np.int32)), 20, 50, w_run, 30.0)
+    assert bd._scan_buffers(b, length, dev, extra_shared=length)[2] is None
+    got = _launched("wdx_rolling_detect", lambda: bd.rolling_detect(*args))
+    for g, w in zip(got, bd.rolling_detect_plain(*args)):
+        assert torch.equal(g.isnan(), w.isnan()) and torch.equal(g.nan_to_num(), w.nan_to_num())
 
 
 def _ranges(dev, R, B=64, L=10000, seed=4):

@@ -28,6 +28,10 @@ from warpdemux_tpu_torch.models.registry import load_cnn
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
+from chip_smoke import k7_edge_cases  # noqa: E402
+
+# the masks kernel K7 is held to on the GPU
+EDGE_MASKS = k7_edge_cases()
 
 MODEL = "WDX4_rna004_v1_0"
 
@@ -113,6 +117,53 @@ def test_run_sum_exact(w):
     got = bd.run_sum(torch.from_numpy(mask), w).numpy()
     want = np.asarray(rolling_run_sum_pallas(jnp.asarray(mask), w, interpret=True))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_MASKS)), ids=[c[0] for c in EDGE_MASKS])
+def test_run_sum_plain_matches_jax_at_edge_cases(case):
+    """K7's plain version (the kernel's yardstick) on rows of 1, 7 and 9999
+    samples with windows from 1 to longer than the row, and on constant
+    masks: equal to the JAX package's jnp path and to its Pallas kernel in
+    interpret mode."""
+    _, mask, w = EDGE_MASKS[case]
+    got = bd.run_sum_plain(torch.from_numpy(mask), w).numpy()
+    assert got.dtype == np.int32 and got.max() <= min(w, mask.shape[1])
+    np.testing.assert_array_equal(got, np.asarray(jax_bd._run_sum(jnp.asarray(mask), w)))
+    np.testing.assert_array_equal(
+        got, np.asarray(rolling_run_sum_pallas(jnp.asarray(mask), w, interpret=True))
+    )
+
+
+@pytest.mark.parametrize(
+    "L, want",
+    [(0, 16), (1, 16), (7, 16), (15, 32), (9999, 20000), (10000, 20016), (57856, 115728),
+     (65535, 131072), (65536, 0), (70000, 0)],
+)
+def test_run_sum_counts_follow_the_shared_memory_limit(L, want):
+    """K7's launch geometry: the row's L + 1 uint16 prefix counts, in whole
+    16-byte vectors, go into shared memory while a count can hold L (they
+    then fit a block's 232,448 bytes beside the scan's static kilobyte);
+    longer rows get 0 bytes, the direct variant."""
+    assert bd._run_sum_shared_bytes(L) == want
+    if want:
+        assert (L + 1) * 2 <= want <= bd.MAX_SHARED_BYTES - bd._RUN_SUM_STATIC_BYTES
+    assert (want > 0) == (L <= bd._RUN_SUM_MAX_LEN)
+
+
+@pytest.mark.parametrize("L", [1, 10000, 22000, 25731])
+def test_rolling_detect_buffers_leave_room_for_the_run_sum_scan(L):
+    """K9's launch geometry: the candidate bytes ride behind the prefix sums
+    padded to 16-byte chunks, and the shared-memory variant is taken only
+    while the scan's static kilobyte still fits."""
+    pad = -(-L // 16) * 16
+    row_len, shared_bytes, scratch = bd._scan_buffers(
+        2, L, "cpu", extra_shared=pad, static_shared=bd._RUN_SUM_STATIC_BYTES
+    )
+    if scratch is None:
+        assert shared_bytes == 8 * row_len + pad <= bd.MAX_SHARED_BYTES - bd._RUN_SUM_STATIC_BYTES
+        assert 2 * row_len >= L + 1  # the packed counts take the prefix sums' place
+    else:
+        assert shared_bytes == 0 and L > 20000
 
 
 def test_cnn_region_prior_matches_jax():

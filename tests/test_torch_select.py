@@ -2,13 +2,26 @@
 against numpy and the JAX package's Pallas kernel in interpret mode:
 bit-exact, including empty ranges, ties, signed zeros and `given`."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from warpdemux_tpu.ops.select import range_median_mad as jax_range_median_mad
 from warpdemux_tpu.ops.select_pallas import range_median_mad_pallas
+from warpdemux_tpu_torch import _cuda
+from warpdemux_tpu_torch.ops import select
 from warpdemux_tpu_torch.ops.normalize import clip_outliers_prefix
 from warpdemux_tpu_torch.ops.select import range_median_mad
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import k4_edge_cases  # noqa: E402
+
+# the ranges kernel K4 is held to on the GPU, without the NaN samples
+EDGE_RANGES = k4_edge_cases(with_nan=False)
 
 
 def _np_median(v):
@@ -159,3 +172,51 @@ def test_mad_with_calibration_matches_the_fused_jax_program():
     )
     _, w_plain = jax_rmm(x, starts, ends, with_mad=True, pallas_ok=False)
     np.testing.assert_array_equal(_bits(plain), _bits(w_plain))
+
+
+@pytest.mark.parametrize("with_mad", [True, False], ids=["median+MAD", "median"])
+@pytest.mark.parametrize("case", range(len(EDGE_RANGES)), ids=[c[0] for c in EDGE_RANGES])
+def test_range_median_mad_plain_matches_jax_at_edge_ranges(case, with_mad):
+    """K4's plain version (the kernel's yardstick) on ranges of 1, 2 and 3
+    samples, all-equal ranges, signed zeros, heavy ties, infinities and
+    range starts off the vector alignment: the bits of the JAX package's
+    jnp path and of its Pallas kernel in interpret mode, NaNs (the MAD of an
+    infinite median) included."""
+    _, x, starts, ends = EDGE_RANGES[case]
+    t = torch.from_numpy
+    meds, mads = select.range_median_mad_plain(t(x), t(starts), t(ends), with_mad)
+    for want_meds, want_mads in (
+        jax_range_median_mad(x, starts, ends, with_mad, pallas_ok=False),
+        range_median_mad_pallas(x, starts, ends, with_mad, interpret=True),
+    ):
+        np.testing.assert_array_equal(_bits(meds), _bits(want_meds))
+        if with_mad:
+            np.testing.assert_array_equal(_bits(mads), _bits(want_mads))
+    for r in range(starts.shape[0]):
+        for b in range(x.shape[0]):
+            vals = x[b, starts[r, b] : ends[r, b]]
+            np.testing.assert_array_equal(meds[r, b].item(), _np_median(vals))
+    assert mads is None or not with_mad or mads.shape == meds.shape
+
+
+_SWITCH = select._STAGED_MAX_LEN  # the longest row K4 stages
+
+
+@pytest.mark.parametrize("L", [0, 1, 6271, 6272, 10000, _SWITCH, _SWITCH + 1, 70001])
+def test_staged_keys_follow_the_shared_memory_limit(L):
+    """K4's launch geometry: a whole row's keys (4 bytes a sample in whole
+    16-byte vectors, whatever the range lengths) go into dynamic shared
+    memory while they fit a block's 232,448 bytes beside the room kept for
+    the kernel's static histograms; longer rows (and empty ones) get 0
+    bytes, the streaming variant."""
+    shared_bytes = select._staged_bytes(L)
+    if 0 < L <= _SWITCH:
+        assert shared_bytes == 16 * -(-L // 4) >= 4 * L
+        assert shared_bytes + select._SELECT_STATIC_BYTES <= _cuda.MAX_SHARED_BYTES
+    else:
+        assert shared_bytes == 0
+    # the switch is where the room ends: the next whole vector no longer
+    # fits, and the room covers the kernel's histograms at either digit width
+    assert 16 * (_SWITCH // 4 + 1) + select._SELECT_STATIC_BYTES > _cuda.MAX_SHARED_BYTES
+    assert _SWITCH % 4 == 0 and _SWITCH < 65536  # the histograms' 16-bit bins hold a row
+    assert 12928 <= select._SELECT_STATIC_BYTES

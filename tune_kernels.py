@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Tile-size sweep of kernels K1 (csrc/dtw.cu) and K6 / K9 (csrc/rolling.cu)
-on one CUDA GPU.
+"""Tile-size sweep of kernels K1 (csrc/dtw.cu), K6 / K9 and K7
+(csrc/rolling.cu) and K4 (csrc/select.cu) on one CUDA GPU.
 
     python3 tune_kernels.py
 
 Each variant is the kernel library built by `_cuda.build` with other values
-of the sources' tile macros (K1: WDX_DTW_THREADS references and WDX_DTW_TQ
-queries a tile; K6 / K9: WDX_ROLLING_THREADS a row), all builds started
-together. For each variant the script prints what ptxas reported for the
-kernel (registers, spills), checks the wrapper's output bit for bit against
-the plain PyTorch version, and prints the mean time of 20 launches (CUDA
-events, after 2 warm-ups) at the step's shapes: B=1000 fingerprints against
-the 851 WDX4 and the 2601 WDX10 support vectors; B=1000 reads of L=10000
-samples. The first variant of a kernel is the committed default. The last
-line names the card and its power limit.
+of the sources' tile macros, six builds at a time:
+
+- K1: WDX_DTW_THREADS references and WDX_DTW_TQ queries a tile;
+- K6 / K9: WDX_ROLLING_THREADS a row;
+- K7: WDX_RUNSUM_THREADS a row;
+- K4: WDX_SELECT_THREADS a range, WDX_SELECT_MIN_BLOCKS an SM,
+  WDX_SELECT_BITS a digit, WDX_SELECT_PREFIX the common-prefix pass,
+  WDX_SELECT_SPREAD the first round's eight copies of a bin.
+
+For each variant the script prints what ptxas reported for the kernel
+(registers, spills), checks the wrapper's output bit for bit against the
+plain PyTorch version, and prints the mean time of 20 launches (CUDA
+events, after 2 warm-ups, the launches queued behind a spin kernel so that
+the host's time to enqueue them does not count) at the step's shapes: B=1000
+fingerprints against the 851 WDX4 and the 2601 WDX10 support vectors;
+B=1000 reads of L=10000 samples; for K4 the outlier clip (R=1 over 6272
+samples, median and MAD), the region statistics of the full output (R=3
+over L=10000, two medians given, calibrated MADs) and the gate medians
+(R=2, medians only). The first variant of a kernel is the committed
+default. K4 is then probed on rows of crafted keys (equal, two values, 256
+values, a read's samples) and on 1 to 4000 ranges. The last line names the
+card and its power limit.
 """
 
 import subprocess
@@ -24,10 +37,21 @@ from functools import partial
 import chip_smoke
 
 B, L = 1000, 10000
-time_ms = partial(chip_smoke.time_ms, reps=20)
+time_ms = partial(chip_smoke.time_ms, reps=20, queued=True)  # the device's time alone
 
 K1_VARIANTS = [(), *[(f"-DWDX_DTW_THREADS={t}", f"-DWDX_DTW_TQ={q}") for t, q in ((128, 1), (128, 8), (64, 4), (256, 4))]]
 K6_VARIANTS = [(), ("-DWDX_ROLLING_THREADS=256",), ("-DWDX_ROLLING_THREADS=1024",)]
+K7_VARIANTS = [(), *[(f"-DWDX_RUNSUM_THREADS={n}",) for n in (128, 512, 1024)]]
+K4_VARIANTS = [
+    (),  # 256 threads, 4 blocks an SM, 8-bit digits, common-prefix pass, spread first round
+    ("-DWDX_SELECT_MIN_BLOCKS=6",),
+    ("-DWDX_SELECT_MIN_BLOCKS=8",),
+    ("-DWDX_SELECT_THREADS=128", "-DWDX_SELECT_MIN_BLOCKS=12"),
+    ("-DWDX_SELECT_THREADS=512", "-DWDX_SELECT_MIN_BLOCKS=3"),
+    ("-DWDX_SELECT_BITS=11",),
+    ("-DWDX_SELECT_PREFIX=0",),
+    ("-DWDX_SELECT_SPREAD=0",),
+]
 
 
 def main() -> int:
@@ -41,12 +65,12 @@ def main() -> int:
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
-    from warpdemux_tpu_torch.ops import dtw
+    from warpdemux_tpu_torch.ops import dtw, select
 
     dev = torch.device("cuda", 0)
     t = lambda a: torch.as_tensor(a, device=dev)
-    variants = K1_VARIANTS + K6_VARIANTS[1:]
-    with ThreadPoolExecutor(len(variants)) as pool:
+    variants = K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:]
+    with ThreadPoolExecutor(6) as pool:
         logs = dict(zip(variants, pool.map(lambda d: _cuda.build_log(_cuda.build(d)).read_text(), variants)))
 
     def ptxas(defines, kernel):
@@ -78,6 +102,75 @@ def main() -> int:
         exact9 = all(torch.equal(a, b) for a, b in zip(k9(), want))
         print(f"K6/K9 {' '.join(defines) or 'default'} | K6 exact={exact6} ms={time_ms(k6)!r} | "
               f"K9 exact={exact9} ms={time_ms(k9)!r} | {ptxas(defines, 'wdx_rolling')}")
+    mask = t(rng.random((B, L)) < 0.4)
+    want = bd.run_sum_plain(mask, 100)
+    for defines in K7_VARIANTS:
+        _cuda.defines = defines
+        run = lambda: bd.run_sum(mask, 100)
+        print(f"K7 {' '.join(defines) or 'default'} | exact={torch.equal(run(), want)} ms={time_ms(run)!r} |",
+              ptxas(defines, "wdx_run_sum_prefix_kernelILb1"))
+
+    # K4 on chip_smoke.py's inputs: heavy ties in the first 3000 samples
+    A = 6272
+    adc16 = t(adc)
+    adc16[:, :3000] = adc16[:, :3000] // 16 * 16
+    off, sc = t(off), t(sc)
+    x = (adc16.float() + off[:, None]) * sc[:, None]
+    xa = t(rng.normal(80, 12, (B, A)).astype(np.float32))
+    n_valid = t(rng.integers(1000, A + 1, B).astype(np.int32))[None]
+    starts = t(np.stack([np.zeros(B), rng.integers(0, L, B)]).astype(np.int32))
+    ends = t(np.stack([rng.integers(0, 6000, B), rng.integers(0, L + 1, B)]).astype(np.int32))
+    s3, e3 = torch.cat([starts, starts[1:]]), torch.cat([ends, torch.full_like(ends[1:], L)])
+    _cuda.defines = ()
+    meds3 = select.range_median_mad(x, s3, e3, False)[0]
+    shapes = {
+        "clip": (xa, torch.zeros_like(n_valid), n_valid, True),
+        "region statistics": (x, s3, e3, True, meds3, (True, True, False), (adc16, off, sc)),
+        "gate medians": (x, starts, ends, False),
+    }
+    want = {name: select.range_median_mad_plain(*args) for name, args in shapes.items()}
+
+    def same(got, plain):
+        return all(
+            a is b or torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, plain)
+        )
+
+    for defines in K4_VARIANTS:
+        _cuda.defines = defines
+        row = [f"K4 {' '.join(defines) or 'default'}"]
+        for name, args in shapes.items():
+            run = lambda: select.range_median_mad(*args)
+            row.append(f"{name}: exact={same(run(), want[name])} ms={time_ms(run)!r}")
+        print(" | ".join(row), "|", ptxas(defines, "wdx_range_median_mad_staged"))
+    # K4 probes, medians (and medians + MADs) of whole rows of 6271 samples:
+    # what a round costs by how the digits fall (no round for equal keys,
+    # one round of two bins or of 256, three rounds for a read's samples),
+    # with and without the first round's copies, and how the time grows
+    # with the number of ranges (latency of one block, then throughput)
+    base = np.float32(80.0).view(np.int32)
+    rows = {
+        "equal keys": np.full((B, A), 80.0, np.float32),
+        "two values": (base + rng.integers(0, 2, (B, A))).astype(np.int32).view(np.float32),
+        "256 values": (base + rng.integers(0, 256, (B, A))).astype(np.int32).view(np.float32),
+        "normal(80, 12)": rng.normal(80, 12, (B, A)).astype(np.float32),
+    }
+    whole = lambda n_rows: (torch.zeros((1, n_rows), dtype=torch.int32, device=dev),
+                            torch.full((1, n_rows), A - 1, dtype=torch.int32, device=dev))
+    for defines in ((), ("-DWDX_SELECT_SPREAD=0",)):
+        _cuda.defines = defines
+        row = [f"K4 probe {' '.join(defines) or 'default'}, medians of {B} rows"]
+        st, en = whole(B)
+        for name, values in rows.items():
+            xr = t(values)
+            row.append(f"{name}: ms={time_ms(lambda: select.range_median_mad(xr, st, en, False))!r}")
+        print(" | ".join(row))
+    _cuda.defines = ()
+    for n_rows in (1, 132, 528, 1000, 4000):
+        xr = t(rng.normal(80, 12, (n_rows, A)).astype(np.float32))
+        st, en = whole(n_rows)
+        print(f"K4 probe default, {n_rows} rows of normal(80, 12): "
+              f"median ms={time_ms(lambda: select.range_median_mad(xr, st, en, False))!r} | "
+              f"median + MAD ms={time_ms(lambda: select.range_median_mad(xr, st, en, True))!r}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, check=True,

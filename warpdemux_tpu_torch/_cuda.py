@@ -47,17 +47,23 @@ SIGNATURES = {
     "wdx_dtw": (_P, _P, _P, _I, _I, _I, _I, _F),
     "wdx_ttest": (_P, _P, _P, _P, _I, _I, _I),
     "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
-    "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I),
+    "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_shift_rows": (_P, _P, _P, _I, _I, _I),
     "wdx_rolling_mean_var": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I),
-    "wdx_run_sum": (_P, _P, _I, _I, _I),
+    "wdx_run_sum": (_P, _P, _I, _I, _I, _I),
     "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_rolling_detect": (
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
 }
 
+# entry points that launch no kernel of the port and are not counted
+PROBES = {"wdx_empty_launch": (_I, _I)}
+
 launches: dict[str, int] = {name: 0 for name in SIGNATURES}
+
+# Shared memory (static and dynamic together) a block may take on sm_90
+MAX_SHARED_BYTES = 232448
 
 # -DNAME=value overrides of the sources' tile sizes; a sweep (tune_kernels.py)
 # sets them, and the next launch builds and loads that variant
@@ -179,7 +185,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built with the module's `defines`."""
     if defines not in _libraries:
         lib = ctypes.CDLL(str(build(defines)))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in {**SIGNATURES, **PROBES}.items():
             fn = getattr(lib, name)
             fn.argtypes = [*argtypes, _P]
             fn.restype = ctypes.c_int
@@ -195,7 +201,14 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launches[name] += 1
+    if name in launches:
+        launches[name] += 1
+
+
+def empty_launch(device: torch.device, blocks: int, threads: int) -> None:
+    """Launch an empty kernel of `blocks` x `threads`: the floor under a
+    kernel's time at that grid. Not counted in `launches`."""
+    launch("wdx_empty_launch", device, blocks, threads)
 
 
 def check(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str) -> None:

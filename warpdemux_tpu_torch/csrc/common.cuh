@@ -57,3 +57,54 @@ __device__ int wdx_block_reduce(int v, Op op, int identity) {
   __syncthreads();
   return r;
 }
+
+// Exclusive block scan of one int per thread, one round of a loop over a
+// row: returns carry + the sum of v over the lower threads of this round
+// and adds the round's total to carry (every thread keeps the same carry).
+// warp_sums: 64 ints of shared memory, used in halves by round parity, so
+// one barrier a round is enough. blockDim.x must be a multiple of 32 and
+// every thread of the block must call, with the same round. Any packing of
+// several counts into v that cannot carry between its fields scans as one.
+__device__ __forceinline__ int wdx_block_exclusive_scan(int v, int* warp_sums, int round,
+                                                        int& carry) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  int* sums = warp_sums + (round & 1) * 32;
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  int total = 0;
+  for (int k = 0; k < n_warps; ++k) {
+    const int s = sums[k];
+    total += s;
+    if (k < warp) before += s;
+  }
+  const int excl = carry + before + incl - v;
+  carry += total;
+  return excl;
+}
+
+// Exclusive prefix counts of the four 0/1 bytes of n (byte j of the result
+// is n.b0 + ... + n.b(j-1)) and their total.
+__device__ __forceinline__ unsigned wdx_byte_prefix(unsigned n, int& total) {
+  const unsigned incl = n * 0x01010101u;
+  total = (int)(incl >> 24);
+  return incl << 8;
+}
+
+// Dynamic shared memory above 48 KB has to be granted per kernel; the
+// carve-out hint lets several blocks with large buffers share an SM.
+template <typename Kernel>
+static int wdx_allow_shared(Kernel kernel, int shared_bytes) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+}

@@ -29,8 +29,20 @@
 // over a scratch row in device memory (unpadded); the wrapper picks by L.
 //
 // K7 replaces rolling_pallas.py rolling_run_sum_pallas: the int32 count of
-// a 0/1 mask over [t, min(t + w, L)). One thread counts one window directly
-// (w = min_obs_polya = 100 byte loads from L1); exact.
+// a 0/1 mask over [t, min(t + w, L)), as c[min(t + w, L)] - c[t] with c the
+// row's exclusive prefix count. Integer sums are exact in any association.
+//
+// Bound: memory, 1 byte read and 4 written per sample. One block owns one
+// row and reads each mask byte once: a thread takes 16 bytes (one 16-byte
+// load where the row starts are aligned, byte loads else), turns them into
+// 0/1 bytes and counts them with popc; a block-wide exclusive scan of the
+// chunk counts (warp shuffles, then the warp totals) gives the chunk's
+// offset; the L + 1 counts go into shared memory as uint16 (20 KB at
+// L = 10000, so eight blocks share an SM and the loads of one overlap the
+// stores of another), written as 16-byte stores; after one barrier the output pass writes the differences as
+// int4 stores. A row of more than 65,535 samples (a count would not fit
+// uint16) runs the direct kernel (one thread counts one window); the
+// wrapper picks by L.
 //
 // K9 replaces rolling_pallas.py rolling_detect_pallas: K6's statistics
 // and both poly(A) candidate run sums in one launch. One block owns one
@@ -39,11 +51,16 @@
 //   base = mean_f > thr & var_w < var_max & t < len & t + w_run <= len
 // in the output pass into a byte row (shared memory after the prefix sums,
 // or device scratch for a long row), and counts base and
-// base & (region > 0) over [t, min(t + w_run, L)) as K7 does. The TPU
-// kernel's doubling scan is not carried over: the prefix sums keep
-// XLA:CPU's blocked association, so the fused and unfused detect decide
-// identically. K9 moves K6's bytes plus 4 bytes of region in and 8 bytes of
-// run sums out per sample, and saves the two masks and K7's launches.
+// base & (region > 0) over [t, min(t + w_run, L)) by K7's prefix count:
+// once the output pass is done the float prefix sums are dead, so the
+// L + 1 counts take their place in shared memory, and since a row there
+// has fewer than 65,536 samples both counts ride in one int32 (plain in the
+// low half, inside the region in the high half) through one scan. The
+// device-scratch variant counts each window directly. The TPU kernel's
+// doubling scan is not carried over: the prefix sums keep XLA:CPU's
+// blocked association, so the fused and unfused detect decide identically.
+// K9 moves K6's bytes plus 4 bytes of region in and 8 bytes of run sums
+// out per sample, and saves the two masks and K7's launches.
 #include "common.cuh"
 
 #define WDX_SCAN_BLOCK 16
@@ -51,6 +68,10 @@
 #ifndef WDX_ROLLING_THREADS
 #define WDX_ROLLING_THREADS 512
 #endif
+#ifndef WDX_RUNSUM_THREADS
+#define WDX_RUNSUM_THREADS 256
+#endif
+#define WDX_COUNT_CHUNK 16  // mask bytes a thread counts in one round
 
 // Where the levels of a row's blocked scan of L values lie in its buffer.
 // Level 0 takes [0, L) (padded: index i + i/16); level k >= 1 starts at
@@ -218,7 +239,107 @@ __device__ void wdx_row_mean_var(const float* __restrict__ x, float* c1, float* 
   }
 }
 
-extern __shared__ float wdx_rolling_smem[];
+// c[0 .. limit) = base + the exclusive prefix counts of the chunk's 0/1
+// bytes n (four words of four), two counts a word: neither half carries,
+// since no count exceeds 65,535. limit is WDX_COUNT_CHUNK for a whole chunk
+// (vector stores; c is 16-byte aligned there) and less at the row's end.
+__device__ __forceinline__ void wdx_store_counts(uint16_t* c, int base, const unsigned n[4],
+                                                 int limit) {
+  unsigned w[8];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    int total;
+    const unsigned e = wdx_byte_prefix(n[q], total);
+    const unsigned both = (unsigned)base * 0x00010001u;
+    w[2 * q] = __byte_perm(e, 0, 0x4140) + both;      // bytes 0 and 1 as halves
+    w[2 * q + 1] = __byte_perm(e, 0, 0x4342) + both;  // bytes 2 and 3
+    base += total;
+  }
+  if (limit >= WDX_COUNT_CHUNK) {
+    reinterpret_cast<uint4*>(c)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<uint4*>(c)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < WDX_COUNT_CHUNK; ++j)
+      if (j < limit) c[j] = (uint16_t)(w[j / 2] >> (16 * (j % 2)));
+  }
+}
+
+// K9's run sums over row bytes in shared memory (bit 0 the candidate, bit
+// 1 the candidate inside the region; `words` holds them four a word, its
+// buffer padded to a multiple of WDX_COUNT_CHUNK bytes): the packed prefix
+// counts cnt[0 .. L] (plain | inside << 16), then both differences over
+// [t, min(t + w, L)). L < 65,536; w <= L. All threads of the block call.
+__device__ void wdx_detect_run_sums(int* cnt, const unsigned* words, int* __restrict__ rs_plain,
+                                    int* __restrict__ rs_masked, int L, int w) {
+  __shared__ int warp_sums[64];
+  const int n_chunks = (L + WDX_COUNT_CHUNK - 1) / WDX_COUNT_CHUNK;
+  int carry = 0;
+  for (int round = 0; round * (int)blockDim.x < n_chunks; ++round) {
+    const int chunk = round * blockDim.x + threadIdx.x;
+    const int off = chunk * WDX_COUNT_CHUNK;
+    unsigned plain[4], inside[4];
+    int v = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int valid = L - off - 4 * q;  // bytes of this word inside the row
+      unsigned word = valid > 0 ? words[chunk * 4 + q] : 0u;
+      if (valid > 0 && valid < 4) word &= (1u << (8 * valid)) - 1u;
+      plain[q] = word & 0x01010101u;
+      inside[q] = (word >> 1) & 0x01010101u;
+      v += __popc(plain[q]) + (__popc(inside[q]) << 16);
+    }
+    int base = wdx_block_exclusive_scan(v, warp_sums, round, carry);
+    if (off < L) {
+      const int limit = min(WDX_COUNT_CHUNK, L - off + 1);  // the row's last chunk writes cnt[L]
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int tp, ti;
+        const unsigned ep = wdx_byte_prefix(plain[q], tp);
+        const unsigned ei = wdx_byte_prefix(inside[q], ti);
+        const int4 c4 = make_int4(base + (int)((ep & 0xff) | ((ei & 0xff) << 16)),
+                                  base + (int)(((ep >> 8) & 0xff) | (((ei >> 8) & 0xff) << 16)),
+                                  base + (int)(((ep >> 16) & 0xff) | (((ei >> 16) & 0xff) << 16)),
+                                  base + (int)((ep >> 24) | ((ei >> 24) << 16)));
+        int* c = cnt + off + 4 * q;
+        if (limit >= WDX_COUNT_CHUNK) {
+          *reinterpret_cast<int4*>(c) = c4;
+        } else {
+          if (4 * q < limit) c[0] = c4.x;
+          if (4 * q + 1 < limit) c[1] = c4.y;
+          if (4 * q + 2 < limit) c[2] = c4.z;
+          if (4 * q + 3 < limit) c[3] = c4.w;
+        }
+        base += tp + (ti << 16);
+      }
+    }
+  }
+  if (L % WDX_COUNT_CHUNK == 0 && threadIdx.x == 0) cnt[L] = carry;
+  __syncthreads();
+  // no half of a difference borrows: both counts grow with t
+  const bool vec = L % 4 == 0 && ((reinterpret_cast<uintptr_t>(rs_plain) |
+                                   reinterpret_cast<uintptr_t>(rs_masked)) & 15) == 0;
+  if (vec) {
+    for (int t = 4 * threadIdx.x; t < L; t += 4 * blockDim.x) {
+      const int4 lo = *reinterpret_cast<const int4*>(cnt + t);
+      const int d0 = cnt[min(t + w, L)] - lo.x;
+      const int d1 = cnt[min(t + 1 + w, L)] - lo.y;
+      const int d2 = cnt[min(t + 2 + w, L)] - lo.z;
+      const int d3 = cnt[min(t + 3 + w, L)] - lo.w;
+      *reinterpret_cast<int4*>(rs_plain + t) =
+          make_int4(d0 & 0xffff, d1 & 0xffff, d2 & 0xffff, d3 & 0xffff);
+      *reinterpret_cast<int4*>(rs_masked + t) = make_int4(d0 >> 16, d1 >> 16, d2 >> 16, d3 >> 16);
+    }
+  } else {
+    for (int t = threadIdx.x; t < L; t += blockDim.x) {
+      const int d = cnt[min(t + w, L)] - cnt[t];
+      rs_plain[t] = d & 0xffff;
+      rs_masked[t] = d >> 16;
+    }
+  }
+}
+
+extern __shared__ __align__(16) float wdx_rolling_smem[];
 
 // SHARED: the prefix buffers (row_len floats each) are the block's dynamic
 // shared memory; else rows of the scratch tensors c1_all and c2_all.
@@ -256,6 +377,14 @@ __global__ void __launch_bounds__(WDX_ROLLING_THREADS)
   det.var_max = var_max;
   wdx_row_mean_var<SHARED, true>(x, c1, c2, mean_f, var_f, var_w, L, w_mean, w_var, det);
   __syncthreads();
+  if (SHARED) {
+    // the prefix sums are dead: both prefix counts of the candidate bytes,
+    // packed into one int32, take their place
+    wdx_detect_run_sums(reinterpret_cast<int*>(wdx_rolling_smem),
+                        reinterpret_cast<const unsigned*>(det.base), rs_plain + row,
+                        rs_masked + row, L, max(min(w_run, L), 0));
+    return;
+  }
   const uint8_t* base = det.base;
   for (int t = threadIdx.x; t < L; t += blockDim.x) {
     const int hi = min(t + w_run, L);
@@ -270,6 +399,53 @@ __global__ void __launch_bounds__(WDX_ROLLING_THREADS)
   }
 }
 
+// K7, a row's prefix count in shared memory. VEC: every row start is
+// 16-byte aligned (L % 16 == 0 and an aligned mask). w <= L <= 65,535.
+template <bool VEC>
+__global__ void __launch_bounds__(WDX_RUNSUM_THREADS)
+    wdx_run_sum_prefix_kernel(const uint8_t* __restrict__ mask, int* __restrict__ out, int L,
+                              int w) {
+  __shared__ int warp_sums[64];
+  uint16_t* c = reinterpret_cast<uint16_t*>(wdx_rolling_smem);
+  const uint8_t* m = mask + (long long)blockIdx.x * L;
+  const int n_chunks = (L + WDX_COUNT_CHUNK - 1) / WDX_COUNT_CHUNK;
+  int carry = 0;
+  for (int round = 0; round * (int)blockDim.x < n_chunks; ++round) {
+    const int off = (round * blockDim.x + threadIdx.x) * WDX_COUNT_CHUNK;
+    unsigned n[4] = {0u, 0u, 0u, 0u};  // the chunk as 0/1 bytes (non-zero -> 1)
+    if (off < L) {
+      if (VEC) {
+        const uint4 v = *reinterpret_cast<const uint4*>(m + off);
+        n[0] = __vsetne4(v.x, 0u);
+        n[1] = __vsetne4(v.y, 0u);
+        n[2] = __vsetne4(v.z, 0u);
+        n[3] = __vsetne4(v.w, 0u);
+      } else {
+#pragma unroll
+        for (int j = 0; j < WDX_COUNT_CHUNK; ++j)
+          if (off + j < L && m[off + j]) n[j / 4] |= 1u << (8 * (j % 4));
+      }
+    }
+    const int count = __popc(n[0]) + __popc(n[1]) + __popc(n[2]) + __popc(n[3]);
+    const int base = wdx_block_exclusive_scan(count, warp_sums, round, carry);
+    // the row's last chunk writes c[L] too, unless it ends at L
+    if (off < L) wdx_store_counts(c + off, base, n, min(WDX_COUNT_CHUNK, L - off + 1));
+  }
+  if (L % WDX_COUNT_CHUNK == 0 && threadIdx.x == 0) c[L] = (uint16_t)carry;
+  __syncthreads();
+  int* o = out + (long long)blockIdx.x * L;
+  if (L % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    for (int t = 4 * threadIdx.x; t < L; t += 4 * blockDim.x) {
+      *reinterpret_cast<int4*>(o + t) = make_int4(
+          (int)c[min(t + w, L)] - (int)c[t], (int)c[min(t + 1 + w, L)] - (int)c[t + 1],
+          (int)c[min(t + 2 + w, L)] - (int)c[t + 2], (int)c[min(t + 3 + w, L)] - (int)c[t + 3]);
+    }
+  } else {
+    for (int t = threadIdx.x; t < L; t += blockDim.x) o[t] = (int)c[min(t + w, L)] - (int)c[t];
+  }
+}
+
+// K7 for a row too long for uint16 counts: one thread counts one window.
 __global__ void wdx_run_sum_kernel(const uint8_t* __restrict__ mask, int* __restrict__ out, int B,
                                    int L, int w) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -292,17 +468,6 @@ static int wdx_check_rolling(int L, int row_len, int shared_bytes, int extra_byt
   return 0;
 }
 
-// Dynamic shared memory above 48 KB has to be granted per kernel; the
-// carve-out hint lets two blocks of 90 KB share an SM.
-template <typename Kernel>
-static int wdx_allow_shared(Kernel kernel, int shared_bytes) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   cudaSharedmemCarveoutMaxShared);
-}
-
 WDX_API int wdx_rolling_mean_var(const float* x, float* c1_scratch, float* c2_scratch,
                                  int row_len, int shared_bytes, float* mean_f, float* var_f,
                                  float* var_w, int B, int L, int w_mean, int w_var,
@@ -322,9 +487,30 @@ WDX_API int wdx_rolling_mean_var(const float* x, float* c1_scratch, float* c2_sc
   return (int)cudaGetLastError();
 }
 
-WDX_API int wdx_run_sum(const uint8_t* mask, int* out, int B, int L, int w, cudaStream_t stream) {
+template <bool VEC>
+static int wdx_launch_run_sum_prefix(const uint8_t* mask, int* out, int B, int L, int w,
+                                     int shared_bytes, cudaStream_t stream) {
+  const int err = wdx_allow_shared(wdx_run_sum_prefix_kernel<VEC>, shared_bytes);
+  if (err) return err;
+  wdx_run_sum_prefix_kernel<VEC>
+      <<<B, WDX_RUNSUM_THREADS, shared_bytes, stream>>>(mask, out, L, w);
+  return (int)cudaGetLastError();
+}
+
+// shared_bytes > 0 selects the prefix-count variant (L <= 65535); it must
+// hold L + 1 uint16 counts. shared_bytes == 0 selects the direct kernel.
+WDX_API int wdx_run_sum(const uint8_t* mask, int* out, int B, int L, int w, int shared_bytes,
+                        cudaStream_t stream) {
   const long long total = (long long)B * L;
   if (total == 0) return 0;
+  w = w < 0 ? 0 : (w > L ? L : w);  // the same counts, and t + w cannot overflow
+  if (shared_bytes > 0) {
+    if (L > 65535 || (long long)shared_bytes < ((long long)L + 1) * (long long)sizeof(uint16_t))
+      return (int)cudaErrorInvalidValue;
+    const bool vec = L % WDX_COUNT_CHUNK == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+    return vec ? wdx_launch_run_sum_prefix<true>(mask, out, B, L, w, shared_bytes, stream)
+               : wdx_launch_run_sum_prefix<false>(mask, out, B, L, w, shared_bytes, stream);
+  }
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   wdx_run_sum_kernel<<<(unsigned)blocks, threads, 0, stream>>>(mask, out, B, L, w);
@@ -338,7 +524,9 @@ WDX_API int wdx_rolling_detect(const float* x, const float* region, const float*
                                int* rs_masked, int B, int L, int w_mean, int w_var, int w_run,
                                float var_max, cudaStream_t stream) {
   if (B == 0 || L == 0) return 0;
-  int err = wdx_check_rolling(L, row_len, shared_bytes, L);
+  // the candidate bytes, padded to whole chunks of the run-sum count
+  int err = wdx_check_rolling(L, row_len, shared_bytes,
+                              (L + WDX_COUNT_CHUNK - 1) / WDX_COUNT_CHUNK * WDX_COUNT_CHUNK);
   if (err) return err;
   if (shared_bytes > 0) {
     err = wdx_allow_shared(wdx_rolling_detect_kernel<true>, shared_bytes);

@@ -66,8 +66,7 @@ def rolling_mean_var_plain(xz: torch.Tensor, w_mean: int, w_var: int):
     return mean_f, var_f, var_w
 
 
-# Dynamic shared memory a block may take on the kernels' target (sm_90)
-MAX_SHARED_BYTES = 232448
+MAX_SHARED_BYTES = _cuda.MAX_SHARED_BYTES
 
 
 def _scan_row_len(L: int, padded: bool) -> int:
@@ -83,15 +82,16 @@ def _scan_row_len(L: int, padded: bool) -> int:
     return row_len
 
 
-def _scan_buffers(B: int, L: int, device, extra_shared: int = 0):
+def _scan_buffers(B: int, L: int, device, extra_shared: int = 0, static_shared: int = 0):
     """(row_len, shared_bytes, scratch) of a K6 / K9 launch over (B, L).
 
     Both prefix-sum arrays of a row (and `extra_shared` bytes more) go into
-    the block's shared memory where they fit: then scratch is None. Longer
-    rows get shared_bytes 0 and a (2, B, row_len) scratch tensor."""
+    the block's shared memory where they fit beside the kernel's
+    `static_shared` bytes: then scratch is None. Longer rows get
+    shared_bytes 0 and a (2, B, row_len) scratch tensor."""
     row_len = _scan_row_len(L, padded=True)
     shared_bytes = 2 * 4 * row_len + extra_shared
-    if shared_bytes <= MAX_SHARED_BYTES:
+    if shared_bytes <= MAX_SHARED_BYTES - static_shared:
         return row_len, shared_bytes, None
     row_len = _scan_row_len(L, padded=False)
     return row_len, 0, torch.empty((2, B, row_len), dtype=torch.float32, device=device)
@@ -124,6 +124,20 @@ def run_sum_plain(mask: torch.Tensor, w: int) -> torch.Tensor:
     return c[:, hi] - c[:, :L]
 
 
+# static shared memory of K7 and K9 (the scan's warp totals), rounded up
+_RUN_SUM_STATIC_BYTES = 1024
+_RUN_SUM_MAX_LEN = 65535  # K7's prefix counts are uint16
+
+
+def _run_sum_shared_bytes(L: int) -> int:
+    """Dynamic shared memory of a K7 launch over rows of L samples: the
+    row's L + 1 uint16 prefix counts (in whole 16-byte vectors), or 0 where
+    a count would not fit: then the direct kernel runs."""
+    if L > _RUN_SUM_MAX_LEN:
+        return 0
+    return -(-(L + 1) * 2 // 16) * 16  # at most 131,072: it fits a block
+
+
 def run_sum(mask: torch.Tensor, w: int) -> torch.Tensor:
     """int32 count of True in mask[t : min(t+w, L)); K7 on CUDA."""
     if not _cuda.on_cuda(mask):
@@ -133,7 +147,8 @@ def run_sum(mask: torch.Tensor, w: int) -> torch.Tensor:
     _cuda.check(mask, torch.bool, 2, "run_sum mask")
     out = torch.empty((B, L), dtype=torch.int32, device=mask.device)
     _cuda.launch(
-        "wdx_run_sum", mask.device, mask.data_ptr(), out.data_ptr(), B, L, int(w)
+        "wdx_run_sum", mask.device, mask.data_ptr(), out.data_ptr(), B, L, int(w),
+        _run_sum_shared_bytes(L),
     )
     return out
 
@@ -178,8 +193,11 @@ def rolling_detect(
     _cuda.check(thr, torch.float32, 1, "rolling_detect thr")
     if region.shape != (B, L) or thr.shape != (B,) or in_lens.shape != (B,):
         raise ValueError("rolling_detect: region must be (B, L), thr and in_lens (B,)")
-    # the candidate byte row rides in shared memory with the prefix sums
-    row_len, shared_bytes, scratch = _scan_buffers(B, L, xz.device, extra_shared=L)
+    # the candidate byte row rides in shared memory with the prefix sums,
+    # padded to the 16-byte chunks its run sums are counted in
+    row_len, shared_bytes, scratch = _scan_buffers(
+        B, L, xz.device, extra_shared=-(-L // 16) * 16, static_shared=_RUN_SUM_STATIC_BYTES
+    )
     if scratch is None:
         c1 = c2 = base = 0
     else:

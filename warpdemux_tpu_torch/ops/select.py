@@ -1,4 +1,4 @@
-"""Exact ranged medians / MADs by radix bisection (no sorts).
+"""Exact ranged medians / MADs by radix selection (no sorts).
 
 Port of warpdemux_tpu/ops/select.py `range_median_mad`. Float32 values map
 onto int32 keys by the monotone image
@@ -11,8 +11,13 @@ followed by 31 MSB-first rounds: bit b is set iff count(key < candidate)
 statistics for even counts, NaN for an empty range); MAD = median of
 |x - median|.
 
-CUDA tensors go to kernel K4 (csrc/select.cu, one block per (range, row));
-CPU tensors go to the plain bisection over (R, B, L) masks.
+CUDA tensors go to kernel K4 (csrc/select.cu): one block per (range, row)
+stages the range's keys in shared memory once and finds the rank-th key by
+histograms of 8-bit digits, most significant first, starting at the highest
+bit in which the range's keys differ (3 or 4 rounds where the bisection
+takes 32); rows whose keys do not fit shared memory stream the bisection
+from device memory. CPU tensors go to the plain bisection over (R, B, L)
+masks.
 
 `range_medians_adc` is the median-only path of the adc and vbz feeds: the
 int16 ADC preimage of the calibrated signal is bisected as a 16-bit key
@@ -31,6 +36,20 @@ from warpdemux_tpu_torch.ops.numerics import fma
 
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
+# room kept for K4's static shared memory (its histograms and the warps'
+# slots: 6,464 bytes as built, 12,928 with the 11-bit digits of the sweep in
+# tune_kernels.py)
+_SELECT_STATIC_BYTES = 13 * 1024
+# the longest row whose keys (whole 16-byte vectors) fit beside it: 54,784
+_STAGED_MAX_LEN = (_cuda.MAX_SHARED_BYTES - _SELECT_STATIC_BYTES) // 16 * 4
+
+
+def _staged_bytes(L: int) -> int:
+    """Dynamic shared memory of a K4 launch over rows of L samples: a whole
+    row's staged keys (the range lengths are device data), 4 bytes each in
+    whole 16-byte vectors, or 0 where they do not fit a block: then the
+    streaming kernel runs."""
+    return -(-L // 4) * 16 if L <= _STAGED_MAX_LEN else 0
 
 
 def order_keys(x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +184,7 @@ def range_median_mad(
         "wdx_range_median_mad", x.device, x.data_ptr(), starts.data_ptr(),
         ends.data_ptr(), None if gm is None else gm.data_ptr(), given_mask,
         int(with_mad), *[None if t is None else t.data_ptr() for t in cal],
-        meds.data_ptr(), mads.data_ptr(), R, B, L,
+        meds.data_ptr(), mads.data_ptr(), R, B, L, _staged_bytes(L),
     )
     return (meds, mads) if with_mad else (meds, None)
 
