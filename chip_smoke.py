@@ -29,10 +29,24 @@ Phases (each raises on failure; nothing is caught):
    streaming variant). K7 is held at short and odd lengths, windows longer
    than the row, row starts off the vector alignment, constant masks and
    a row too long for its uint16 prefix counts (its direct variant).
+   K3 is held on rows of 1 to 6272 positions, distances from 1 to above
+   max_distance, reaches to 32, empty and full masks, runs of equal scores,
+   staircases of peaks, peaks at the row's ends and across its bit words'
+   boundaries and non-finite scores, on both of its variants (bit words in
+   shared memory; byte flags in device memory, which a max_distance above
+   32 takes), must allocate nothing beside its output, and the rounds its
+   fixpoint takes on the step's batch are printed (largest and mean a row).
    K5 and K7 are timed beside the one PyTorch call that computes the same
-   function (torch.gather, F.conv1d). K8 is also held against K4 and timed
-   beside it; K9 against K6 and K7 (at edge lengths too) and timed beside
-   K6 + 2 x K7 on the same inputs.
+   function (torch.gather, F.conv1d), as called and on the device alone.
+   K8 is also held against K4 and timed beside it, at R=2 and R=1, and held
+   on ranges of 1, 2 and 3 samples, empty and inverted ranges, all-equal
+   ranges, heavy ties, the keys -32768 and 32767, range starts off the
+   vector alignment and rows at and beyond its staging limit, on both of
+   its variants (keys staged in shared memory; the streaming bisection); K9
+   against K6 and K7 (at edge lengths too) and timed beside K6 + 2 x K7 on
+   the same inputs. An empty launch is timed as called through
+   `_cuda.launch` and through a launch that resolves the entry point, the
+   device context and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -54,6 +68,7 @@ The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -88,6 +103,9 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_rolling_detect": ("K9 fused rolling detect", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:206"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
+# launches a step of each path, in KERNELS' order (K1 .. K9)
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1)}
 
 
 def time_ms(fn, reps=10, queued=False):
@@ -189,6 +207,108 @@ def k4_edge_cases(with_nan=True):
     return cases
 
 
+def k3_edge_cases():
+    """[(name, scores (B, L) float32, is_peak (B, L) bool, distance (B,)
+    int32, max_distance)]: the suppression inputs that K3 (both variants),
+    its plain version and the JAX package are all held to. A flagged score
+    of -inf stands only where a winner within reach kills it or the
+    distance is 1: elsewhere no version of the fixpoint resolves it. The
+    last two rows are the longest that take the bit-word kernel, and one
+    position more."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    i32 = lambda v: np.asarray(v, np.int32)
+
+    def maxima(s):  # local maxima, the later of two equal neighbours
+        m = np.zeros(s.shape, bool)
+        m[:, 1:-1] = (s[:, 1:-1] >= s[:, :-2]) & (s[:, 1:-1] > s[:, 2:])
+        return m
+
+    cases = []
+    for L in (1, 2, 7, 6271, 6272):
+        s = (np.round(rng.gamma(2.0, 1.0, (6, L)) * 4) / 4).astype(np.float32)
+        flags = maxima(s) if L > 2 else np.ones((6, L), bool)
+        cases.append((f"L={L}", s, flags, i32([1, 2, 3, 5, 6, 9]), 7))
+    s = rng.gamma(2.0, 1.0, (5, 700)).astype(np.float32)
+    cases.append(("distance 1 (nothing suppressed)", s, maxima(s), i32([1] * 5), 7))
+    cases.append(("distance above max_distance (clamped)", s, maxima(s), i32([7, 8, 9, 100, 6]), 7))
+    cases.append(("max_distance 32, distances to 32", s, rng.random(s.shape) < 0.5, i32([32, 31, 17, 40, 2]), 32))
+    cases.append(("max_distance 33, distances to 32", s, rng.random(s.shape) < 0.5, i32([32, 31, 17, 40, 2]), 33))
+    cases.append(("no peak", s, np.zeros(s.shape, bool), i32([3] * 5), 7))
+    cases.append(("every position flagged", s, np.ones(s.shape, bool), i32([1, 2, 4, 6, 7]), 7))
+    flat = np.full((4, 200), 2.5, np.float32)
+    flat[2, 100:] = 1.0
+    flat[3, ::7] = 3.0
+    cases.append(("equal scores over a run", flat, np.ones(flat.shape, bool), i32([2, 5, 6, 3]), 7))
+    stairs = np.zeros((2, 1024), np.float32)
+    stairs[0, ::2] = np.arange(512, 0, -1)  # falls: one winner a round, from the left
+    stairs[1, ::2] = np.arange(1, 513)  # rises: from the right
+    cases.append(("staircases of peaks two apart", stairs, stairs > 0, i32([3, 3]), 7))
+    s = rng.gamma(2.0, 1.0, (4, 200)).astype(np.float32)
+    flags = np.zeros(s.shape, bool)
+    flags[:, [0, 1, 30, 31, 32, 33, 63, 64, 65, 95, 96, 198, 199]] = True
+    s[1, [31, 32]] = 9.0  # a tie across the word boundary
+    s[2, [0, 199]] = 9.0
+    cases.append(("peaks at the ends and across word boundaries", s, flags, i32([2, 3, 6, 40]), 32))
+    s = rng.gamma(2.0, 1.0, (5, 96)).astype(np.float32)
+    flags = np.zeros(s.shape, bool)
+    flags[:, [10, 11, 20, 22, 30, 31, 33, 60, 64, 90]] = True
+    s[:, 10], s[:, 11] = -np.inf, 5.0  # killed by its neighbour in round one
+    s[:, [20, 22]] = np.inf  # a tie of infinities: the later wins
+    s[:, [30, 33]] = np.nan  # dominates nothing, is dominated by nothing
+    s[:, 40:50] = -np.inf  # not flagged
+    s[4, 64] = -np.inf  # distance 1: wins
+    cases.append(("inf, -inf and NaN scores", s, flags, i32([4, 2, 6, 3, 1]), 7))
+    for L in (619808, 619809):  # the longest row whose bit words fit shared memory, and one beyond
+        s = rng.gamma(2.0, 1.0, (2, L)).astype(np.float32)
+        cases.append((f"L={L}", s, rng.random(s.shape) < 0.3, i32([3, 6]), 7))
+    return cases
+
+
+def k8_edge_cases():
+    """[(name, x (B, L) float32, adc (B, L) int16, starts (R, B), ends
+    (R, B))]: the ranges that K8 (both variants), its plain version and the
+    JAX package are all held to; x is the calibrated image of adc."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    i32 = lambda rows, B: np.repeat(np.asarray(rows, np.int32)[:, None], B, axis=1)
+
+    def calibrated(adc):
+        off = rng.uniform(-260, -200, adc.shape[0]).astype(np.float32)
+        sc = rng.uniform(0.1, 0.3, adc.shape[0]).astype(np.float32)
+        return (adc.astype(np.float32) + off[:, None]) * sc[:, None], adc
+
+    def reads(B, L):
+        return np.clip(rng.normal(500, 80, (B, L)), -32768, 32767).astype(np.int16)
+
+    cases = []
+    cases.append(("n = 1, 2, 3", *calibrated(reads(6, 40)), i32([5, 7, 11], 6), i32([6, 9, 14], 6)))
+    cases.append(("empty and inverted ranges", *calibrated(reads(6, 40)), i32([5, 9, 0, 40], 6), i32([5, 3, 0, 40], 6)))
+    adc = np.full((4, 64), 511, np.int16)
+    adc[1], adc[2] = -32768, 32767
+    cases.append(("all-equal", *calibrated(adc), i32([0, 3, 10], 4), i32([64, 33, 11], 4)))
+    adc = np.where(rng.permuted(np.arange(100)[None].repeat(4, 0), axis=1) < 50, 5, 9).astype(np.int16)
+    cases.append(("heavy ties, even count, middle keys differ", *calibrated(adc), i32([0], 4), i32([100], 4)))
+    adc = np.where(rng.permuted(np.arange(100)[None].repeat(4, 0), axis=1) < 60, 5, 9).astype(np.int16)
+    cases.append(("heavy ties, even count, middle keys equal", *calibrated(adc), i32([0, 1], 4), i32([100, 99], 4)))
+    adc = rng.integers(-32768, 32768, (6, 256)).astype(np.int16)
+    adc[0, ::2], adc[0, 1::2] = -32768, 32767
+    adc[1, :128] = -32768
+    adc[2, 128:] = 32767
+    cases.append(("the keys -32768 and 32767", *calibrated(adc), i32([0, 0, 100], 6), i32([256, 255, 156], 6)))
+    cases.append(("range starts odd and off the vector alignment", *calibrated(reads(6, 256)),
+                  i32([1, 3, 9, 8, 250], 6), i32([256, 131, 16, 9, 256], 6)))
+    for L in (65528, 65535, 65536):  # the longest staged rows (whole vectors or not), and one beyond
+        adc = reads(3, L)
+        adc[:, :3000] = adc[:, :3000] // 16 * 16
+        st = np.stack([np.zeros(3), rng.integers(0, L // 2, 3)]).astype(np.int32)
+        en = np.stack([np.full(3, L), st[1] + rng.integers(1, L // 2, 3)]).astype(np.int32)
+        cases.append((f"L={L}", *calibrated(adc), st, en))
+    return cases
+
+
 def dtw_band_cells(m, window):
     return sum(1 for i in range(m) for j in range(m) if abs(i - j) <= window - 1)
 
@@ -219,21 +339,52 @@ def check_kernels(dev, card):
         ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
         plain_ms = time_ms(plain, reps=plain_reps)
         library_ms = None if library is None else time_ms(library)
+        library_device_ms = None if library is None else time_ms(library, queued=True)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         results[key] = {
             "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
         }
         print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} device_ms={device_ms!r} plain_ms={plain_ms!r}")
         print(f"{KERNELS[key][0]}: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
               f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r}); "
-              f"library_ms={library_ms!r} on {card}")
+              f"library_ms={library_ms!r} library_device_ms={library_device_ms!r} on {card}")
 
     def same_bits(a, b):  # equal, NaN where the other has NaN
         return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
 
     def bits(a):
         return a.contiguous().view(torch.int32)
+
+    @contextlib.contextmanager
+    def long_row_variant(module, helper):
+        """Inside, the wrapper of `module` takes its kernel's variant for
+        long rows (`helper`, its shared-memory size, says 0) at any shape."""
+        saved = getattr(module, helper)
+        setattr(module, helper, lambda *shape: 0)
+        try:
+            yield
+        finally:
+            setattr(module, helper, saved)
+
+    def both_ms(fn):  # as a caller sees it, and the device's time alone
+        return f"kernel_ms={time_ms(fn)!r} device_ms={time_ms(fn, queued=True)!r}"
+
+    # the host's time a launch: _cuda.launch (entry point resolved once, no
+    # device context on the current device, the raw stream handle) beside a
+    # launch that resolves all three every time, in turns
+    def launch_unresolved(blocks, threads):
+        fn = getattr(_cuda.library(), "wdx_empty_launch")
+        with torch.cuda.device(dev):
+            err = fn(blocks, threads, torch.cuda.current_stream(dev).cuda_stream)
+        require(err == 0, f"empty launch failed with {err}")
+
+    for turn in (1, 2):
+        print(f"empty launch of {B} blocks of 256 threads as called, turn {turn}: "
+              f"everything resolved a launch kernel_ms={time_ms(lambda: launch_unresolved(B, 256), reps=50)!r} | "
+              f"_cuda.launch kernel_ms={time_ms(lambda: _cuda.empty_launch(dev, B, 256), reps=50)!r} | "
+              f"device_ms={time_ms(lambda: _cuda.empty_launch(dev, B, 256), reps=50, queued=True)!r} on {card}")
 
     # K1: banded DTW against WDX4 (N=851) and WDX10 (N=2601) support
     # vectors (the static m=25, window=15 instance), then the generic
@@ -282,13 +433,37 @@ def check_kernels(dev, card):
         2 * B * A * 4 + 2 * B * 4, int(n_scores.sum()) * 16,
     )
 
-    # K3: distance suppression of the t-score peaks
+    # K3: distance suppression of the t-score peaks (the bit-word kernel at
+    # the step's shape), then both variants on the edge cases, and the rounds
+    # the fixpoint takes on this batch
     scores = p
     is_peak, _ = peaks.peak_mask_batch(scores, torch.clamp_min(n_valid - 2 * w, 0))
     dist = torch.clamp(torch.round(n_valid.float() / 220).int(), 1, 6)
+    require(peaks._suppress_shared_bytes(A, 7) > 0 and peaks._suppress_shared_bytes(A, 33) == 0,
+            "K3: the step's shape does not take the bit-word kernel")
     k = peaks.suppress_by_distance(scores, is_peak, dist, 7)
-    p = peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)
+    p, rounds = peaks.suppress_by_distance_plain(scores, is_peak, dist, 7, count_rounds=True)
     require(torch.equal(k, p), "K3: keep masks differ")
+    print(f"K3 rounds of the fixpoint on this batch: largest {int(rounds.max())}, mean a row {float(rounds.float().mean())!r}; "
+          f"{int(is_peak.sum())} peaks flagged, {int(k.sum())} kept")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k2 = peaks.suppress_by_distance(scores, is_peak, dist, 7)
+    extra = torch.cuda.max_memory_allocated() - before - B * A
+    require(extra < 2**16, f"K3 allocated {extra} bytes beside its output")
+    print(f"K3 at L={A}: {extra} bytes allocated beside the output")
+    del k2
+    for name, se, fe, de, W in k3_edge_cases():
+        args = (t(se), t(fe), t(de), W)
+        want = peaks.suppress_by_distance_plain(*args)
+        variant = "bit words" if peaks._suppress_shared_bytes(se.shape[1], W) else "byte flags"
+        require(torch.equal(peaks.suppress_by_distance(*args), want), f"K3 {name} ({variant}): differs from the plain version")
+        with long_row_variant(peaks, "_suppress_shared_bytes"):
+            require(torch.equal(peaks.suppress_by_distance(*args), want), f"K3 {name} (byte flags): differs from the plain version")
+        print(f"K3 {name} ({variant}, and byte flags): max_abs_err=0.0, {int(want.sum())} of {int(fe.sum())} kept")
+    with long_row_variant(peaks, "_suppress_shared_bytes"):
+        require(torch.equal(peaks.suppress_by_distance(scores, is_peak, dist, 7), p), "K3 (byte flags): keep masks differ")
+        print(f"K3 byte-flag variant at the step's shape: {both_ms(lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7))}")
     # one round of the fixpoint: every peak compared with its 2 (d - 1) neighbours
     record(
         "wdx_suppress", max_abs(k.int(), p.int()),
@@ -359,9 +534,6 @@ def check_kernels(dev, card):
     require(select._staged_bytes(select._STAGED_MAX_LEN) > 0 and select._staged_bytes(select._STAGED_MAX_LEN + 1) == 0
             and select._staged_bytes(L) > 0,
             "K4: the variants were not both run")
-    def both_ms(fn):  # as a caller sees it, and the device's time alone
-        return f"kernel_ms={time_ms(fn)!r} device_ms={time_ms(fn, queued=True)!r}"
-
     print(f"empty launch of K4's clip grid ({B} blocks of 256 threads): "
           f"{both_ms(lambda: _cuda.empty_launch(dev, B, 256))} on {card}")
     # what the clip's time is made of: the launch, the staging pass (an
@@ -390,28 +562,49 @@ def check_kernels(dev, card):
     )
 
     # K8: the same gate medians (R=2) and the adapter-level proxy (R=1)
-    # bisected over the int16 ADC counts; exact against its plain version
-    # and against K4
+    # selected over the int16 ADC counts; exact against its plain version
+    # and against K4, both variants; then the edge ranges
     proxy = (zero.expand(1, B), torch.full((1, B), 2000, dtype=torch.int32, device=dev))
+    require(select._adc_staged_bytes(L) > 0, "K8: the step's shape does not take the staged kernel")
     errs = []
     for st, en in ((starts, ends), proxy):
-        k = select.range_medians_adc(x, adc16, st, en)
-        for want in (
-            select.range_medians_adc_plain(x, adc16, st, en),
-            select.range_median_mad(x, st, en, False)[0],
-        ):
-            require(torch.equal(k.isnan(), want.isnan()), "K8: NaN pattern differs")
-            errs.append(max_abs(k, want))
+        wants = (select.range_medians_adc_plain(x, adc16, st, en), select.range_median_mad(x, st, en, False)[0])
+        got = [select.range_medians_adc(x, adc16, st, en)]
+        with long_row_variant(select, "_adc_staged_bytes"):
+            got.append(select.range_medians_adc(x, adc16, st, en))
+        for k in got:
+            for want in wants:
+                require(torch.equal(bits(k), bits(want)), "K8: differs from its plain version or from K4")
+                errs.append(max_abs(k, want))
     require(max(errs) == 0.0, f"K8: errors {errs}")
+    for name, xe, ae, st, en in k8_edge_cases():
+        args = (t(xe), t(ae), t(st), t(en))
+        want = select.range_medians_adc_plain(*args)
+        variant = "staged in shared memory" if select._adc_staged_bytes(xe.shape[1]) else "streaming"
+        require(torch.equal(bits(select.range_medians_adc(*args)), bits(want)), f"K8 {name} ({variant}): differs from the plain version")
+        require(torch.equal(bits(select.range_median_mad(*args[:1], *args[2:], False)[0]), bits(want)), f"K8 {name}: K4 differs")
+        with long_row_variant(select, "_adc_staged_bytes"):
+            require(torch.equal(bits(select.range_medians_adc(*args)), bits(want)), f"K8 {name} (streaming): differs from the plain version")
+        print(f"K8 {name} ({variant}, and streaming): max_abs_err=0.0, {int(want.isnan().sum())} NaN medians, bits equal, K4's too")
+    require(select._adc_staged_bytes(65535) > 0 and select._adc_staged_bytes(65536) == 0, "K8: the variants were not both run")
+
+    def k8_work(st, en):
+        """(bytes, operations): the 2-byte keys of a range's samples decide
+        its median; of x it needs two values a range; starts, ends, output."""
+        n = sum(covered(st, en, L))
+        return n * 2 + st.numel() * (8 + 8 + 4), n * SELECT_OPS
+
     for (st, en), shape in (((starts, ends), "R=2"), (proxy, "R=1")):
         print(f"K8 {shape}: {both_ms(lambda: select.range_medians_adc(x, adc16, st, en))} "
-              f"beside K4 {both_ms(lambda: select.range_median_mad(x, st, en, False))}")
-    n = sum(covered(starts, ends, L))
+              f"beside K4 {both_ms(lambda: select.range_median_mad(x, st, en, False))} "
+              f"bound_ms={bound(*k8_work(st, en))[0]!r} by {bound(*k8_work(st, en))[1]} on {card}")
+    with long_row_variant(select, "_adc_staged_bytes"):
+        print(f"K8 streaming variant, R=2: {both_ms(lambda: select.range_medians_adc(x, adc16, starts, ends))}")
     record(
         "wdx_range_median_adc", max(errs),
         lambda: select.range_medians_adc(x, adc16, starts, ends),
         lambda: select.range_medians_adc_plain(x, adc16, starts, ends),
-        n * 6 + starts.numel() * 12, n * SELECT_OPS,
+        *k8_work(starts, ends),
     )
 
     # K5: LLR refine windows (800 of 10000) and adapter extraction
@@ -605,6 +798,7 @@ def _drive(path, step, args):
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
     print(f"launches in the {path} run: {launches}")
+    require(launches == dict(zip(KERNELS, LAUNCHES[path])), f"{path}: launches differ from {LAUNCHES[path]}")
     return out, launches
 
 

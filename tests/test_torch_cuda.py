@@ -21,7 +21,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
-from chip_smoke import k4_edge_cases, k7_edge_cases  # noqa: E402
+from chip_smoke import k3_edge_cases, k4_edge_cases, k7_edge_cases, k8_edge_cases  # noqa: E402
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
 from warpdemux_tpu_torch.models.registry import load_model_arrays  # noqa: E402
@@ -110,6 +110,37 @@ def test_k3_suppress(dev, quantize):
     dist = torch.as_tensor(rng.integers(1, 8, 64).astype(np.int32), device=dev)
     got = _launched("wdx_suppress", lambda: peaks.suppress_by_distance(s, is_peak, dist, 7))
     assert torch.equal(got, peaks.suppress_by_distance_plain(s, is_peak, dist, 7))
+
+
+@pytest.mark.parametrize("variant", ["bit words", "byte flags"])
+@pytest.mark.parametrize("case", range(len(k3_edge_cases())), ids=[c[0] for c in k3_edge_cases()])
+def test_k3_suppress_edge_cases(dev, monkeypatch, case, variant):
+    """Rows of 1 to 6272 positions, distances from 1 to above max_distance,
+    reaches to 32, empty and full masks, equal scores, staircases, peaks at
+    the ends and across word boundaries, non-finite scores, rows at and
+    beyond the longest whose bit words fit shared memory: the plain
+    version's mask from both kernels (the byte-flag one forced at any
+    shape)."""
+    _, s, flags, dist, W = k3_edge_cases()[case]
+    if variant == "byte flags":
+        monkeypatch.setattr(peaks, "_suppress_shared_bytes", lambda L, W: 0)
+    else:
+        assert (peaks._suppress_shared_bytes(s.shape[1], W) > 0) == (W <= 32 and s.shape[1] <= 619808)
+    args = (*(torch.as_tensor(a, device=dev) for a in (s, flags, dist)), W)
+    got = _launched("wdx_suppress", lambda: peaks.suppress_by_distance(*args))
+    assert torch.equal(got, peaks.suppress_by_distance_plain(*args))
+
+
+def test_k3_allocates_no_scratch_at_the_step_shape(dev):
+    s = torch.as_tensor(np.random.default_rng(3).gamma(2.0, 1.0, (64, 6272)).astype(np.float32), device=dev)
+    is_peak, _ = peaks.peak_mask_batch(s, torch.full((64,), 6272, device=dev))
+    dist = torch.full((64,), 6, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = peaks.suppress_by_distance(s, is_peak, dist, 7)
+    assert torch.cuda.max_memory_allocated() - before - out.numel() < 2**16
+    del out
 
 
 @pytest.mark.parametrize("with_mad", [False, True])
@@ -271,8 +302,30 @@ def test_k4_calibrated_mad(dev):
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
 
 
+@pytest.mark.parametrize("variant", ["staged", "streaming"])
+@pytest.mark.parametrize("case", range(len(k8_edge_cases())), ids=[c[0] for c in k8_edge_cases()])
+def test_k8_edge_ranges(dev, monkeypatch, case, variant):
+    """Ranges of 1, 2 and 3 samples, empty and inverted ranges, all-equal
+    ranges, heavy ties, the keys -32768 and 32767, starts off the 16-byte
+    alignment, rows at and beyond the staging limit: the bits of the plain
+    version and of K4 from both kernels (the streaming one forced at any
+    length)."""
+    _, x, adc, starts, ends = k8_edge_cases()[case]
+    if variant == "streaming":
+        monkeypatch.setattr(select, "_adc_staged_bytes", lambda L: 0)
+    else:
+        assert (select._adc_staged_bytes(x.shape[1]) > 0) == (x.shape[1] <= 65535)
+    x, adc, starts, ends = (torch.as_tensor(a, device=dev) for a in (x, adc, starts, ends))
+    got = _launched("wdx_range_median_adc", lambda: select.range_medians_adc(x, adc, starts, ends))
+    for want in (select.range_medians_adc_plain(x, adc, starts, ends), select.range_median_mad(x, starts, ends, False)[0]):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["staged", "streaming"])
 @pytest.mark.parametrize("R", [1, 2])
-def test_k8_range_medians_adc(dev, R):
+def test_k8_range_medians_adc(dev, monkeypatch, R, variant):
+    if variant == "streaming":
+        monkeypatch.setattr(select, "_adc_staged_bytes", lambda L: 0)
     x, adc, _, _ = _calibrated(dev)
     starts, ends = _ranges(dev, R)
     got = _launched("wdx_range_median_adc", lambda: select.range_medians_adc(x, adc, starts, ends))

@@ -2,6 +2,9 @@
 package's jnp path, its Pallas kernel in interpret mode and scipy: masks
 and selected positions are exact, ties go to the later position."""
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +13,15 @@ from scipy.signal import find_peaks
 
 from warpdemux_tpu.ops import peaks as jax_peaks
 from warpdemux_tpu.ops.peaks_pallas import suppress_by_distance_pallas
+from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops import peaks
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import k3_edge_cases  # noqa: E402
+
+# the inputs kernel K3 is held to on the GPU
+EDGE_CASES = k3_edge_cases()
 
 
 def _scores(rng, B, L, quantize=False):
@@ -98,3 +109,58 @@ def test_select_top_peaks_tie_prefers_later_position():
     got, ok = peaks.select_top_peaks(torch.from_numpy(s), keep, torch.tensor([4]), 2)
     assert bool(ok[0])
     assert sorted(got[0].tolist()) == [3, 17]
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_CASES)), ids=[c[0] for c in EDGE_CASES])
+def test_suppress_plain_matches_jax_at_edge_cases(case):
+    """K3's plain version (the kernel's yardstick) on rows of 1 to 6272
+    positions, distances from 1 to above max_distance, reaches to 32, empty
+    and full masks, runs of equal scores, the staircases that take a round a
+    winner, peaks at the row's ends and across 32-position word boundaries,
+    inf, -inf and NaN scores, and rows at and beyond the longest the
+    bit-word kernel takes: the exact mask of the JAX package's jnp
+    path (the one the step runs on the CPU) and of its Pallas kernel in
+    interpret mode. The two JAX paths agree on every non-finite score here;
+    they differ only for a flagged score at or below -3.4e38 beside a dead
+    neighbour (the Pallas kernel pads with -3.4e38, the jnp path with -inf),
+    where neither ends: no case holds one."""
+    _, s, flags, dist, W = EDGE_CASES[case]
+    got = peaks.suppress_by_distance_plain(
+        torch.from_numpy(s), torch.from_numpy(flags), torch.from_numpy(dist), W
+    ).numpy()
+    want = jax_peaks.suppress_by_distance(jnp.asarray(s), jnp.asarray(flags), jnp.asarray(dist), W)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    want = suppress_by_distance_pallas(
+        jnp.asarray(s), jnp.asarray(flags), jnp.asarray(dist), W, interpret=True
+    )
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert not (got & ~flags).any()
+
+
+def test_suppress_counts_the_rounds_of_each_row():
+    """count_rounds changes nothing of the mask and counts a row's rounds:
+    the falling staircase of 512 peaks two apart at distance 3 crowns one
+    winner in two a round."""
+    _, s, flags, dist, W = next(c for c in EDGE_CASES if c[0].startswith("staircases"))
+    args = (torch.from_numpy(s), torch.from_numpy(flags), torch.from_numpy(dist), W)
+    keep, rounds = peaks.suppress_by_distance_plain(*args, count_rounds=True)
+    assert torch.equal(keep, peaks.suppress_by_distance_plain(*args))
+    assert rounds.tolist() == [256, 256]
+    none = torch.zeros_like(args[1])
+    assert peaks.suppress_by_distance_plain(args[0], none, args[2], W, count_rounds=True)[1].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize(
+    "L, W, shared_bytes",
+    [(1, 7, 32), (32, 7, 32), (33, 1, 48), (6271, 7, 2368), (6272, 7, 2368), (6272, 32, 2368),
+     (6272, 33, 0), (6273, 7, 2384), (619_000, 7, 232_144), (620_000, 7, 0)],
+)
+def test_suppress_variant_follows_the_reach_and_the_shared_memory_limit(L, W, shared_bytes):
+    """K3's launch geometry, chosen from (L, max_distance) alone: three bit
+    words for every 32 positions, four pad words, in whole 16-byte vectors;
+    0 bytes (the byte-flag kernel with its device scratch) where the reach
+    may exceed the kernel's 64-bit windows or the words outgrow a block."""
+    assert peaks._suppress_shared_bytes(L, W) == shared_bytes
+    if shared_bytes:
+        assert shared_bytes == 16 * -(-(3 * -(-L // 32) + 4) // 4) <= _cuda.MAX_SHARED_BYTES
+        assert W <= peaks._SUPPRESS_MAX_REACH

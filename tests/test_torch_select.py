@@ -18,10 +18,12 @@ from warpdemux_tpu_torch.ops.select import range_median_mad
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import k4_edge_cases  # noqa: E402
+from chip_smoke import k4_edge_cases, k8_edge_cases  # noqa: E402
 
 # the ranges kernel K4 is held to on the GPU, without the NaN samples
 EDGE_RANGES = k4_edge_cases(with_nan=False)
+# the ranges kernel K8 is held to on the GPU
+ADC_EDGE_RANGES = k8_edge_cases()
 
 
 def _np_median(v):
@@ -220,3 +222,45 @@ def test_staged_keys_follow_the_shared_memory_limit(L):
     assert 16 * (_SWITCH // 4 + 1) + select._SELECT_STATIC_BYTES > _cuda.MAX_SHARED_BYTES
     assert _SWITCH % 4 == 0 and _SWITCH < 65536  # the histograms' 16-bit bins hold a row
     assert 12928 <= select._SELECT_STATIC_BYTES
+
+
+@pytest.mark.parametrize("case", range(len(ADC_EDGE_RANGES)), ids=[c[0] for c in ADC_EDGE_RANGES])
+def test_range_medians_adc_plain_matches_jax_at_edge_ranges(case):
+    """K8's plain version (the kernel's yardstick) on ranges of 1, 2 and 3
+    samples, empty and inverted ranges, all-equal ranges, heavy ties with an
+    even count (middle keys equal, and not), the keys -32768 and 32767,
+    range starts off the 16-byte alignment and rows at and beyond the
+    longest the kernel stages: the bits of the JAX package's ADC-domain
+    kernel in interpret mode, of its jnp path (the float engine, which the
+    step runs on the CPU) and of numpy, NaNs (empty ranges) included."""
+    from warpdemux_tpu.ops.select import range_medians_adc as jax_range_medians_adc
+    from warpdemux_tpu.ops.select_pallas import range_median_pallas_adc
+
+    _, x, adc, starts, ends = ADC_EDGE_RANGES[case]
+    t = torch.from_numpy
+    got = select.range_medians_adc_plain(t(x), t(adc), t(starts), t(ends)).numpy()
+    want = range_median_pallas_adc(x, adc, starts, ends, interpret=True)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    want, _ = jax_range_medians_adc(x, adc, starts, ends)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    for r in range(starts.shape[0]):
+        for b in range(x.shape[0]):
+            vals = x[b, max(starts[r, b], 0) : max(ends[r, b], 0)]
+            np.testing.assert_array_equal(got[r, b], _np_median(vals))
+
+
+@pytest.mark.parametrize("L", [0, 1, 8, 9, 10000, 65528, 65535, 65536, 200000])
+def test_adc_staged_keys_follow_the_histograms_limit(L):
+    """K8's launch geometry: a whole row's 2-byte keys in whole 16-byte
+    vectors go into dynamic shared memory up to 65,535 samples, the most the
+    histograms' 16-bit halves (and the key-and-position words) count; longer
+    rows (and empty ones) get 0 bytes, the streaming variant. Shared memory
+    itself would hold more."""
+    shared_bytes = select._adc_staged_bytes(L)
+    if 0 < L <= 65535:
+        assert shared_bytes == 16 * -(-L // 8) >= 2 * L
+        assert shared_bytes + select._SELECT_STATIC_BYTES <= _cuda.MAX_SHARED_BYTES
+    else:
+        assert shared_bytes == 0
+    assert select._ADC_STAGED_MAX_LEN == 65535
+    assert 16 * -(-200000 // 8) + select._SELECT_STATIC_BYTES > _cuda.MAX_SHARED_BYTES

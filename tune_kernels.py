@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Tile-size sweep of kernels K1 (csrc/dtw.cu), K6 / K9 and K7
-(csrc/rolling.cu) and K4 (csrc/select.cu) on one CUDA GPU.
+(csrc/rolling.cu), K4 and K8 (csrc/select.cu) and K3 (csrc/peaks.cu) on one
+CUDA GPU.
 
     python3 tune_kernels.py
 
@@ -12,7 +13,10 @@ of the sources' tile macros, six builds at a time:
 - K7: WDX_RUNSUM_THREADS a row;
 - K4: WDX_SELECT_THREADS a range, WDX_SELECT_MIN_BLOCKS an SM,
   WDX_SELECT_BITS a digit, WDX_SELECT_PREFIX the common-prefix pass,
-  WDX_SELECT_SPREAD the first round's eight copies of a bin.
+  WDX_SELECT_SPREAD the first round's eight copies of a bin;
+- K8: WDX_ADC_THREADS a range, WDX_ADC_MIN_BLOCKS an SM, and K4's
+  WDX_SELECT_PREFIX and WDX_SELECT_SPREAD (the selection is shared);
+- K3: WDX_SUPPRESS_THREADS a row (the block; 32 is a warp a row).
 
 For each variant the script prints what ptxas reported for the kernel
 (registers, spills), checks the wrapper's output bit for bit against the
@@ -23,9 +27,12 @@ fingerprints against the 851 WDX4 and the 2601 WDX10 support vectors;
 B=1000 reads of L=10000 samples; for K4 the outlier clip (R=1 over 6272
 samples, median and MAD), the region statistics of the full output (R=3
 over L=10000, two medians given, calibrated MADs) and the gate medians
-(R=2, medians only). The first variant of a kernel is the committed
+(R=2, medians only); for K8 the gate medians and the adapter-level proxy
+(R=1 over the first 2000 samples); for K3 the (1000, 6272) t-scores of the
+adapter buffers. The first variant of a kernel is the committed
 default. K4 is then probed on rows of crafted keys (equal, two values, 256
-values, a read's samples) and on 1 to 4000 ranges. The last line names the
+values, a read's samples) and on 1 to 4000 ranges, K8 on rows of crafted
+counts. The last line names the
 card and its power limit.
 """
 
@@ -52,6 +59,12 @@ K4_VARIANTS = [
     ("-DWDX_SELECT_PREFIX=0",),
     ("-DWDX_SELECT_SPREAD=0",),
 ]
+K8_VARIANTS = [
+    (),  # 128 threads, 8 blocks an SM; K4's selection as committed
+    *[(f"-DWDX_ADC_THREADS={t}", f"-DWDX_ADC_MIN_BLOCKS={m}") for t, m in ((64, 16), (128, 12), (256, 4), (256, 6), (256, 8), (512, 3))],
+    *K4_VARIANTS[-2:],
+]
+K3_VARIANTS = [(), *[(f"-DWDX_SUPPRESS_THREADS={n}",) for n in (32, 64, 128, 192, 512)]]  # default: 256
 
 
 def main() -> int:
@@ -65,11 +78,13 @@ def main() -> int:
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
-    from warpdemux_tpu_torch.ops import dtw, select
+    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select
 
     dev = torch.device("cuda", 0)
     t = lambda a: torch.as_tensor(a, device=dev)
-    variants = K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:]
+    variants = list(dict.fromkeys(
+        K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:] + K8_VARIANTS[1:] + K3_VARIANTS[1:]
+    ))
     with ThreadPoolExecutor(6) as pool:
         logs = dict(zip(variants, pool.map(lambda d: _cuda.build_log(_cuda.build(d)).read_text(), variants)))
 
@@ -142,6 +157,46 @@ def main() -> int:
             run = lambda: select.range_median_mad(*args)
             row.append(f"{name}: exact={same(run(), want[name])} ms={time_ms(run)!r}")
         print(" | ".join(row), "|", ptxas(defines, "wdx_range_median_mad_staged"))
+    # K8 on the same reads: the gate medians and the adapter-level proxy
+    proxy = (torch.zeros((1, B), dtype=torch.int32, device=dev), torch.full((1, B), 2000, dtype=torch.int32, device=dev))
+    k8_shapes = {"gate medians R=2": (x, adc16, starts, ends), "proxy R=1": (x, adc16, *proxy)}
+    want = {name: select.range_medians_adc_plain(*args) for name, args in k8_shapes.items()}
+    for defines in K8_VARIANTS:
+        _cuda.defines = defines
+        row = [f"K8 {' '.join(defines) or 'default'}"]
+        for name, args in k8_shapes.items():
+            run = lambda: select.range_medians_adc(*args)
+            row.append(f"{name}: exact={same([run()], [want[name]])} ms={time_ms(run)!r}")
+        print(" | ".join(row), "|", ptxas(defines, "wdx_range_median_adc_staged"))
+    # K8 probes, medians of the first 2000 samples of 1000 rows of crafted
+    # counts: what staging costs (equal keys: no round, no position pass),
+    # one round (two values; 256 values), two rounds (a read's samples)
+    _cuda.defines = ()
+    counts = {
+        "equal keys": np.full((B, L), 500),
+        "two values": 500 + rng.integers(0, 2, (B, L)),
+        "256 values": 500 + rng.integers(0, 256, (B, L)),
+        "a read's samples": adc,
+    }
+    row = [f"K8 probe default, medians of 2000 samples of {B} rows"]
+    for name, values in counts.items():
+        ar = t(values.astype(np.int16))
+        xr = (ar.float() + off[:, None]) * sc[:, None]
+        row.append(f"{name}: ms={time_ms(lambda: select.range_medians_adc(xr, ar, *proxy))!r}")
+    print(" | ".join(row))
+    # K3 on the t-scores of the adapter buffers, as chip_smoke.py makes them
+    _cuda.defines = ()
+    n_adapter = n_valid[0]
+    w = torch.clamp(torch.round(n_adapter.float() / 110).int(), 1, 12)
+    scores, _ = segmentation.windowed_t_test(xa, n_adapter, w, 12)
+    is_peak, _ = peaks.peak_mask_batch(scores, torch.clamp_min(n_adapter - 2 * w, 0))
+    dist = torch.clamp(torch.round(n_adapter.float() / 220).int(), 1, 6)
+    want = peaks.suppress_by_distance_plain(scores, is_peak, dist, 7)
+    for defines in K3_VARIANTS:
+        _cuda.defines = defines
+        run = lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7)
+        print(f"K3 {' '.join(defines) or 'default'} | exact={torch.equal(run(), want)} ms={time_ms(run)!r} |",
+              ptxas(defines, "wdx_suppress_words"))
     # K4 probes, medians (and medians + MADs) of whole rows of 6271 samples:
     # what a round costs by how the digits fall (no round for equal keys,
     # one round of two bins or of 256, three rounds for a read's samples),

@@ -46,12 +46,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "wdx_dtw": (_P, _P, _P, _I, _I, _I, _I, _F),
     "wdx_ttest": (_P, _P, _P, _P, _I, _I, _I),
-    "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
+    "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_shift_rows": (_P, _P, _P, _I, _I, _I),
     "wdx_rolling_mean_var": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I),
     "wdx_run_sum": (_P, _P, _I, _I, _I, _I),
-    "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I),
+    "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_rolling_detect": (
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
@@ -70,6 +70,7 @@ MAX_SHARED_BYTES = 232448
 defines: tuple[str, ...] = ()
 
 _libraries: dict[tuple, ctypes.CDLL] = {}  # by the defines they were built with
+_entry_points: dict[tuple, object] = {}  # by (defines, name): resolved once, not per launch
 
 
 def reset_launches() -> None:
@@ -193,12 +194,31 @@ def library() -> ctypes.CDLL:
     return _libraries[defines]
 
 
+def _raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on device `index`, without the
+    `torch.cuda.Stream` object where this build offers the raw call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream; raise on failure."""
-    fn = getattr(library(), name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    """Launch kernel `name` on `device`'s current stream; raise on failure.
+
+    The host's time a launch is what a caller of a kernel of a few
+    microseconds pays, so the entry point is looked up once, and the device
+    context is entered only when `device` is not the current one."""
+    fn = _entry_points.get((defines, name))
+    if fn is None:
+        fn = _entry_points[(defines, name)] = getattr(library(), name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     if name in launches:

@@ -98,6 +98,9 @@ __device__ __forceinline__ unsigned wdx_byte_prefix(unsigned n, int& total) {
   return incl << 8;
 }
 
+// Shared memory (static and dynamic together) a block may take on sm_90.
+#define WDX_MAX_SHARED_BYTES 232448
+
 // Dynamic shared memory above 48 KB has to be granted per kernel; the
 // carve-out hint lets several blocks with large buffers share an SM.
 template <typename Kernel>

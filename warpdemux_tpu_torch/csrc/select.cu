@@ -20,7 +20,10 @@
 //   - calibrated picoampere values share sign and exponent, so the staging
 //     pass also reduces the smallest and largest key and the digits start
 //     at the highest bit in which the two differ (WDX_SELECT_PREFIX): 3
-//     rounds instead of 4 for a read's samples, none for an all-equal range;
+//     rounds instead of 4 for a read's samples, none for an all-equal range.
+//     The first digit is the 8 bits from that bit down, so the first round,
+//     which adds every key, fills a whole histogram whatever byte the bit
+//     falls in; the last digit is what is left;
 //   - the first round adds every key, and what is left of the ties there
 //     (quantised samples, the exponent bits of the deviations) would make
 //     the lanes of a warp add to the same few words, which the card replays
@@ -113,15 +116,20 @@ __device__ float wdx_range_median(const WdxRangeKeys& k) {
 #define WDX_SELECT_MIN_BLOCKS 4  // blocks an SM the register allocation must allow
 #endif
 #define WDX_SELECT_BINS (1 << WDX_SELECT_BITS)
-#define WDX_SELECT_ROUNDS ((32 + WDX_SELECT_BITS - 1) / WDX_SELECT_BITS)
+// rounds of a selection over keys of `bits` bits
+#define WDX_SELECT_ROUNDS(bits) (((bits) + WDX_SELECT_BITS - 1) / WDX_SELECT_BITS)
 // A histogram packs two bins into a word (a range in shared memory has
 // fewer than 65,536 keys, so no half carries): bin b is half b % 2 of word
 // b / 2 + b / 64. A lane of the scan reads BINS / 64 neighbouring words,
 // and the pad after every 32 spreads the 32 lanes' reads over the banks.
 #define WDX_SELECT_HIST_WORDS (WDX_SELECT_BINS / 2 + WDX_SELECT_BINS / 64)
 
-// Staged keys are unsigned: the order key with its sign bit flipped, so
-// that unsigned compares and digits order them.
+// The selection below is generic over the staged key: K4 stages 32-bit
+// keys (unsigned), K8 16-bit keys (uint16_t); a 16-byte vector of shared
+// memory holds 4 or 8 of them.
+
+// Staged float keys are unsigned: the order key with its sign bit flipped,
+// so that unsigned compares and digits order them.
 __device__ __forceinline__ unsigned wdx_staged_key(float v) {
   return (unsigned)wdx_order_key(v) ^ 0x80000000u;
 }
@@ -130,9 +138,12 @@ __device__ __forceinline__ float wdx_staged_key_to_float(unsigned u) {
   return wdx_key_to_float((int)(u ^ 0x80000000u));
 }
 
-// A block's static shared memory for selections over staged keys.
+// A block's static shared memory for selections of at most ROUNDS rounds
+// over staged keys.
+template <int ROUNDS>
 struct __align__(16) WdxSelectShared {  // spread is read as 16-byte vectors
-  unsigned hist[WDX_SELECT_ROUNDS][WDX_SELECT_HIST_WORDS];  // one histogram a round
+  static constexpr int rounds = ROUNDS;
+  unsigned hist[ROUNDS][WDX_SELECT_HIST_WORDS];  // one histogram a round
 #if WDX_SELECT_SPREAD
   // The first round adds every key, and lanes of a warp that add to one
   // word are replayed one by one: it counts into eight copies of a bin,
@@ -144,9 +155,10 @@ struct __align__(16) WdxSelectShared {  // spread is read as 16-byte vectors
   unsigned hi[32];
 };
 
-__device__ __forceinline__ void wdx_select_clear(WdxSelectShared& sh) {
+template <typename Shared>
+__device__ __forceinline__ void wdx_select_clear(Shared& sh) {
   unsigned* h = &sh.hist[0][0];
-  for (int i = threadIdx.x; i < WDX_SELECT_ROUNDS * WDX_SELECT_HIST_WORDS; i += blockDim.x)
+  for (int i = threadIdx.x; i < Shared::rounds * WDX_SELECT_HIST_WORDS; i += blockDim.x)
     h[i] = 0u;
 #if WDX_SELECT_SPREAD
   for (int i = threadIdx.x; i < WDX_SELECT_BINS; i += blockDim.x)
@@ -159,26 +171,40 @@ __device__ __forceinline__ void wdx_hist_add(unsigned* h, unsigned bin, unsigned
   atomicAdd(&h[word + (word >> 5)], count << (16 * (bin & 1u)));
 }
 
-// f(j, key) for every staged key, four neighbours a thread and iteration
-// (one 16-byte load; the buffer is padded to whole vectors). Every lane of
-// a warp makes the same number of calls, those past the range with j >= n.
-template <typename F>
-__device__ __forceinline__ void wdx_for_each_key(const unsigned* keys, int n, F f) {
-  for (int first = 0; first < n; first += 4 * blockDim.x) {
-    const int j = first + 4 * threadIdx.x;
+// f(j, key) for the staged keys [0, end), the neighbours of one 16-byte
+// load a thread and iteration (4 keys of 32 bits, 8 of 16; the buffer is
+// padded to whole vectors). Every lane of a warp makes the same number of
+// calls, those past the keys with j >= end.
+template <typename Key, typename F>
+__device__ __forceinline__ void wdx_for_each_key(const Key* keys, int end, F f) {
+  constexpr int per = 16 / (int)sizeof(Key);
+  for (int first = 0; first < end; first += per * blockDim.x) {
+    const int j = first + per * threadIdx.x;
     uint4 k = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) k = *reinterpret_cast<const uint4*>(keys + j);
-    f(j, k.x);
-    f(j + 1, k.y);
-    f(j + 2, k.z);
-    f(j + 3, k.w);
+    if (j < end) k = *reinterpret_cast<const uint4*>(keys + j);
+    if constexpr (sizeof(Key) == 4) {
+      f(j, k.x);
+      f(j + 1, k.y);
+      f(j + 2, k.z);
+      f(j + 3, k.w);
+    } else {
+      f(j, k.x & 0xffffu);
+      f(j + 1, k.x >> 16);
+      f(j + 2, k.y & 0xffffu);
+      f(j + 3, k.y >> 16);
+      f(j + 4, k.z & 0xffffu);
+      f(j + 5, k.z >> 16);
+      f(j + 6, k.w & 0xffffu);
+      f(j + 7, k.w >> 16);
+    }
   }
 }
 
 // Block-wide min of lo and max of hi (one value a thread; every thread gets
 // both), with one barrier: it also publishes the keys staged and the
 // histograms cleared before it. Two calls need a barrier between them.
-__device__ void wdx_block_min_max(unsigned& lo, unsigned& hi, WdxSelectShared& sh) {
+template <typename Shared>
+__device__ void wdx_block_min_max(unsigned& lo, unsigned& hi, Shared& sh) {
   for (int o = 16; o > 0; o >>= 1) {
     lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
@@ -200,49 +226,52 @@ struct WdxRank {
   int mult;      // count(keys == key)
 };
 
-// The rank-th smallest (0-based) of the n < 65,536 staged keys in shared
-// memory, given their smallest and largest, by histograms of MSB-first
-// digits. The histograms must be zero and visible; every thread gets the
-// result. All threads of the block call.
-__device__ WdxRank wdx_radix_select(const unsigned* keys, int n, int rank, unsigned lo,
-                                    unsigned hi, WdxSelectShared& sh) {
+// The rank-th smallest (0-based) of the fewer than 65,536 staged keys
+// [begin, end) in shared memory, given their smallest and largest, by
+// histograms of MSB-first digits. The histograms must be zero and visible;
+// every thread gets the result. All threads of the block call.
+template <typename Key, typename Shared>
+__device__ WdxRank wdx_radix_select(const Key* keys, int begin, int end, int rank, unsigned lo,
+                                    unsigned hi, Shared& sh) {
   WdxRank res;
   res.key = lo;  // its bits above the highest differing one are every key's
   res.less = 0;
-  res.mult = n;
+  res.mult = end - begin;
   const unsigned diff = lo ^ hi;
   if (diff == 0u) return res;
-  const int top = WDX_SELECT_PREFIX ? 31 - __clz(diff) : 31;
+  const int top = WDX_SELECT_PREFIX ? 31 - __clz(diff) : 8 * (int)sizeof(Key) - 1;
   const int lane = threadIdx.x & 31;
   const int lane_words = WDX_SELECT_BINS / 64;  // of a lane of the scan: two bins a word
-  int round = 0;
-  for (int shift = top / WDX_SELECT_BITS * WDX_SELECT_BITS; shift >= 0;
-       shift -= WDX_SELECT_BITS, ++round) {
+  int shift = top + 1;  // the bits [shift, top] are found
+  for (int round = 0; shift > 0; ++round) {
     unsigned* h = sh.hist[round];
-    const int above = shift + WDX_SELECT_BITS;  // bits found so far: [above, 32)
+    const int above = shift;
+    const int width = min(WDX_SELECT_BITS, shift);
+    shift -= width;
+    const unsigned digits = (1u << width) - 1u;
     const unsigned prefix = res.key;
 #if WDX_SELECT_SPREAD
     if (round == 0) {  // every key is on the prefix
       unsigned* mine = sh.spread + (lane & 3);
       const unsigned one = 1u << (4 * (lane & 4));
-      wdx_for_each_key(keys, n, [&](int j, unsigned u) {
-        if (j < n) atomicAdd(&mine[4 * ((u >> shift) & (WDX_SELECT_BINS - 1))], one);
+      wdx_for_each_key(keys, end, [&](int j, unsigned u) {
+        if (j >= begin && j < end) atomicAdd(&mine[4 * ((u >> shift) & digits)], one);
       });
       __syncthreads();
       for (int w = threadIdx.x; w < WDX_SELECT_BINS / 2; w += blockDim.x) {  // bins 2w, 2w + 1
         const uint4 a = reinterpret_cast<const uint4*>(sh.spread)[2 * w];
         const uint4 b = reinterpret_cast<const uint4*>(sh.spread)[2 * w + 1];
-        const unsigned sa = a.x + a.y + a.z + a.w;  // no half carries: at most n keys in all
+        const unsigned sa = a.x + a.y + a.z + a.w;  // no half carries: fewer than 65,536 keys in all
         const unsigned sb = b.x + b.y + b.z + b.w;
         h[w + (w >> 5)] = ((sa & 0xffffu) + (sa >> 16)) | (((sb & 0xffffu) + (sb >> 16)) << 16);
       }
     } else
 #endif
     {
-      wdx_for_each_key(keys, n, [&](int j, unsigned u) {
-        // no digit past the range or off the prefix
-        const bool on = j < n && (above >= 32 || ((u ^ prefix) >> above) == 0u);
-        if (on) wdx_hist_add(h, (u >> shift) & (WDX_SELECT_BINS - 1), 1u);
+      wdx_for_each_key(keys, end, [&](int j, unsigned u) {
+        // no digit outside the range or off the prefix (round 0: every key is on it)
+        const bool on = j >= begin && j < end && (round == 0 || ((u ^ prefix) >> above) == 0u);
+        if (on) wdx_hist_add(h, (u >> shift) & digits, 1u);
       });
     }
     __syncthreads();
@@ -276,17 +305,17 @@ __device__ WdxRank wdx_radix_select(const unsigned* keys, int n, int rank, unsig
     bin = __shfl_sync(0xffffffffu, bin, owner);
     res.less += __shfl_sync(0xffffffffu, before, owner);
     res.mult = __shfl_sync(0xffffffffu, mult, owner);
-    const unsigned field = (unsigned)(WDX_SELECT_BINS - 1) << shift;
-    res.key = (res.key & ~field) | ((unsigned)bin << shift);
+    res.key = (res.key & ~(digits << shift)) | ((unsigned)bin << shift);
   }
   return res;
 }
 
-// Median (numpy semantics) of the n >= 1 staged keys, given their smallest
-// and largest. All threads of the block call; every thread gets it.
+// Median (numpy semantics) of the n >= 1 staged float keys, given their
+// smallest and largest. All threads of the block call; every thread gets it.
+template <typename Shared>
 __device__ float wdx_median_staged(const unsigned* keys, int n, unsigned lo, unsigned hi,
-                                   WdxSelectShared& sh) {
-  const WdxRank r = wdx_radix_select(keys, n, (n - 1) / 2, lo, hi, sh);
+                                   Shared& sh) {
+  const WdxRank r = wdx_radix_select(keys, 0, n, (n - 1) / 2, lo, hi, sh);
   const float lo_f = wdx_staged_key_to_float(r.key);
   if (n % 2 == 1) return lo_f;
   float hi_f = lo_f;
@@ -361,7 +390,7 @@ __global__ void __launch_bounds__(WDX_SELECT_THREADS, WDX_SELECT_MIN_BLOCKS)
                                        const float* __restrict__ scale,
                                        float* __restrict__ meds, float* __restrict__ mads,
                                        int B, int L) {
-  __shared__ WdxSelectShared sh;
+  __shared__ WdxSelectShared<WDX_SELECT_ROUNDS(32)> sh;
   unsigned* keys = wdx_select_keys;
   const int b = blockIdx.x;
   const int r = blockIdx.y;
@@ -486,21 +515,133 @@ WDX_API int wdx_empty_launch(int blocks, int threads, cudaStream_t stream) {
 }
 
 // K8: median of R [start, end) ranges per row of the calibrated signal,
-// bisected over the row's int16 ADC preimage.
+// selected over the row's int16 ADC preimage.
 //
 // Replaces warpdemux_tpu/ops/select_pallas.py range_median_pallas_adc. The
-// key adc + 32768 lies in [0, 65535], so the rank-th smallest key takes 16
-// MSB-first counting rounds (K4 takes 32 over float keys). One more pass
-// reads the order statistics out of the float32 signal: lo = min x over
-// key == lo_key, the next larger value = min x over key > lo_key, and
-// count(key <= lo_key) decides whether an even count needs it. With a
-// monotone calibration (scale > 0) this is bit-identical to K4 with the
-// MAD off. One block owns one (range, row) pair, as in K4.
+// key adc + 32768 lies in [0, 65535] and the calibration is monotone
+// (scale > 0), so the rank-th smallest sample is x at a position that
+// carries the rank-th smallest key: the selection runs over 2-byte keys and
+// reads x at one or two positions. With such an x this is bit-identical to
+// K4 with the MAD off. One block owns one (range, row) pair, as in K4.
 //
-// Bound: 17 passes over the range, each reading 2 bytes a sample (the
-// last also 4 bytes of x); at detect shapes the rows sit in L2. A
-// shared-memory histogram of the key (two passes of 256 bins) would need
-// 2 passes instead of 17.
+// Bound: bytes by the roofline (2 bytes a sample of the range), in practice
+// the passes over the range. So, as K4 and with its selection:
+//   - the range's keys are read once from device memory (16-byte loads of
+//     eight int16 where the rows are aligned, copied as whole vectors, so
+//     the range begins up to 7 keys into the buffer) and staged in dynamic
+//     shared memory as uint16, 2 L bytes, twice K4's blocks an SM; the
+//     smallest and largest key are reduced on the way (two keys a word with
+//     the SIMD-in-a-word min and max);
+//   - at most two rounds of 8-bit digit histograms from the highest bit in
+//     which smallest and largest differ (ADC samples of a read span a few
+//     hundred counts: the first round's 256 bins hold them, the second
+//     sees the few keys of one bin), none for an all-equal range;
+//   - the last histogram gives count(key < lo) and lo's multiplicity, and
+//     one pass over the staged keys without atomics finds the first
+//     position of lo and, with it, the next larger key and its first
+//     position; thread 0 reads x there.
+// Where x is no monotone image of adc the result is x at those first
+// positions (the plain version takes minima over all positions of a key);
+// every caller passes the calibrated signal.
+// A row whose keys do not fit (L > 65,535: the histograms' 16-bit halves)
+// runs the streaming kernel below: 16 bisection rounds from L2, then one
+// pass that reads x; the wrapper picks by L.
+#ifndef WDX_ADC_THREADS
+#define WDX_ADC_THREADS 128
+#endif
+#ifndef WDX_ADC_MIN_BLOCKS
+#define WDX_ADC_MIN_BLOCKS 8  // blocks an SM the register allocation must allow
+#endif
+
+__global__ void __launch_bounds__(WDX_ADC_THREADS, WDX_ADC_MIN_BLOCKS)
+    wdx_range_median_adc_staged_kernel(const float* __restrict__ x,
+                                       const int16_t* __restrict__ adc,
+                                       const int* __restrict__ starts,
+                                       const int* __restrict__ ends, float* __restrict__ meds,
+                                       int B, int L) {
+  __shared__ WdxSelectShared<WDX_SELECT_ROUNDS(16)> sh;
+  uint16_t* keys = reinterpret_cast<uint16_t*>(wdx_select_keys);
+  const int b = blockIdx.x;
+  const long long o = (long long)blockIdx.y * B + b;
+  const int16_t* ar = adc + (long long)b * L;
+  const int start = min(max(starts[o], 0), L);
+  const int n = min(max(ends[o], 0), L) - start;
+  if (n <= 0) {  // the same for the whole block
+    if (threadIdx.x == 0) meds[o] = NAN;
+    return;
+  }
+  wdx_select_clear(sh);
+  // stage the keys: the range is [begin, begin + n) of the buffer
+  unsigned lo = 0xffffu, hi = 0u;
+  int begin = 0;
+  if (L % 8 == 0 && (reinterpret_cast<uintptr_t>(adc) & 15) == 0) {  // whole, aligned vectors
+    begin = start & 7;
+    const int q0 = start >> 3;
+    const uint4* row8 = reinterpret_cast<const uint4*>(ar);
+    unsigned lo2 = 0xffffffffu, hi2 = 0u;  // two keys a word
+    for (int q = q0 + threadIdx.x; q < (start + n + 7) >> 3; q += blockDim.x) {
+      uint4 v = row8[q];
+      v.x ^= 0x80008000u;  // adc + 32768 in both halves
+      v.y ^= 0x80008000u;
+      v.z ^= 0x80008000u;
+      v.w ^= 0x80008000u;
+      reinterpret_cast<uint4*>(keys)[q - q0] = v;
+      const int j = 8 * (q - q0);
+      if (j >= begin && j + 8 <= begin + n) {
+        lo2 = __vminu2(__vminu2(lo2, v.x), __vminu2(v.y, __vminu2(v.z, v.w)));
+        hi2 = __vmaxu2(__vmaxu2(hi2, v.x), __vmaxu2(v.y, __vmaxu2(v.z, v.w)));
+      } else {  // the range's first or last vector
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (j + e >= begin && j + e < begin + n) {
+            const unsigned u = (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
+            lo = min(lo, u);
+            hi = max(hi, u);
+          }
+        }
+      }
+    }
+    lo = min(lo, min(lo2 & 0xffffu, lo2 >> 16));
+    hi = max(hi, max(hi2 & 0xffffu, hi2 >> 16));
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const unsigned u = (unsigned)((int)ar[start + j] + 32768);
+      keys[j] = (uint16_t)u;
+      lo = min(lo, u);
+      hi = max(hi, u);
+    }
+  }
+  const int end = begin + n;
+  wdx_block_min_max(lo, hi, sh);
+  const WdxRank r = wdx_radix_select(keys, begin, end, (n - 1) / 2, lo, hi, sh);
+  // the first position of the rank-th key, and the next larger key with its
+  // first position (key << 16 | position: a staged row has < 65,536 keys)
+  unsigned at = (unsigned)begin, above = 0xffffffffu;
+  if (r.mult < n) {  // not all equal: a round's barrier lies behind the last reduction
+    at = 0xffffffffu;
+    wdx_for_each_key(keys, end, [&](int j, unsigned u) {
+      if (j >= begin && j < end) {
+        if (u == r.key) at = min(at, (unsigned)j);
+        if (u > r.key) above = min(above, (u << 16) | (unsigned)j);
+      }
+    });
+    unsigned inverse = ~above;  // a max of the complement is a min
+    wdx_block_min_max(at, inverse, sh);
+    above = ~inverse;
+  }
+  if (threadIdx.x != 0) return;
+  const float* xr = x + (long long)b * L + (start - begin);  // of the buffer's position 0
+  const float lo_f = xr[at];
+  if (n % 2 == 1) {
+    meds[o] = lo_f;
+  } else {
+    const float hi_f = r.less + r.mult <= n / 2 ? xr[above & 0xffffu] : lo_f;
+    meds[o] = 0.5f * (lo_f + hi_f);
+  }
+}
+
+// K8 for rows too long for the staged keys: the streaming bisection.
 __device__ __forceinline__ int wdx_count_adc_less(const int16_t* a, int start, int end, int t) {
   int c = 0;
   for (int i = start + threadIdx.x; i < end; i += blockDim.x) c += (int)a[i] + 32768 < t ? 1 : 0;
@@ -558,9 +699,18 @@ __global__ void wdx_range_median_adc_kernel(const float* __restrict__ x,
 
 WDX_API int wdx_range_median_adc(const float* x, const int16_t* adc, const int* starts,
                                  const int* ends, float* meds, int R, int B, int L,
-                                 cudaStream_t stream) {
+                                 int shared_bytes, cudaStream_t stream) {
   if (R == 0 || B == 0) return 0;
   dim3 grid(B, R);
-  wdx_range_median_adc_kernel<<<grid, 256, 0, stream>>>(x, adc, starts, ends, meds, B, L);
+  if (shared_bytes > 0) {  // the staged variant; shared_bytes must hold a row's keys
+    if ((long long)shared_bytes < 16LL * ((L + 7) / 8) || L > 65535)
+      return (int)cudaErrorInvalidValue;
+    const int err = wdx_allow_shared(wdx_range_median_adc_staged_kernel, shared_bytes);
+    if (err) return err;
+    wdx_range_median_adc_staged_kernel<<<grid, WDX_ADC_THREADS, shared_bytes, stream>>>(
+        x, adc, starts, ends, meds, B, L);
+  } else {
+    wdx_range_median_adc_kernel<<<grid, 256, 0, stream>>>(x, adc, starts, ends, meds, B, L);
+  }
   return (int)cudaGetLastError();
 }

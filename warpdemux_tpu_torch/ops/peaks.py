@@ -7,8 +7,11 @@ Port of warpdemux_tpu/ops/peaks.py:
    s >= 1, e <= n - 2, marked at its midpoint (s + e) // 2.
 2. `suppress_by_distance`: scipy `_select_by_peak_distance` as a priority
    fixpoint (priority = score, the later position winning ties). CUDA
-   tensors go to kernel K3 (csrc/peaks.cu); CPU tensors go to the plain
-   fixpoint, the jnp version's rounds.
+   tensors go to kernel K3 (csrc/peaks.cu): a block a row runs the fixpoint
+   over bit words in shared memory, following the alive peaks; a
+   max_distance above 32, or a row whose bit words do not fit shared
+   memory, runs the kernel with byte flags in device memory. CPU tensors go
+   to the plain fixpoint, the jnp version's rounds.
 3. `select_top_peaks`: the num_events highest kept peaks, ties going to
    the later position, as np.argsort(scores)[-k:] does: torch.topk runs on
    unique int64 keys (score order key, position), so no two candidates tie.
@@ -59,14 +62,33 @@ def peak_mask_batch(scores: torch.Tensor, n_scores: torch.Tensor):
     return is_peak, is_peak.sum(1).to(torch.int32)
 
 
-def suppress_by_distance_plain(scores, is_peak, distance, max_distance: int):
+# the widest reach (min(distance, max_distance)) K3's 64-bit neighbour
+# windows hold
+_SUPPRESS_MAX_REACH = 32
+
+
+def _suppress_shared_bytes(L: int, max_distance: int) -> int:
+    """Shared memory a row of a K3 launch: the bit words alive and win (a
+    zero word on both sides of each) and keep, 32 positions a word, in whole
+    16-byte vectors; or 0 where max_distance exceeds the 64-bit windows or
+    the words do not fit a block: then the byte-flag kernel runs."""
+    row_bytes = -(-(3 * -(-L // 32) + 4) // 4) * 16
+    fits = max_distance <= _SUPPRESS_MAX_REACH and row_bytes <= _cuda.MAX_SHARED_BYTES
+    return row_bytes if fits else 0
+
+
+def suppress_by_distance_plain(scores, is_peak, distance, max_distance: int, count_rounds=False):
+    """Plain version of suppress_by_distance; with count_rounds also the
+    (B,) number of rounds each row was alive for."""
     B, L = scores.shape
     W = max(int(max_distance), 1)
     d_col = distance.to(torch.int64)[:, None]
     ninf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
     alive = is_peak.clone()
     keep = torch.zeros_like(is_peak)
+    rounds = torch.zeros(B, dtype=torch.int32, device=scores.device)
     while bool(alive.any()):
+        rounds += alive.any(1)
         s_alive = torch.where(alive, scores, ninf)
         spad = torch.nn.functional.pad(s_alive, (W, W), value=float("-inf"))
         dom = torch.zeros_like(alive)
@@ -86,12 +108,17 @@ def suppress_by_distance_plain(scores, is_peak, distance, max_distance: int):
                 within & (wpad[:, W + o : W + o + L] | wpad[:, W - o : W - o + L])
             )
         alive = alive & ~winner & ~killed
-    return keep
+    return (keep, rounds) if count_rounds else keep
 
 
 def suppress_by_distance(scores, is_peak, distance, max_distance: int):
     """Keep mask of scipy `_select_by_peak_distance` (per-row distance,
-    offsets below min(distance, max_distance)); K3 on CUDA."""
+    offsets below min(distance, max_distance)); K3 on CUDA.
+
+    A dead or out-of-row neighbour counts as a score of -inf, so a peak
+    that scores -inf is dominated by any such neighbour to its right and
+    lives until a winner within reach kills it; where none does, the plain
+    version never ends and K3 leaves the peak out."""
     if not _cuda.on_cuda(scores, is_peak, distance):
         return suppress_by_distance_plain(scores, is_peak, distance, max_distance)
     B, L = scores.shape
@@ -102,13 +129,15 @@ def suppress_by_distance(scores, is_peak, distance, max_distance: int):
     _cuda.check(peaks, torch.bool, 2, "suppress is_peak")
     if peaks.shape != (B, L) or dist.shape != (B,):
         raise ValueError("is_peak must be (B, L) and distance (B,) for scores (B, L)")
-    alive = torch.empty((B, L), dtype=torch.bool, device=scores.device)
-    win = torch.empty((B, L), dtype=torch.bool, device=scores.device)
+    W = max(int(max_distance), 1)
+    shared_bytes = _suppress_shared_bytes(L, W)
     keep = torch.empty((B, L), dtype=torch.bool, device=scores.device)
+    # the byte-flag kernel's alive and win; the bit-word kernel needs none
+    scratch = [] if shared_bytes else [torch.empty_like(keep), torch.empty_like(keep)]
     _cuda.launch(
         "wdx_suppress", scores.device, scores.data_ptr(), peaks.data_ptr(),
-        dist.data_ptr(), alive.data_ptr(), win.data_ptr(), keep.data_ptr(),
-        B, L, max(int(max_distance), 1),
+        dist.data_ptr(), *([t.data_ptr() for t in scratch] or [None, None]),
+        keep.data_ptr(), B, L, W, shared_bytes,
     )
     return keep
 

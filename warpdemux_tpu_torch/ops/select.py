@@ -20,9 +20,12 @@ from device memory. CPU tensors go to the plain bisection over (R, B, L)
 masks.
 
 `range_medians_adc` is the median-only path of the adc and vbz feeds: the
-int16 ADC preimage of the calibrated signal is bisected as a 16-bit key
-(16 rounds instead of the sign pass and 31), and the order statistics are
-read back out of the calibrated float32 values (kernel K8 on CUDA). It is
+order statistics are selected over the int16 ADC preimage of the calibrated
+signal as a 16-bit key and read back out of the calibrated float32 values.
+The plain version bisects the key in 16 rounds (instead of the sign pass
+and 31); kernel K8 on CUDA stages a range's keys in shared memory as
+uint16 and runs K4's digit histograms over them, at most two rounds (rows
+above 65,535 samples stream the bisection from device memory). It is
 bit-identical to range_median_mad(with_mad=False) as long as the
 calibration (adc + offset) * scale is monotone (scale > 0).
 """
@@ -190,6 +193,16 @@ def range_median_mad(
 
 
 _I16_BIAS = 32768  # adc + bias -> [0, 65535]
+# the longest row K8 stages: its histograms count a range in 16-bit halves
+# (shared memory would hold the 2-byte keys of a row of 109,568 samples)
+_ADC_STAGED_MAX_LEN = 65535
+
+
+def _adc_staged_bytes(L: int) -> int:
+    """Dynamic shared memory of a K8 launch over rows of L samples: a whole
+    row's staged keys, 2 bytes each in whole 16-byte vectors, or 0 where
+    the row is too long: then the streaming kernel runs."""
+    return -(-L // 8) * 16 if L <= _ADC_STAGED_MAX_LEN else 0
 
 
 def range_medians_adc_plain(x, adc, starts, ends):
@@ -220,15 +233,23 @@ def range_medians_adc_plain(x, adc, starts, ends):
 def range_medians_adc(
     x: torch.Tensor, adc: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
 ) -> torch.Tensor:
-    """Exact medians of x over R [start, end) ranges per row, bisected over
+    """Exact medians of x over R [start, end) ranges per row, selected over
     x's int16 ADC preimage.
 
     Args:
-      x: (B, L) float32 calibrated signal, a monotone image of adc.
+      x: (B, L) float32 calibrated signal, a monotone (non-decreasing)
+        per-row image of adc: every caller passes (adc + offset) * scale
+        with scale > 0.
       adc: (B, L) int16 ADC counts.
       starts, ends: (R, B) int (clamped to [0, L]).
     Returns:
       (R, B) float32 medians (numpy semantics; NaN for an empty range).
+
+    Where x is no such image the result is unspecified between the two
+    versions: the plain one takes the smallest x over all positions of the
+    range that carry the middle key (and the next larger keys), K8 reads x
+    at the first position that carries the middle key and at the first that
+    carries the next larger key.
     """
     starts = starts.to(torch.int32)
     ends = ends.to(torch.int32)
@@ -248,5 +269,6 @@ def range_medians_adc(
     _cuda.launch(
         "wdx_range_median_adc", x.device, x.data_ptr(), adc.data_ptr(),
         starts.data_ptr(), ends.data_ptr(), meds.data_ptr(), R, B, L,
+        _adc_staged_bytes(L),
     )
     return meds
