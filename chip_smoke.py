@@ -36,6 +36,14 @@ Phases (each raises on failure; nothing is caught):
    shared memory; byte flags in device memory, which a max_distance above
    32 takes), must allocate nothing beside its output, and the rounds its
    fixpoint takes on the step's batch are printed (largest and mean a row).
+   K2 is held bit for bit (its scores and the n_scores it writes) on rows
+   of every width from 1 to 12, widths outside [1, w_max], rows shorter
+   than two windows, windows of equal samples, a subnormal sum of squares,
+   NaN and infinite samples and lengths off its vectors and tiles. K5 is
+   held at both of the step's shapes (the refine windows, one and two a
+   read from the one signal; the adapter extraction with lengths) and on
+   starts that leave the row, lengths of 0 and beyond, sizes off the
+   vectors and three windows a row.
    K5 and K7 are timed beside the one PyTorch call that computes the same
    function (torch.gather, F.conv1d), as called and on the device alone.
    K8 is also held against K4 and timed beside it, at R=2 and R=1, and held
@@ -63,6 +71,9 @@ Phases (each raises on failure; nothing is caught):
       on every row.
 4. Reads/s of each of the three paths over three B=1000 minibatches after
    one warm-up, in two rounds of alternating order.
+5. One step of each path under torch.profiler: its device operations
+   (kernels, copies, memsets) are counted and printed beside the count
+   before K5's callers stopped copying for it.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -79,7 +90,6 @@ MODEL = "WDX4_rna004_v1_0"
 B, L = 1000, 10000
 N_ROWS = 256  # rows held against the CPU path and the pins
 PINS = (237, {-1: 236, 7: 1}, {2: 15, 5: 4})  # tests/test_bench_population.py
-ULP_REL = 2.0**-23
 # NVIDIA's published peaks of one H100 SXM: device memory rate, and the
 # float32 rate outside the tensor cores (integer compares and adds are
 # counted at the same rate)
@@ -103,6 +113,9 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_rolling_detect": ("K9 fused rolling detect", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:206"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
+# device operations a step of each path before K5's callers stopped copying
+# for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
+DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
 # launches a step of each path, in KERNELS' order (K1 .. K9)
 LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0),
             "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1)}
@@ -309,6 +322,68 @@ def k8_edge_cases():
     return cases
 
 
+def k2_edge_cases():
+    """[(name, x (B, L) float32, n_valid (B,) int32, w (B,) int32, w_max)]:
+    the t-test inputs that K2 (both variants) and its plain version are held
+    to: every width, widths outside [1, w_max], rows shorter than two
+    windows, full rows, windows of equal samples (vsum = 0), a subnormal
+    vsum, NaN and infinite samples, lengths off the vector size."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    i32 = lambda v: np.asarray(v, np.int32)
+    noise = lambda B, L: rng.normal(80, 12, (B, L)).astype(np.float32)
+    cases = []
+    widths = i32(range(1, 13))
+    cases.append(("w = 1 to 12", noise(12, 1000), rng.integers(200, 1001, 12).astype(np.int32), widths, 12))
+    cases.append(("w = 1 to 12, n_valid = L", noise(12, 1000), i32([1000] * 12), widths, 12))
+    cases.append(("w = 0, 13, -1 and 40 (outside [1, w_max])", noise(4, 400), i32([400, 400, 300, 400]), i32([0, 13, -1, 40]), 12))
+    cases.append(("w = 13 to 16 of w_max = 16", noise(4, 400), i32([400, 333, 64, 400]), i32([13, 14, 15, 16]), 16))
+    cases.append(("n_valid < 2w, = 2w and 2w + 1", noise(8, 200), i32([0, 1, 5, 23, 24, 25, 3, 200]), i32([12, 12, 12, 12, 12, 12, 1, 7]), 12))
+    x = noise(4, 600)
+    x[0], x[1, 100:300], x[2, ::2], x[3, 200:224] = 73.25, 80.0, 5.0, -0.0
+    cases.append(("equal samples over a window (vsum = 0)", x, i32([600, 600, 600, 600]), i32([12, 5, 1, 12]), 12))
+    x = (rng.normal(0, 1, (3, 400)) * 1e-20).astype(np.float32)
+    cases.append(("subnormal vsum", x, i32([400, 400, 399]), i32([1, 3, 12]), 12))
+    x = noise(5, 400)
+    x[0, 50], x[1, 60], x[1, 200], x[2, 70], x[3, 100:140], x[4, 3] = np.nan, np.inf, -np.inf, 3e38, np.inf, np.nan
+    x[2, 71] = -3e38
+    cases.append(("NaN, infinite and huge samples", x, i32([400, 400, 390, 400, 400]), i32([12, 4, 2, 7, 1]), 12))
+    for L in (1, 7, 1001, 6271):
+        B = 6
+        cases.append((f"L={L} (no multiple of 4)", noise(B, L), rng.integers(L // 2, L + 1, B).astype(np.int32), i32([1, 2, 3, 6, 11, 12]), 12))
+    cases.append(("L=6272, n_valid = L", noise(3, 6272), i32([6272] * 3), i32([1, 9, 12]), 12))
+    return cases
+
+
+def k5_edge_cases():
+    """[(name, x (B, L) float32, starts (K * B,) int32, out_len, lengths
+    (K * B,) int32 or None)]: the windows that K5 and its plain version are
+    held to: starts that leave the row with and without lengths, lengths of
+    0, out_len and beyond, an out_len and an L off the vector size (rows
+    that do not start on 16 bytes), K = 1 and 3 windows a row."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    i32 = lambda v: np.asarray(v, np.int32)
+    noise = lambda B, L: rng.normal(80, 12, (B, L)).astype(np.float32)
+    cases = []
+    outside = i32([-20, -1, 0, 1, 2, 3, 199, 200, 201, 250, 299, 300, 400])
+    cases.append(("starts below 0 and above L - out_len, clamped", noise(13, 300), outside, 100, None))
+    cases.append(("starts below 0 and above L - out_len, zero-filled", noise(13, 300), outside, 100, i32([100] * 13)))
+    lengths = i32([0, 100, 1, 2, 3, 4, 5, 97, 98, 99, 150, -3, 50])
+    cases.append(("lengths 0, out_len, beyond and below 0", noise(13, 300), rng.integers(0, 200, 13).astype(np.int32), 100, lengths))
+    cases.append(("out_len no multiple of 4", noise(6, 400), i32([0, 1, 2, 3, 301, 350]), 99, None))
+    cases.append(("out_len no multiple of 4, lengths", noise(6, 400), i32([0, 1, 2, 3, 301, 350]), 99, i32([99, 98, 50, 0, 99, 99])))
+    cases.append(("L no multiple of 4 (row starts off 16 bytes)", noise(7, 1001), rng.integers(-5, 950, 7).astype(np.int32), 100, None))
+    cases.append(("L no multiple of 4, lengths", noise(7, 1001), rng.integers(0, 950, 7).astype(np.int32), 100, rng.integers(0, 120, 7).astype(np.int32)))
+    cases.append(("K = 3 windows a row", noise(5, 1000), rng.integers(-10, 900, 15).astype(np.int32), 200, None))
+    cases.append(("K = 3 windows a row, lengths", noise(5, 1000), rng.integers(0, 900, 15).astype(np.int32), 200, rng.integers(0, 260, 15).astype(np.int32)))
+    cases.append(("K = 2, out_len above two chunks", noise(3, 10000), rng.integers(0, 10000, 6).astype(np.int32), 6272, rng.integers(0, 6273, 6).astype(np.int32)))
+    cases.append(("out_len above L", noise(3, 64), i32([0, 10, 63]), 100, i32([100, 54, 1])))
+    return cases
+
+
 def dtw_band_cells(m, window):
     return sum(1 for i in range(m) for j in range(m) if abs(i - j) <= window - 1)
 
@@ -414,24 +489,39 @@ def check_kernels(dev, card):
         require(bool(k[1].isnan().all()) and bool(torch.isfinite(k[0, : n - 1]).all()), "K1: NaN pattern")
         print(f"K1 m={m} window={window} B={b} N={n} (non-finite rows included): max_abs_err={max_abs(k, p)!r}")
 
-    # K2: t-test scores over (B, 6272) adapter buffers
+    # K2: t-test scores over (B, 6272) adapter buffers, bit for bit, and
+    # the n_scores it writes; then the edge cases
     A = 6272
     xa = t(rng.normal(80, 12, (B, A)).astype(np.float32))
     n_valid = t(rng.integers(1000, A + 1, B).astype(np.int32))
     w = torch.clamp(torch.round(n_valid.float() / 110).int(), 1, 12)
-    k, _ = segmentation.windowed_t_test(xa, n_valid, w, 12)
+    k, k_scores = segmentation.windowed_t_test(xa, n_valid, w, 12)
     p = segmentation.windowed_t_test_plain(xa, n_valid, w, 12)
-    rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
-    require(rel <= 4 * ULP_REL, f"K2: rel err {rel}")
-    # per score: both windows' running sums of x and x*x slide by one sample
-    # (8 adds and multiplies), 8 more for the variances and the quotient
-    n_scores = torch.clamp_min(n_valid - 2 * w, 0).long()
+    n_scores = torch.clamp_min(n_valid - 2 * w, 0)
+    require(same_bits(k, p), "K2: differs from the plain version")
+    require(torch.equal(k_scores, n_scores), "K2: n_scores differ")
+    for name, xe, ne, we, w_max in k2_edge_cases():
+        args = (t(xe), t(ne), t(we), w_max)
+        ke, ke_scores = segmentation.windowed_t_test(*args)
+        want = segmentation.windowed_t_test_plain(*args)
+        require(same_bits(ke, want), f"K2 {name}: differs from the plain version")
+        require(torch.equal(ke_scores, torch.clamp_min(args[1] - 2 * args[2], 0)), f"K2 {name}: n_scores differ")
+        print(f"K2 {name}: max_abs_err={max_abs(ke, want)!r}, {int(want.isnan().sum())} NaN and "
+              f"{int(want.isinf().sum())} infinite scores, bits equal")
+    # what the function needs: the valid samples read once, the scores
+    # written once; a window's mean and squared deviations once (w adds, a
+    # quotient, 3 w for the deviations), 14 a score for the rest (sum,
+    # difference, compare, the rsqrt's two Newton steps, the product)
+    scored = n_scores > 0
+    n_ops = int(((n_scores + w) * (4 * w + 1) * scored).sum()) + int(n_scores.sum()) * 14
     record(
         "wdx_ttest", max_abs(k, p),
         lambda: segmentation.windowed_t_test(xa, n_valid, w, 12),
         lambda: segmentation.windowed_t_test_plain(xa, n_valid, w, 12),
-        2 * B * A * 4 + 2 * B * 4, int(n_scores.sum()) * 16,
+        int(n_valid.clamp(max=A).sum()) * 4 + B * A * 4 + 3 * B * 4, n_ops,
     )
+    print(f"K2: bound_ms with the whole buffer read (as counted until this kernel skipped the samples past n_valid)="
+          f"{bound(2 * B * A * 4 + 3 * B * 4, n_ops)[0]!r}")
 
     # K3: distance suppression of the t-score peaks (the bit-word kernel at
     # the step's shape), then both variants on the edge cases, and the rounds
@@ -607,25 +697,55 @@ def check_kernels(dev, card):
         *k8_work(starts, ends),
     )
 
-    # K5: LLR refine windows (800 of 10000) and adapter extraction
-    # (6272 of 16272); the library call is torch.gather on a prebuilt index
-    s800 = t(rng.integers(0, L - 800, B).astype(np.int32))
+    # K5: the step's shapes: the LLR refine windows (800 of 10000; one a
+    # read, and two a read from the one signal) and the adapter extraction
+    # (6272 of 10000 with lengths: full ones, and this batch's adapter
+    # lengths); then the edge cases. The library call is torch.gather on a
+    # prebuilt index, the same function where every window lies inside its
+    # row at full length
+    s800 = t(rng.integers(0, L - 800, 2 * B).astype(np.int32))
+    sA = t(rng.integers(0, L - A + 1, B).astype(np.int32))
+    full = torch.full((B,), A, dtype=torch.int32, device=dev)
     xpad = torch.cat([x, torch.zeros((B, A), device=dev)], 1)
-    sA = t(rng.integers(0, L, B).astype(np.int32))
+    sP = t(rng.integers(0, L, B).astype(np.int32))  # windows that leave the signal
+    k5_shapes = (
+        ("refine windows, B x 800", (x, s800[:B], 800)),
+        ("refine windows, 2B x 800 of B rows", (x, s800, 800)),
+        ("adapter extraction, full lengths", (x, sA, A, full)),
+        ("adapter extraction, this batch's adapter lengths", (x, sA, A, n_valid)),
+        ("adapter extraction, windows that leave the signal", (x, sP, A, n_valid)),
+        ("adapter extraction from a zero-padded copy, no lengths", (xpad, sP, A)),
+    )
     errs = []
-    for src, st, n in ((x, s800, 800), (xpad, sA, A)):
-        k = window_gather.shift_rows(src, st, n)
-        p = window_gather.shift_rows_plain(src, st, n)
-        require(torch.equal(k, p), f"K5: out_len {n} differs")
+    for name, args in k5_shapes:
+        k = window_gather.shift_rows(*args)
+        p = window_gather.shift_rows_plain(*args)
+        require(torch.equal(bits(k), bits(p)), f"K5 {name}: differs from the plain version")
         errs.append(max_abs(k, p))
+        print(f"K5 {name}: max_abs_err={errs[-1]!r} {both_ms(lambda: window_gather.shift_rows(*args))}")
+    # the lengths do what the padded copy and the mask did
+    mask = torch.arange(A, device=dev)[None, :] < n_valid[:, None]
+    want = torch.where(mask, window_gather.shift_rows(xpad, sP, A), torch.zeros((), device=dev))
+    require(torch.equal(window_gather.shift_rows(x, sP, A, n_valid), want), "K5: lengths differ from pad and mask")
+    require(torch.equal(window_gather.shift_rows(x, s800, 800), window_gather.shift_rows(x.repeat(2, 1), s800, 800)),
+            "K5: two windows a row differ from a repeated signal")
+    for name, xe, se, n, le in k5_edge_cases():
+        args = (t(xe), t(se), n, None if le is None else t(le))
+        require(torch.equal(bits(window_gather.shift_rows(*args)), bits(window_gather.shift_rows_plain(*args))),
+                f"K5 {name}: differs from the plain version")
+        print(f"K5 {name}: max_abs_err=0.0")
+    xo = torch.cat([x.new_zeros(1), x[:33].reshape(-1)])[1:].view(33, L)  # rows off 16 bytes
+    require(xo.data_ptr() % 16 != 0 and xo.is_contiguous(), "K5: the view is aligned")
+    require(torch.equal(window_gather.shift_rows(xo, s800[:33], 800), window_gather.shift_rows_plain(xo, s800[:33], 800)),
+            "K5 row starts off the vector alignment: differs from the plain version")
     index = sA[:, None].long() + torch.arange(A, device=dev)[None, :]
-    require(torch.equal(torch.gather(xpad, 1, index), k), "K5: torch.gather differs")
-    record(
+    require(torch.equal(torch.gather(x, 1, index), window_gather.shift_rows(x, sA, A, full)), "K5: torch.gather differs")
+    record(  # the adapter extraction: the samples below the lengths read, the buffer written
         "wdx_shift_rows", max(errs),
-        lambda: window_gather.shift_rows(xpad, sA, A),
-        lambda: window_gather.shift_rows_plain(xpad, sA, A),
-        2 * B * A * 4 + B * 4, 0,
-        library=lambda: torch.gather(xpad, 1, index),
+        lambda: window_gather.shift_rows(x, sA, A, full),
+        lambda: window_gather.shift_rows_plain(x, sA, A, full),
+        int(full.clamp(max=A).sum()) * 4 + B * A * 4 + 2 * B * 4, 0,
+        library=lambda: torch.gather(x, 1, index),
     )
 
     # K6: rolling mean/var of the calibrated signal (w 200 and 500); the
@@ -847,6 +967,36 @@ def _compare_full(gpu, cpu):
     return int(same.sum())
 
 
+def count_device_ops(step, args):
+    """Device operations (kernels, copies, memsets) of one step, as
+    torch.profiler records them after a warm-up step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def count_step_ops(steps):
+    """Device operations a step of each path on phase 3's rows. Run last:
+    once the profiler has been attached, every launch costs the host more."""
+    import numpy as np
+
+    from bench import synth_minibatch
+
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
+    rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
+    for path in PATHS:
+        n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
+        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
+        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE[path]} before this kernel round)")
+
+
 def run_main_paths(dev, steps):
     """Phase 3: the three main paths on the GPU, held against the CPU."""
     import numpy as np
@@ -898,6 +1048,7 @@ def run_main_paths(dev, steps):
     for name, a, b in zip(("success", "fail_code", "pred"), _decisions(fused), _decisions(out)):
         require(bool((a == b).all()), f"fused decision: {name} differs from the unfused GPU step")
     print(f"fused decision: (success, fail_code, pred) equal to the unfused GPU step on {N_ROWS}/{N_ROWS} rows")
+
     return by_path
 
 
@@ -956,6 +1107,7 @@ def main() -> int:
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
     time_throughput(steps, card)
+    count_step_ops(steps)
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

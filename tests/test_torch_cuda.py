@@ -21,7 +21,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
-from chip_smoke import k3_edge_cases, k4_edge_cases, k7_edge_cases, k8_edge_cases  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    k2_edge_cases,
+    k3_edge_cases,
+    k4_edge_cases,
+    k5_edge_cases,
+    k7_edge_cases,
+    k8_edge_cases,
+)
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
 from warpdemux_tpu_torch.models.registry import load_model_arrays  # noqa: E402
@@ -89,14 +96,43 @@ def test_k1_dtw_instances_and_edge_tiles(dev, m, window, penalty, b, n):
     assert bool(got[1].isnan().all()) and bool(torch.isfinite(got[0, : n - 1]).all())
 
 
+def _same_bits(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32)
+    )
+
+
 def test_k2_ttest(dev):
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.normal(80, 12, (64, 6272)).astype(np.float32), device=dev)
     n = torch.as_tensor(rng.integers(100, 6273, 64).astype(np.int32), device=dev)
     w = torch.as_tensor(rng.integers(1, 13, 64).astype(np.int32), device=dev)
+    got, n_scores = _launched("wdx_ttest", lambda: segmentation.windowed_t_test(x, n, w, 12))
+    assert _same_bits(got, segmentation.windowed_t_test_plain(x, n, w, 12))
+    assert torch.equal(n_scores, torch.clamp_min(n - 2 * w, 0))
+
+
+@pytest.mark.parametrize("case", range(len(k2_edge_cases())), ids=[c[0] for c in k2_edge_cases()])
+def test_k2_ttest_edge_cases(dev, case):
+    """Every width from 1 to 12, widths outside [1, w_max], rows shorter
+    than two windows, full rows, windows of equal samples, a subnormal sum
+    of squares, NaN and infinite samples, lengths off the vectors and the
+    tiles: the bits of the plain version, and its n_scores."""
+    _, x, n, w, w_max = k2_edge_cases()[case]
+    x, n, w = (torch.as_tensor(a, device=dev) for a in (x, n, w))
+    got, n_scores = _launched("wdx_ttest", lambda: segmentation.windowed_t_test(x, n, w, w_max))
+    assert _same_bits(got, segmentation.windowed_t_test_plain(x, n, w, w_max))
+    assert torch.equal(n_scores, torch.clamp_min(n - 2 * w, 0))
+
+
+def test_k2_ttest_rows_off_the_vector_alignment(dev):
+    flat = torch.as_tensor(np.random.default_rng(2).normal(80, 12, 9 * 1000 + 1).astype(np.float32), device=dev)
+    x = flat[1:].view(9, 1000)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    n = torch.full((9,), 1000, dtype=torch.int32, device=dev)
+    w = torch.arange(4, 13, dtype=torch.int32, device=dev)
     got, _ = _launched("wdx_ttest", lambda: segmentation.windowed_t_test(x, n, w, 12))
-    want = segmentation.windowed_t_test_plain(x, n, w, 12)
-    torch.testing.assert_close(got, want, rtol=4 * 2.0**-23, atol=0)
+    assert _same_bits(got, segmentation.windowed_t_test_plain(x, n, w, 12))
 
 
 @pytest.mark.parametrize("quantize", [False, True])
@@ -190,6 +226,46 @@ def test_k4_long_rows(dev, length):
 def test_k5_shift_rows(dev):
     x = _signal(dev)
     starts = torch.as_tensor(np.random.default_rng(5).integers(-10, 9300, 64).astype(np.int32), device=dev)
+    got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(x, starts, 800))
+    assert torch.equal(got, window_gather.shift_rows_plain(x, starts, 800))
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_k5_shift_rows_step_shapes(dev, K):
+    """The refine windows (K a read from the one signal) and the adapter
+    extraction with lengths, as the step calls them."""
+    x = _signal(dev)
+    rng = np.random.default_rng(5 + K)
+    starts = torch.as_tensor(rng.integers(0, 9201, 64 * K).astype(np.int32), device=dev)
+    got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(x, starts, 800))
+    assert torch.equal(got, window_gather.shift_rows_plain(x, starts, 800))
+    assert torch.equal(got, window_gather.shift_rows_plain(x.repeat(K, 1), starts, 800))
+    a_start = torch.as_tensor(rng.integers(0, 10000, 64).astype(np.int32), device=dev)
+    a_len = torch.as_tensor(rng.integers(0, 6273, 64).astype(np.int32), device=dev)
+    got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(x, a_start, 6272, a_len))
+    assert torch.equal(got, window_gather.shift_rows_plain(x, a_start, 6272, a_len))
+    padded = torch.cat([x, x.new_zeros((64, 6272))], 1)
+    mask = torch.arange(6272, device=dev)[None, :] < a_len[:, None]
+    assert torch.equal(got, torch.where(mask, window_gather.shift_rows_plain(padded, a_start, 6272), x.new_zeros(())))
+
+
+@pytest.mark.parametrize("case", range(len(k5_edge_cases())), ids=[c[0] for c in k5_edge_cases()])
+def test_k5_shift_rows_edge_cases(dev, case):
+    """Starts that leave the row with and without lengths, lengths of 0,
+    out_len and beyond, an out_len and an L off the vector size, K = 2 and
+    3 windows a row."""
+    _, x, starts, out_len, lengths = k5_edge_cases()[case]
+    args = (torch.as_tensor(x, device=dev), torch.as_tensor(starts, device=dev), out_len,
+            None if lengths is None else torch.as_tensor(lengths, device=dev))
+    got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(*args))
+    assert torch.equal(got.view(torch.int32), window_gather.shift_rows_plain(*args).view(torch.int32))
+
+
+def test_k5_shift_rows_rows_off_the_vector_alignment(dev):
+    flat = torch.as_tensor(np.random.default_rng(6).normal(80, 12, 9 * 2000 + 1).astype(np.float32), device=dev)
+    x = flat[1:].view(9, 2000)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    starts = torch.as_tensor(np.arange(9, dtype=np.int32) * 130 - 3, device=dev)
     got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(x, starts, 800))
     assert torch.equal(got, window_gather.shift_rows_plain(x, starts, 800))
 

@@ -2,7 +2,10 @@
 ops/numerics.py against XLA:CPU, bit for bit.
 
 `xla_log` must give the bits of the jitted jnp.log (XLA's own polynomial,
-not the correctly rounded log), and the LLR refinement's cost must equal
+not the correctly rounded log); `xla_rsqrt` is pinned to the bits XLA:CPU
+gives on the host whose rsqrt estimate the port carries as a table (the
+comparison with this host's jitted rsqrt is in test_torch_xla_rsqrt.py,
+which skips on a host with another estimate; the pins never skip); and the LLR refinement's cost must equal
 the jitted JAX expression on the window where the two ends of the scan
 tie to the last bit: row 795 of the seed-0 bench batch.
 """
@@ -17,7 +20,8 @@ import pytest
 import torch
 
 from warpdemux_tpu_torch.detect import boundaries as bd
-from warpdemux_tpu_torch.ops.numerics import xla_log
+from warpdemux_tpu_torch.ops import _rsqrt_table
+from warpdemux_tpu_torch.ops.numerics import rsqrt_table, xla_log, xla_rsqrt
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -90,3 +94,52 @@ def test_llr_cost_matches_jax_on_random_windows(seed):
     win[:4, 400:] += 15  # a level step in half of the rows
     got = bd._llr_cost(torch.from_numpy(win)).numpy()
     assert _same_bits(got, np.asarray(_jax_cost(win))).all()
+
+
+# (bits of x, bits of XLA:CPU's rsqrt(x)) recorded with the table's host:
+# 1, 2, 3, 4, 0.1 (one ulp under the correctly rounded 0x404a62c2), 80,
+# 1234.5678, 6e-8, the smallest normal, the largest finite, a subnormal,
+# +0, -0, +inf, -1, NaN
+RSQRT_PINS = [
+    (0x3F800000, 0x3F800000), (0x40000000, 0x3F3504F3), (0x40400000, 0x3F13CD3A),
+    (0x40800000, 0x3F000000), (0x3DCCCCCD, 0x404A62C1), (0x42A00000, 0x3DE4F92E),
+    (0x449A522B, 0x3CE925FF), (0x3380D959, 0x457F27BB), (0x00800000, 0x5F000000),
+    (0x7F7FFFFF, 0x1F800000), (0x000116C2, 0x7F800000), (0x00000000, 0x7F800000),
+    (0x80000000, 0xFF800000), (0x7F800000, 0x00000000), (0xBF800000, 0x7FC00000),
+    (0x7FC00000, 0x7FC00000),
+]
+
+
+@pytest.mark.parametrize("x_bits, want_bits", RSQRT_PINS, ids=[f"{x:08x}" for x, _ in RSQRT_PINS])
+def test_xla_rsqrt_pinned_bits(x_bits, want_bits):
+    x = torch.tensor([x_bits], dtype=torch.int64).to(torch.int32).view(torch.float32)
+    got = xla_rsqrt(x)
+    if want_bits == 0x7FC00000:
+        assert bool(got.isnan().all())
+    else:
+        assert int(got.view(torch.int32)) & 0xFFFFFFFF == want_bits
+
+
+def test_rsqrt_table_is_the_recorded_one():
+    import hashlib
+
+    table = rsqrt_table("cpu")
+    assert table.dtype == torch.int16 and table.shape == (2048,)
+    assert hashlib.sha256(table.numpy().astype("<u2").tobytes()).hexdigest() == _rsqrt_table.SHA256
+    assert _rsqrt_table.SHA256 == "3e6b1f1505c0535421fcc996e154d1f2504933071d3a5d3181e84db0e336c36c"
+    assert _rsqrt_table.SHA256 in _rsqrt_table.__doc__
+    # estimates of [1, 4) lie in [0.5, 1) with 12 mantissa bits, falling
+    # within each parity
+    t = table.view(2, 1024).int()
+    assert int(t.min()) >= 1 and int(t.max()) <= 4094
+    assert bool((t[:, 1:] <= t[:, :-1]).all()) and int(t[0, -1]) > int(t[1, 0])
+    assert rsqrt_table("cpu") is table  # made once a device
+
+
+def test_xla_rsqrt_is_within_two_ulp_of_the_rounded_rsqrt_and_not_it():
+    x = torch.from_numpy(np.exp(np.random.default_rng(1).uniform(-60, 60, 200_000)).astype(np.float32))
+    got = xla_rsqrt(x)
+    exact = (1.0 / torch.sqrt(x.double())).to(torch.float32)
+    ulps = (got.view(torch.int32) - exact.view(torch.int32)).abs()
+    assert int(ulps.max()) <= 2
+    assert 0.02 < float((ulps > 0).float().mean()) < 0.5

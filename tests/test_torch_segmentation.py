@@ -17,8 +17,11 @@ from warpdemux_tpu_torch.ops.segmentation import (
     windowed_t_test,
 )
 
-# tests/test_segmentation.py:131: the kernel and the jnp path agree to
-# ~1 ulp (XLA rewrites x / sqrt(y) into x * rsqrt(y))
+# The eager jnp call divides by the correctly rounded sqrt and the Pallas
+# kernel (interpret mode) by its own; the port multiplies by XLA:CPU's
+# rsqrt, as the jitted function does (equal bits: test_torch_xla_rsqrt.py).
+# The three differ by that last operation: 2 ulp (tests/test_segmentation.py:131
+# holds the kernel to the jnp path at the same 2 ulp for the same reason).
 TTEST_RTOL = 2.0**-22
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Tile-size sweep of kernels K1 (csrc/dtw.cu), K6 / K9 and K7
-(csrc/rolling.cu), K4 and K8 (csrc/select.cu) and K3 (csrc/peaks.cu) on one
-CUDA GPU.
+(csrc/rolling.cu), K4 and K8 (csrc/select.cu), K3 (csrc/peaks.cu), K2
+(csrc/ttest.cu) and K5 (csrc/window_gather.cu) on one CUDA GPU.
 
     python3 tune_kernels.py
 
@@ -16,7 +16,10 @@ of the sources' tile macros, six builds at a time:
   WDX_SELECT_SPREAD the first round's eight copies of a bin;
 - K8: WDX_ADC_THREADS a range, WDX_ADC_MIN_BLOCKS an SM, and K4's
   WDX_SELECT_PREFIX and WDX_SELECT_SPREAD (the selection is shared);
-- K3: WDX_SUPPRESS_THREADS a row (the block; 32 is a warp a row).
+- K3: WDX_SUPPRESS_THREADS a row (the block; 32 is a warp a row);
+- K2: WDX_TTEST_THREADS a block, WDX_TTEST_RUN positions a thread,
+  WDX_TTEST_TILE positions a block (6272: the whole adapter buffer);
+- K5: WDX_GATHER_THREADS a block, WDX_GATHER_VECTORS 16-byte vectors a thread.
 
 For each variant the script prints what ptxas reported for the kernel
 (registers, spills), checks the wrapper's output bit for bit against the
@@ -29,8 +32,11 @@ samples, median and MAD), the region statistics of the full output (R=3
 over L=10000, two medians given, calibrated MADs) and the gate medians
 (R=2, medians only); for K8 the gate medians and the adapter-level proxy
 (R=1 over the first 2000 samples); for K3 the (1000, 6272) t-scores of the
-adapter buffers. The first variant of a kernel is the committed
-default. K4 is then probed on rows of crafted keys (equal, two values, 256
+adapter buffers, which K2 computes; for K5 the refine windows (2 x 800 of a
+read's 10000 samples), the adapter extraction (6272 of 10000, with lengths)
+and the gather from a zero-padded copy. The first variant of a kernel is the committed
+default. K2 is probed with no valid sample (zeros only) and on full rows
+by width; K4 is then probed on rows of crafted keys (equal, two values, 256
 values, a read's samples) and on 1 to 4000 ranges, K8 on rows of crafted
 counts. The last line names the
 card and its power limit.
@@ -65,6 +71,12 @@ K8_VARIANTS = [
     *K4_VARIANTS[-2:],
 ]
 K3_VARIANTS = [(), *[(f"-DWDX_SUPPRESS_THREADS={n}",) for n in (32, 64, 128, 192, 512)]]  # default: 256
+K2_VARIANTS = [
+    (),  # 128 threads, 2 positions a thread, tiles of 1024 positions
+    *[(f"-DWDX_TTEST_THREADS={t}", f"-DWDX_TTEST_RUN={r}", f"-DWDX_TTEST_TILE={n}")
+      for t in (128, 256, 512) for r in (2, 4, 8) for n in (512, 1024, 2048, 6272) if (t, r, n) != (128, 2, 1024)],
+]
+K5_VARIANTS = [(), *[(f"-DWDX_GATHER_THREADS={t}", f"-DWDX_GATHER_VECTORS={v}") for t in (64, 128, 256) for v in (1, 2, 4) if (t, v) != (128, 2)]]
 
 
 def main() -> int:
@@ -78,12 +90,13 @@ def main() -> int:
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
-    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select
+    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, window_gather
 
     dev = torch.device("cuda", 0)
     t = lambda a: torch.as_tensor(a, device=dev)
     variants = list(dict.fromkeys(
         K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:] + K8_VARIANTS[1:] + K3_VARIANTS[1:]
+        + K2_VARIANTS[1:] + K5_VARIANTS[1:]
     ))
     with ThreadPoolExecutor(6) as pool:
         logs = dict(zip(variants, pool.map(lambda d: _cuda.build_log(_cuda.build(d)).read_text(), variants)))
@@ -197,6 +210,47 @@ def main() -> int:
         run = lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7)
         print(f"K3 {' '.join(defines) or 'default'} | exact={torch.equal(run(), want)} ms={time_ms(run)!r} |",
               ptxas(defines, "wdx_suppress_words"))
+    # K2 on the same adapter buffers, by threads a block, positions a thread
+    # and positions a tile (6272: the whole row)
+    want = segmentation.windowed_t_test_plain(xa, n_adapter, w, 12)
+    for defines in K2_VARIANTS:
+        _cuda.defines = defines
+        run = lambda: segmentation.windowed_t_test(xa, n_adapter, w, 12)[0]
+        print(f"K2 {' '.join(defines) or 'default'} | exact={same([run()], [want])} ms={time_ms(run)!r} |",
+              ptxas(defines, "wdx_ttest_kernel"))
+    # K2 probes: what the launch and the zeros cost (no valid sample: 25 MB
+    # of zeros written, beside torch's own fill of the same buffer), and
+    # full rows by width (13: outside the unrolled instances)
+    _cuda.defines = ()
+    full = torch.full_like(n_adapter, A)
+    buffer = torch.empty_like(xa)
+    row = [f"K2 probe default, {B} rows: zero_() of a scores buffer ms={time_ms(lambda: buffer.zero_())!r}"]
+    for name, n, width in (("n_valid=0", torch.zeros_like(full), 12), ("full rows w=1", full, 1), ("full rows w=6", full, 6),
+                           ("full rows w=12", full, 12), ("full rows w=13 of w_max=16", full, 13)):
+        wp = torch.full_like(w, width)
+        row.append(f"{name}: ms={time_ms(lambda: segmentation.windowed_t_test(xa, n, wp, 16 if width > 12 else 12))!r}")
+    print(" | ".join(row))
+    # K5 at the step's shapes: the refine windows (800 of 10000, two a read
+    # from the one signal) and the adapter extraction (6272 of 10000 with
+    # lengths), and the unfused gather from a padded copy
+    starts = t(rng.integers(0, L - 800, 2 * B).astype(np.int32))
+    a_start = t(rng.integers(0, L, B).astype(np.int32))
+    a_len = torch.minimum(n_adapter, L - a_start)
+    xpad = torch.cat([x, torch.zeros((B, A), device=dev)], 1)
+    k5_shapes = {
+        "refine 2B x 800": (x, starts, 800),
+        "adapter with lengths": (x, a_start, A, a_len),
+        "adapter, padded copy": (xpad, a_start, A),
+    }
+    want = {name: window_gather.shift_rows_plain(*args) for name, args in k5_shapes.items()}
+    for defines in K5_VARIANTS:
+        _cuda.defines = defines
+        row = [f"K5 {' '.join(defines) or 'default'}"]
+        for name, args in k5_shapes.items():
+            run = lambda: window_gather.shift_rows(*args)
+            row.append(f"{name}: exact={torch.equal(run(), want[name])} ms={time_ms(run)!r}")
+        print(" | ".join(row), "|", ptxas(defines, "wdx_shift_rows_kernelILb1"))
+    _cuda.defines = ()
     # K4 probes, medians (and medians + MADs) of whole rows of 6271 samples:
     # what a round costs by how the digits fall (no round for equal keys,
     # one round of two bins or of 256, three rounds for a read's samples),

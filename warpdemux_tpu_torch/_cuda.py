@@ -45,10 +45,10 @@ _F = ctypes.c_float
 # C entry point -> argument types (every entry point ends with the stream)
 SIGNATURES = {
     "wdx_dtw": (_P, _P, _P, _I, _I, _I, _I, _F),
-    "wdx_ttest": (_P, _P, _P, _P, _I, _I, _I),
+    "wdx_ttest": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I),
-    "wdx_shift_rows": (_P, _P, _P, _I, _I, _I),
+    "wdx_shift_rows": (_P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_rolling_mean_var": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I),
     "wdx_run_sum": (_P, _P, _I, _I, _I, _I),
     "wdx_range_median_adc": (_P, _P, _P, _P, _P, _I, _I, _I, _I),

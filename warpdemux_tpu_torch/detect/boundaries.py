@@ -238,13 +238,14 @@ def _llr_refine(x, coarse, radius: int):
     coarse: (K, B) positions. For each, the split of the window
     [coarse - radius, coarse + radius) (moved inside the row) minimizing
     n1*log(var1) + n2*log(var2); returns (K, B) absolute positions, not
-    clamped. All K * B windows go through one batch of ops."""
+    clamped. All K * B windows go through one batch of ops; window k * B + b
+    is read from row b of x (`shift_rows` with K times as many starts)."""
     K, B = coarse.shape
     L = x.shape[1]
     W = 2 * radius
     start = torch.clamp(coarse - radius, min=0)
     start = torch.clamp_max(start, max(L - W, 0)).reshape(K * B)
-    win = shift_rows(x.repeat(K, 1), start, W)
+    win = shift_rows(x, start, W)
     return (start + _first_argmin(_llr_cost(win)) + 1).reshape(K, B)
 
 

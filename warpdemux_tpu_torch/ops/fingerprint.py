@@ -48,16 +48,13 @@ def extract_adapter_batch(
 ):
     """Copy [max(0, start - pad), min(len, end + pad)) into a fixed buffer.
 
-    Returns (buffer (B, buffer_len), lengths (B,))."""
-    B = signals.shape[0]
+    Returns (buffer (B, buffer_len), lengths (B,)). The buffer is zero past
+    a row's length and where the window leaves the signal: the gather
+    fills those itself (`shift_rows` with lengths)."""
     start = torch.clamp_min(adapter_start - padding, 0)
     end = torch.minimum(in_lens, adapter_end + padding)
     length = (end - start).clamp(0, buffer_len)
-    # right-pad so any start in [0, L] yields a full window
-    padded = torch.cat([signals, signals.new_zeros((B, buffer_len))], dim=1)
-    buf = shift_rows(padded, start, buffer_len)
-    mask = torch.arange(buffer_len, device=signals.device)[None, :] < length[:, None]
-    return torch.where(mask, buf, torch.zeros_like(buf)), length
+    return shift_rows(signals, start, buffer_len, length), length
 
 
 def fingerprints_from_boundaries(

@@ -16,6 +16,11 @@ device's summation order and contraction choices:
 - `xla_log`: XLA:CPU's float32 log is the Cephes/Eigen polynomial, off
   the correctly rounded result by one ulp on a few percent of inputs;
   torch.log (and CUDA's logf) round differently.
+- `xla_rsqrt`: XLA:CPU rewrites a / sqrt(b) into a * rsqrt(b) and computes
+  the rsqrt as the x86 hardware estimate (`vrsqrtps`, a table of 2 x 1024
+  entries of 12 bits) refined by two Newton steps with fused
+  multiply-adds: neither 1 / sqrt(b) nor the correctly rounded rsqrt. The
+  port carries the table as data (`ops/_rsqrt_table.py`).
 
 All give the same bits on CPU and CUDA; the kernels run the same trees
 and call __fmaf_rn at the same places.
@@ -23,7 +28,12 @@ and call __fmaf_rn at the same places.
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
+
+from warpdemux_tpu_torch.ops import _rsqrt_table
 
 BLOCK = 16
 
@@ -126,3 +136,54 @@ def xla_log(a: torch.Tensor) -> torch.Tensor:
     r = torch.where((x < 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
     # zero and subnormal inputs (read as zero) give -inf, of either sign
     return torch.where(x.abs() < _TINY, torch.full_like(r, float("-inf")), r)
+
+
+_rsqrt_tables: dict[torch.device, torch.Tensor] = {}
+
+
+def rsqrt_table(device) -> torch.Tensor:
+    """The (2048,) int16 table of `ops/_rsqrt_table.py` on `device` (made
+    once a device): entry p * 1024 + hi for the parity p of the unbiased
+    exponent and the top 10 mantissa bits hi."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    table = _rsqrt_tables.get(device)
+    if table is None:
+        digits = _rsqrt_table.HEX
+        values = np.array(
+            [int(digits[i : i + 3], 16) for i in range(0, len(digits), 3)], dtype="<u2"
+        )
+        if hashlib.sha256(values.tobytes()).hexdigest() != _rsqrt_table.SHA256:
+            raise RuntimeError("ops/_rsqrt_table.py: the table does not match its SHA-256")
+        table = _rsqrt_tables[device] = torch.from_numpy(values.astype(np.int16)).to(device)
+    return table
+
+
+def xla_rsqrt(a: torch.Tensor) -> torch.Tensor:
+    """float32 1 / sqrt(x) with the bits of XLA:CPU's `lax.rsqrt` on an x86
+    host whose `vrsqrtps` estimate is the recorded table's.
+
+    The algorithm of the kernel XLA compiles: y0 = the hardware estimate
+    (for a normal x = 4**k * x', x' in [1, 4): the table's entry for x',
+    scaled by 2**-k), then twice a = x*y, b = y*(-0.5), d = fma(a, y, -1),
+    y = fma(b, d, y). +inf, positive subnormals and both zeros keep the raw
+    estimate: 0 for +inf, an infinity of x's sign for the others (the
+    estimate reads a subnormal as zero). A negative subnormal gives -inf;
+    other negative numbers and NaN give NaN.
+    """
+    x = a.to(torch.float32)
+    bits = x.view(torch.int32)
+    e = (bits >> 23) & 0xFF
+    p = (e - 127) & 1
+    k = (e - 127 - p) >> 1  # e - 127 - p is even: an exact half
+    entry = rsqrt_table(x.device)[(p << 10) | ((bits >> 13) & 0x3FF)].to(torch.int32)
+    y = (0x3F000000 + (entry << 11) - (k << 23)).view(torch.float32)
+    minus_half = torch.full_like(x, -0.5)
+    minus_one = torch.full_like(x, -1.0)
+    for _ in range(2):
+        y = fma(y * minus_half, fma(x * y, y, minus_one), y)
+    inf = torch.full_like(x, float("inf"))
+    y = torch.where(x.abs() < _TINY, torch.copysign(inf, x), y)
+    y = torch.where(x == inf, torch.zeros_like(x), y)
+    return torch.where((x <= -_TINY) | torch.isnan(x), torch.full_like(x, float("nan")), y)

@@ -4,9 +4,11 @@ Port of warpdemux_tpu/ops/segmentation.py:
 
 - `windowed_t_test`: for each position p < n_valid - 2w, the adjacent
   windows [p, p+w) and [p+w, p+2w) give score |m1 - m2| / sqrt(ssd1 + ssd2)
-  (ssd = sum of squared deviations; 0 where ssd1 + ssd2 == 0). CUDA tensors
-  go to kernel K2 (csrc/ttest.cu); CPU tensors go to the plain version,
-  which runs the jnp path's shifted accumulation passes.
+  (ssd = sum of squared deviations; 0 where ssd1 + ssd2 == 0), computed as
+  the jitted JAX function computes it on the CPU: |m1 - m2| times XLA's
+  rsqrt (`numerics.xla_rsqrt`). CUDA tensors go to kernel K2
+  (csrc/ttest.cu); CPU tensors go to the plain version, which runs the jnp
+  path's shifted accumulation passes.
 - `segment_means`: per-segment means from a centered prefix sum.
 - `segment_signal_batch`: the reference segmentation contract with the
   per-read adaptation of min_obs and the window width.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from warpdemux_tpu_torch import _cuda
-from warpdemux_tpu_torch.ops.numerics import exact_sqrt, prefix_sums
+from warpdemux_tpu_torch.ops.numerics import prefix_sums, rsqrt_table, xla_rsqrt
 from warpdemux_tpu_torch.ops.peaks import find_peaks_batch, select_top_peaks
 
 
@@ -53,7 +55,7 @@ def windowed_t_test_plain(x, n_valid, w, w_max: int) -> torch.Tensor:
     n_scores = torch.clamp_min(n_valid - 2 * w, 0)
     vsum = v1 + v2
     scores = torch.where(
-        vsum > 0, (m1 - m2).abs() / exact_sqrt(torch.clamp_min(vsum, 0.0)), zero
+        vsum > 0, (m1 - m2).abs() * xla_rsqrt(torch.clamp_min(vsum, 0.0)), zero
     )
     return torch.where(pos < n_scores[:, None], scores, zero)
 
@@ -69,8 +71,8 @@ def windowed_t_test(x, n_valid, w, w_max: int):
     Returns:
       scores (B, L), 0 at and past n_valid - 2w; n_scores (B,).
     """
-    n_scores = torch.clamp_min(n_valid.to(torch.int32) - 2 * w.to(torch.int32), 0)
     if not _cuda.on_cuda(x, n_valid, w):
+        n_scores = torch.clamp_min(n_valid.to(torch.int32) - 2 * w.to(torch.int32), 0)
         return windowed_t_test_plain(x, n_valid, w, w_max), n_scores
     B, L = x.shape
     x = x.contiguous()
@@ -80,9 +82,13 @@ def windowed_t_test(x, n_valid, w, w_max: int):
     if nv.shape != (B,) or wi.shape != (B,):
         raise ValueError("n_valid and w must be (B,) for x of shape (B, L)")
     out = torch.empty_like(x)
+    if L == 0:  # no launch: n_scores by the plain expression
+        return out, torch.clamp_min(nv - 2 * wi, 0)
+    n_scores = torch.empty_like(nv)  # the kernel writes it beside the scores
     _cuda.launch(
         "wdx_ttest", x.device, x.data_ptr(), nv.data_ptr(), wi.data_ptr(),
-        out.data_ptr(), B, L, int(w_max),
+        rsqrt_table(x.device).data_ptr(), out.data_ptr(), n_scores.data_ptr(),
+        B, L, int(w_max),
     )
     return out, n_scores
 
