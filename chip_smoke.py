@@ -73,7 +73,23 @@ Phases (each raises on failure; nothing is caught):
    one warm-up, in two rounds of alternating order.
 5. One step of each path under torch.profiler: its device operations
    (kernels, copies, memsets) are counted and printed beside the count
-   before K5's callers stopped copying for it.
+   before K5's callers stopped copying for it; and those of one micro-batch
+   of the live lane. Run last, after phase 6: an attached profiler slows
+   every later launch.
+6. The live read-until lane (warpdemux_tpu_torch/live/) on the card:
+   a. the lane program (`Session._classify_on_device`: one copy in, K5,
+      K4, K2, K3 and K1, one fetch) on 64 replay reads cut at poly(A) plus
+      padding, each held in every signal-length bucket, at max_batch 32 and
+      16, against the CPU lane: (ok, pred) must agree on all but one row of
+      each, and every micro-batch must launch K1-K5 once and K6-K9 never;
+   b. each of the five kernels at the lane's shapes (B = 16 and 32; K5 at
+      L = 2048 and 12288) against its plain version, timed beside its
+      bound, and the lane program a micro-batch as called;
+   c. a whole session on the replay client (126 channels, 100 ms chunks,
+      400 reads, max_batch 16, an adapter_count balancer), with four
+      classifier threads and with one: every delivered read decided, 30%
+      or more classified, no classifier thread raised; the decision
+      latency's percentiles are printed.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -118,7 +134,8 @@ PATHS = ("adc_decision", "vbz_full", "fused_decision")
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
 # launches a step of each path, in KERNELS' order (K1 .. K9)
 LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1)}
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0)}  # one micro-batch of the lane program
 
 
 def time_ms(fn, reps=10, queued=False):
@@ -384,8 +401,92 @@ def k5_edge_cases():
     return cases
 
 
+def live_lane_reads(X_sv, n=64):
+    """[(read, cut)]: n barcoded replay reads on the model's support vectors,
+    drawn as tools/live_latency.py draws them, each also cut where the live
+    session cuts it: at the poly(A) that the streaming detector finds on its
+    first max_chunk_size samples, plus the fingerprint's padding."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.detect.streaming import mean_var_shift_polya_detect
+    from warpdemux_tpu_torch.live.dummy import synth_barcoded_read
+    from warpdemux_tpu_torch.live.session import SessionConfig
+
+    rng = np.random.default_rng(5)
+    cfg = SessionConfig()
+    pad = get_model_spc_config(MODEL).fingerprint.padding
+    reads = []
+    for _ in range(n):
+        read = synth_barcoded_read(rng, X_sv[rng.integers(0, len(X_sv))])
+        polya = mean_var_shift_polya_detect(read[: cfg.max_chunk_size], cfg.streaming)
+        require(polya > 0, "live lane: a replay read has no poly(A) in its first chunks")
+        reads.append((read, read[: polya + pad]))
+    return reads
+
+
+def live_bucket_batches(reads, bucket, max_batch):
+    """The cut reads in micro-batches of max_batch, held in one signal-length
+    bucket: every row at most `bucket` samples, and the first row of each
+    micro-batch its read's first `bucket` samples, so that the longest row
+    takes the micro-batch into that bucket."""
+    return [
+        [read[:bucket] if j == 0 else cut[:bucket] for j, (read, cut) in enumerate(reads[i : i + max_batch])]
+        for i in range(0, len(reads), max_batch)
+    ]
+
+
 def dtw_band_cells(m, window):
     return sum(1 for i in range(m) for j in range(m) if abs(i - j) <= window - 1)
+
+
+# (bytes, operations) each kernel's function needs on given inputs: every
+# input byte read once, every output byte written once, the operations of
+# the function and not of the kernel's own algorithm
+
+
+def k1_work(b, n, m=25, window=15):
+    """(b, m) against (n, m): the in-band cells, 6 operations each (sub,
+    min, add, min, fma (2))."""
+    return (b + n) * m * 4 + b * n * 4, b * n * dtw_band_cells(m, window) * 6
+
+
+def k2_work(n_valid, w, width):
+    """The valid samples read once, the scores and n_scores written once; a
+    window's mean and squared deviations once (w adds, a quotient, 3 w for
+    the deviations), 14 a score for the rest (sum, difference, compare, the
+    rsqrt's two Newton steps, the product)."""
+    n_scores = (n_valid - 2 * w).clamp_min(0)
+    n_ops = int(((n_scores + w) * (4 * w + 1) * (n_scores > 0)).sum()) + int(n_scores.sum()) * 14
+    rows = n_valid.shape[0]
+    return int(n_valid.clamp(max=width).sum()) * 4 + rows * width * 4 + 3 * rows * 4, n_ops
+
+
+def k3_work(is_peak, dist):
+    """Scores, flags and keep mask once; one round of the fixpoint: every
+    peak compared with its 2 (d - 1) neighbours."""
+    rows, width = is_peak.shape
+    return rows * width * (4 + 1 + 1) + rows * 4, int((is_peak.sum(1) * 2 * (dist - 1)).sum())
+
+
+def covered(st, en, width):
+    """Samples inside each of the R ranges."""
+    return (en.clamp(0, width) - st.clamp(0, width)).clamp_min(0).sum(1).tolist()
+
+
+def k4_work(st, en, width, searched, with_mad, calibrated):
+    """A range's samples read once; a selection a median (`searched`: per
+    range, False where it is given), a MAD on top, two more to calibrate a
+    sample."""
+    n = covered(st, en, width)
+    n_bytes = sum(n) * (6 if calibrated else 4) + st.numel() * (8 + 4 * (1 + with_mad))
+    return n_bytes, sum(c * (SELECT_OPS * find + MAD_OPS * with_mad + 2 * calibrated) for c, find in zip(n, searched))
+
+
+def k5_work(lengths, out_len):
+    """The samples below the lengths read, the windows written."""
+    rows = lengths.shape[0]
+    return int(lengths.clamp(0, out_len).sum()) * 4 + rows * out_len * 4 + 2 * rows * 4, 0
 
 
 def check_kernels(dev, card):
@@ -470,8 +571,7 @@ def check_kernels(dev, card):
         k = dtw.dtw_distance_matrix(X, Y, 15, 0.1)
         p = dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1)
         require(torch.equal(k, p), f"K1 N={Y.shape[0]}: differs from the plain version")
-        n_ops = B * Y.shape[0] * dtw_band_cells(25, 15) * 6  # sub, min, add, min, fma (2)
-        n_bytes = (B + Y.shape[0]) * 25 * 4 + B * Y.shape[0] * 4
+        n_bytes, n_ops = k1_work(B, Y.shape[0])
         ms = time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1))
         print(f"K1 N={Y.shape[0]}: max_abs_err={max_abs(k, p)!r} kernel_ms={ms!r} "
               f"bound_ms={bound(n_bytes, n_ops)[0]!r} on {card}")
@@ -508,17 +608,12 @@ def check_kernels(dev, card):
         require(torch.equal(ke_scores, torch.clamp_min(args[1] - 2 * args[2], 0)), f"K2 {name}: n_scores differ")
         print(f"K2 {name}: max_abs_err={max_abs(ke, want)!r}, {int(want.isnan().sum())} NaN and "
               f"{int(want.isinf().sum())} infinite scores, bits equal")
-    # what the function needs: the valid samples read once, the scores
-    # written once; a window's mean and squared deviations once (w adds, a
-    # quotient, 3 w for the deviations), 14 a score for the rest (sum,
-    # difference, compare, the rsqrt's two Newton steps, the product)
-    scored = n_scores > 0
-    n_ops = int(((n_scores + w) * (4 * w + 1) * scored).sum()) + int(n_scores.sum()) * 14
+    n_bytes, n_ops = k2_work(n_valid, w, A)
     record(
         "wdx_ttest", max_abs(k, p),
         lambda: segmentation.windowed_t_test(xa, n_valid, w, 12),
         lambda: segmentation.windowed_t_test_plain(xa, n_valid, w, 12),
-        int(n_valid.clamp(max=A).sum()) * 4 + B * A * 4 + 3 * B * 4, n_ops,
+        n_bytes, n_ops,
     )
     print(f"K2: bound_ms with the whole buffer read (as counted until this kernel skipped the samples past n_valid)="
           f"{bound(2 * B * A * 4 + 3 * B * 4, n_ops)[0]!r}")
@@ -554,12 +649,11 @@ def check_kernels(dev, card):
     with long_row_variant(peaks, "_suppress_shared_bytes"):
         require(torch.equal(peaks.suppress_by_distance(scores, is_peak, dist, 7), p), "K3 (byte flags): keep masks differ")
         print(f"K3 byte-flag variant at the step's shape: {both_ms(lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7))}")
-    # one round of the fixpoint: every peak compared with its 2 (d - 1) neighbours
     record(
         "wdx_suppress", max_abs(k.int(), p.int()),
         lambda: peaks.suppress_by_distance(scores, is_peak, dist, 7),
         lambda: peaks.suppress_by_distance_plain(scores, is_peak, dist, 7),
-        B * A * (4 + 1 + 1) + B * 4, int((is_peak.sum(1) * 2 * (dist - 1)).sum()),
+        *k3_work(is_peak, dist),
     )
 
     # K4: gate medians (R=2 over L=10000, empty ranges included), the
@@ -579,17 +673,6 @@ def check_kernels(dev, card):
     zero = torch.zeros_like(a_len)
     s3 = torch.cat([starts, starts[1:]])
     e3 = torch.cat([ends, torch.full_like(ends[1:], L)])
-
-    def covered(st, en, width):  # samples inside each of the R ranges
-        return (en.clamp(0, width) - st.clamp(0, width)).clamp_min(0).sum(1).tolist()
-
-    def k4_work(st, en, width, searched, with_mad, calibrated):
-        """(bytes, operations): a range's samples read once; a selection a
-        median (`searched`: per range, False where it is given), a MAD on
-        top, two more to calibrate a sample."""
-        n = covered(st, en, width)
-        n_bytes = sum(n) * (6 if calibrated else 4) + st.numel() * (8 + 4 * (1 + with_mad))
-        return n_bytes, sum(c * (SELECT_OPS * find + MAD_OPS * with_mad + 2 * calibrated) for c, find in zip(n, searched))
 
     meds3 = select.range_median_mad(x, s3, e3, False)[0]
     errs = []
@@ -744,7 +827,7 @@ def check_kernels(dev, card):
         "wdx_shift_rows", max(errs),
         lambda: window_gather.shift_rows(x, sA, A, full),
         lambda: window_gather.shift_rows_plain(x, sA, A, full),
-        int(full.clamp(max=A).sum()) * 4 + B * A * 4 + 2 * B * 4, 0,
+        *k5_work(full, A),
         library=lambda: torch.gather(x, 1, index),
     )
 
@@ -982,9 +1065,213 @@ def count_device_ops(step, args):
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def count_step_ops(steps):
-    """Device operations a step of each path on phase 3's rows. Run last:
-    once the profiler has been attached, every launch costs the host more."""
+@contextlib.contextmanager
+def captured_kernel_calls():
+    """Inside, every call of the live lane's five kernel wrappers is
+    recorded as {launch-count key: (wrapper, args, plain version)}: the
+    arguments the lane program gives each kernel."""
+    from warpdemux_tpu_torch.models import dtw_svm
+    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, window_gather
+
+    sites = (  # (module that calls it, name there, key, plain version)
+        (fingerprint, "shift_rows", "wdx_shift_rows", window_gather.shift_rows_plain),
+        (normalize, "range_median_mad", "wdx_range_median_mad", select.range_median_mad_plain),
+        (segmentation, "windowed_t_test", "wdx_ttest", segmentation.windowed_t_test_plain),
+        (peaks, "suppress_by_distance", "wdx_suppress", peaks.suppress_by_distance_plain),
+        (dtw_svm, "dtw_distance_matrix", "wdx_dtw", dtw.dtw_distance_matrix_plain),
+    )
+    calls = {}
+
+    def recorder(fn, key, plain):
+        def call(*args):  # every lane call site passes its arguments by position
+            calls[key] = (fn, args, plain)
+            return fn(*args)
+        return call
+
+    saved = [(module, name, getattr(module, name)) for module, name, _, _ in sites]
+    for module, name, key, plain in sites:
+        setattr(module, name, recorder(getattr(module, name), key, plain))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def lane_kernel_work(key, args):
+    """(bytes, operations) of one lane kernel call, from its arguments."""
+    if key == "wdx_shift_rows":
+        _, _, out_len, lengths = args
+        return k5_work(lengths, out_len)
+    if key == "wdx_range_median_mad":
+        x, starts, ends = args[:3]
+        return k4_work(starts, ends, x.shape[1], (True,), True, False)
+    if key == "wdx_ttest":
+        x, n_valid, w, _ = args
+        return k2_work(n_valid, w, x.shape[1])
+    if key == "wdx_suppress":
+        return k3_work(args[1], args[2])
+    X, Y = args[:2]
+    return k1_work(X.shape[0], Y.shape[0], X.shape[1], args[2])
+
+
+def run_live_lane(dev, card):
+    """Phase 6: the live read-until lane on the card. Returns the launch
+    counts of one micro-batch of the lane program, and that program (B=16,
+    the reads' own bucket) as a function of no argument."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.live.balancer import BalancerConfig, BarcodeBalancers
+    from warpdemux_tpu_torch.live.dummy import DummyClient, synth_barcoded_read
+    from warpdemux_tpu_torch.live.session import Session, SessionConfig
+    from warpdemux_tpu_torch.models.registry import load_model
+
+    models = {"gpu": load_model(MODEL, dev), "cpu": load_model(MODEL, "cpu")}
+    reads = live_lane_reads(models["cpu"].X_sv.numpy())
+    # the bucket the cut reads fall in; K5 is also timed at the ladder's ends
+    natural = next(b for b in Session._LEN_BUCKETS if b >= max(cut.size for _, cut in reads))
+    timed = (Session._LEN_BUCKETS[0], natural, Session._LEN_BUCKETS[-1])
+    save = tempfile.TemporaryDirectory()
+
+    def session(where, max_batch, client=None, **kw):
+        cfg = SessionConfig(model_name=MODEL, save_path=save.name, run_id=f"{where}{max_batch}",
+                            max_batch=max_batch, **kw)
+        balancers = BarcodeBalancers.from_configs(
+            4, [BalancerConfig(balance_type="adapter_count")], [1.0], n_channels=126)
+        return Session(client, cfg, balancers, model=models[where], device=dev if where == "gpu" else "cpu")
+
+    def by_read(lane):  # each read's (kept, prediction), the packed rows mapped back
+        pred = np.full(lane.ok.shape, -2, np.int32)
+        pred[lane.ok] = lane.pred[: int(lane.ok.sum())]
+        return lane.ok, pred
+
+    # 6a. the lane program, every read in every bucket, GPU against CPU;
+    # the first micro-batch's launch counts are the path's
+    one_batch = None
+    calls = {}
+    for max_batch in (32, 16):
+        gpu, cpu = session("gpu", max_batch), session("cpu", max_batch)
+        for bucket in Session._LEN_BUCKETS:
+            same = n = 0
+            conf_err = 0.0
+            for rows in live_bucket_batches(reads, bucket, max_batch):
+                _cuda.reset_launches()
+                with captured_kernel_calls() as captured:
+                    got = gpu._classify_on_device(rows)
+                torch.cuda.synchronize()
+                launches = dict(_cuda.launches)
+                require(launches == dict(zip(KERNELS, LAUNCHES["live_lane"])),
+                        f"live lane B={max_batch} L={bucket}: launches {launches}, want {LAUNCHES['live_lane']}")
+                one_batch = one_batch or launches
+                if bucket in timed:
+                    calls.setdefault((max_batch, bucket), captured)
+                want = cpu._classify_on_device(rows)
+                (g_ok, g_pred), (c_ok, c_pred) = by_read(got), by_read(want)
+                same += int(((g_ok == c_ok) & (g_pred == c_pred)).sum())
+                n += len(rows)
+                both = g_ok & c_ok
+                if both.any():
+                    g_conf, c_conf = np.zeros(len(rows), np.float32), np.zeros(len(rows), np.float32)
+                    g_conf[g_ok], c_conf[c_ok] = got.conf[: int(g_ok.sum())], want.conf[: int(c_ok.sum())]
+                    conf_err = max(conf_err, float(np.abs(g_conf - c_conf)[both].max()))
+            print(f"live lane B={max_batch} L={bucket}: rows agreeing GPU vs CPU on (ok, pred) {same}/{n}; "
+                  f"max |conf gpu - cpu| = {conf_err!r}")
+            require(same >= n - 1, f"live lane B={max_batch} L={bucket}: GPU and CPU disagree")
+        gpu.reporter.close()
+        cpu.reporter.close()
+    print(f"launches of one micro-batch of the live lane: {one_batch}")
+
+    # 6b. the five kernels at the lane's shapes, held against their plain
+    # versions; then the lane program as a whole
+    for (max_batch, bucket), captured in sorted(calls.items()):
+        require(set(captured) == {k for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n},
+                f"live lane: captured {sorted(captured)}")
+        for key, (fn, args, plain) in captured.items():
+            if key == "wdx_shift_rows" or bucket == natural:  # only K5's shape depends on L
+                k, p = fn(*args), plain(*args)
+                k = k[0] if key == "wdx_ttest" else k
+                err = max(max_abs(a, b) for a, b in zip(k, p)) if key == "wdx_range_median_mad" else max_abs(k, p)
+                require(err == 0.0, f"live lane {KERNELS[key][0]} B={max_batch} L={bucket}: max_abs_err {err}")
+                ms, device_ms = time_ms(lambda: fn(*args)), time_ms(lambda: fn(*args), queued=True)
+                bound_ms, bound_by = bound(*lane_kernel_work(key, args))
+                print(f"live lane {KERNELS[key][0]} B={max_batch} L={bucket}: max_abs_err={err!r} kernel_ms={ms!r} "
+                      f"device_ms={device_ms!r} bound_ms={bound_ms!r} by {bound_by} "
+                      f"share={bound_ms / device_ms!r} on {card}")
+    for max_batch in (16, 32):
+        gpu = session("gpu", max_batch)
+        for bucket in Session._LEN_BUCKETS:
+            rows = live_bucket_batches(reads, bucket, max_batch)[0]
+            gpu._classify_on_device(rows)
+            lanes, t0 = [], time.perf_counter()
+            for _ in range(10):
+                lanes.append(gpu._classify_on_device(rows))
+            ms = (time.perf_counter() - t0) / 10 * 1e3
+            fp = sum(lane.seconds_fingerprint for lane in lanes) / 10 * 1e3
+            cls = sum(lane.seconds_classify for lane in lanes) / 10 * 1e3
+            print(f"live lane program B={max_batch} L={bucket}: {ms!r} ms a micro-batch as called (signals to fetched "
+                  f"decisions); on the stream: fingerprint {fp!r} ms, pack and classify {cls!r} ms on {card}")
+        gpu.reporter.close()
+
+    # 6c. a whole session on the replay client, as tools/live_latency.py
+    # runs one (four classifier threads), and again with one classifier
+    # thread: the decision latency, and no classifier thread may raise
+    rng = np.random.default_rng(5)
+    X_sv = models["cpu"].X_sv.numpy()
+    signals = [synth_barcoded_read(rng, X_sv[rng.integers(0, len(X_sv))]) for _ in range(48)]
+    for threads in (4, 1):
+        client = DummyClient(n_reads=400, chunk_size=1500, seed=7, signals=signals, n_channels=126,
+                             chunk_period_s=0.1, stagger_s=4.0)
+        live = session("gpu", 16, client, check_real_range=False, batch_wait_s=0.005,
+                       nproc_classification=threads)
+        raised = []
+        hook, threading.excepthook = threading.excepthook, raised.append
+        try:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            live.run(batch_size=64)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(_cuda.launches)
+        finally:
+            threading.excepthook = hook
+        name = f"live session, {threads} classifier thread{'s' if threads > 1 else ''}"
+        require(not raised, f"{name}: a classifier thread raised: {[(a.thread.name, a.exc_value) for a in raised]}")
+        print(f"launches in the {name}: {launches}")
+        counts = [launches[k] for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n]
+        require(min(counts) > 0 and len(set(counts)) == 1, f"{name}: K1-K5 not launched once a micro-batch")
+        require(all(launches[k] == 0 for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if not n), f"{name}: K6-K9 ran")
+        delivered = {r.read_id for r in client._reads if r.delivered}
+        decided = set(client.stopped) | set(client.unblocked)
+        require(delivered <= decided, f"{name}: {len(delivered - decided)} delivered reads got no decision")
+        summary = live.reporter.counters.summary()
+        reported = sum(summary["accept"].values()) + sum(summary["reject"].values())
+        classified = summary["accept"]["classified"] + summary["reject"]["classified"]
+        print(f"{name}: {len(delivered)} reads delivered, {reported} reported, {classified} classified, "
+              f"{counts[0]} micro-batches (6 of them the warm-up), wall {wall!r} s; counters {summary}")
+        require(classified >= 0.3 * reported, f"{name}: fewer than 30% of reads classified")
+        pct = live.reporter.latency_percentiles()
+        for stage, v in pct.items():
+            print(f"{name} {stage}: n={v['n']} p50={v['p50'] * 1e3!r} p90={v['p90'] * 1e3!r} "
+                  f"p99={v['p99'] * 1e3!r} max={v['max'] * 1e3!r} ms on {card}")
+        p99 = pct["total"]["p99"]
+        print(f"{name}: p99 decision latency {p99 * 1e3!r} ms {'within' if p99 <= 0.1 else 'over'} "
+              f"one 100 ms chunk period on {card}")
+    lane = session("gpu", 16)
+    lane.reporter.close()
+    save.cleanup()
+    rows = live_bucket_batches(reads, natural, 16)[0]
+    return one_batch, lambda: lane._classify_on_device(rows)
+
+
+def count_step_ops(steps, lane_program):
+    """Device operations a step of each path on phase 3's rows, and of one
+    micro-batch of the live lane. Run last: once the profiler has been
+    attached, every launch costs the host more."""
     import numpy as np
 
     from bench import synth_minibatch
@@ -995,6 +1282,9 @@ def count_step_ops(steps):
         n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
         print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE[path]} before this kernel round)")
+    n_ops = count_device_ops(lane_program, ())
+    require(n_ops > 0, "live lane: the profiler recorded no device operation")
+    print(f"live lane program, B=16: {n_ops} device operations a micro-batch")
 
 
 def run_main_paths(dev, steps):
@@ -1107,11 +1397,12 @@ def main() -> int:
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
     time_throughput(steps, card)
-    count_step_ops(steps)
+    by_path["live_lane"], lane_program = run_live_lane(dev, card)
+    count_step_ops(steps, lane_program)
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        counts = {path: by_path[path][key] for path in PATHS}
+        counts = {path: by_path[path][key] for path in (*PATHS, "live_lane")}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -22,12 +22,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    LAUNCHES,
     k2_edge_cases,
     k3_edge_cases,
     k4_edge_cases,
     k5_edge_cases,
     k7_edge_cases,
     k8_edge_cases,
+    live_bucket_batches,
+    live_lane_reads,
 )
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
@@ -506,3 +509,33 @@ def test_decision_step_gpu_matches_cpu(dev):
     for name in ("success", "fail_code", "pred"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     torch.testing.assert_close(gpu.probs.cpu(), cpu.probs, rtol=1e-5, atol=1e-6)
+
+
+def _lane_session(device, max_batch, tmp_path):
+    from warpdemux_tpu_torch.live.balancer import BalancerConfig, BarcodeBalancers
+    from warpdemux_tpu_torch.live.session import Session, SessionConfig
+    from warpdemux_tpu_torch.models.registry import load_model
+
+    cfg = SessionConfig(model_name=MODEL, save_path=str(tmp_path), run_id=str(device), max_batch=max_batch)
+    balancers = BarcodeBalancers.from_configs(4, [BalancerConfig()], [1.0], n_channels=4)
+    return Session(None, cfg, balancers, model=load_model(MODEL, device), device=device)
+
+
+@pytest.mark.parametrize("max_batch", [16, 32])
+@pytest.mark.parametrize("bucket", [2048, 12288])
+def test_live_lane_gpu_matches_cpu(dev, tmp_path, bucket, max_batch):
+    """The live lane program on the card against the CPU lane: one launch
+    of each of K5, K4, K2, K3 and K1 a micro-batch, none of K6-K9."""
+    gpu, cpu = _lane_session(dev, max_batch, tmp_path), _lane_session("cpu", max_batch, tmp_path)
+    reads = live_lane_reads(load_model_arrays(MODEL)["X_sv"], n=32)
+    for signals in live_bucket_batches(reads, bucket, max_batch):
+        _cuda.reset_launches()
+        got = gpu._classify_on_device(signals)
+        assert tuple(_cuda.launches.values()) == LAUNCHES["live_lane"], _cuda.launches
+        want = cpu._classify_on_device(signals)
+        n = len(signals)
+        assert (got.ok == want.ok).sum() >= n - 1
+        kept = int(want.ok.sum())
+        assert (got.pred[:kept] == want.pred[:kept]).sum() >= kept - 1
+        if np.array_equal(got.ok, want.ok):
+            np.testing.assert_allclose(got.conf[:kept], want.conf[:kept], rtol=1e-5, atol=1e-6)

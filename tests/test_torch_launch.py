@@ -75,3 +75,98 @@ def test_a_cuda_error_raises_and_is_not_counted(library):
     with pytest.raises(RuntimeError, match="wdx_dtw: CUDA launch failed with error 9"):
         _cuda.launch("wdx_dtw", torch.device("cuda", 0))
     assert _cuda.launches["wdx_dtw"] == 0
+
+
+# ---- several threads (the live lane's classifier threads) ------------------
+
+def _at_once(n, fn):
+    """Run fn(i) in n threads released together; re-raise the first error."""
+    import threading
+
+    barrier, errors = threading.Barrier(n), []
+
+    def run(i):
+        try:
+            barrier.wait(timeout=10)
+            fn(i)
+        except BaseException as e:  # recorded and re-raised in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+
+
+def test_library_is_built_and_loaded_once_from_eight_threads(monkeypatch, tmp_path):
+    import time
+
+    builds, loads = [], []
+
+    def compile_library(sources, out, defines=()):
+        builds.append(out)
+        time.sleep(0.2)  # long enough for every thread to ask meanwhile
+        out.write_bytes(b"")
+
+    class _CDLL:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, name):
+            fn = lambda *args: 0  # noqa: E731
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_cuda, "compile_library", compile_library)
+    monkeypatch.setattr(_cuda.ctypes, "CDLL", _CDLL)
+    monkeypatch.setattr(_cuda, "_libraries", {})
+    got = []
+    _at_once(8, lambda i: got.append(_cuda.library()))
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+
+
+def test_concurrent_builds_name_their_objects_apart(monkeypatch, tmp_path):
+    """Two threads of one process compiling into the same library path
+    write different object files."""
+    import threading
+
+    objects, lock = [], threading.Lock()
+
+    class _Compiler:
+        returncode = 1
+
+        def __init__(self, args, **kw):
+            with lock:
+                objects.append(args[args.index("-o") + 1])
+            self.args = args
+
+        def communicate(self):
+            return ("refused",)
+
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_cuda.subprocess, "Popen", _Compiler)
+
+    def compile_once(i):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _cuda.compile_library(["a.cu", "b.cu"], tmp_path / "lib.so")
+
+    _at_once(2, compile_once)
+    assert len(objects) == 4 and len(set(objects)) == 4
+
+
+def test_launch_counts_lose_nothing_across_threads(library):
+    import sys
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _at_once(16, lambda i: [_cuda.launch("wdx_dtw", torch.device("cuda", 0)) for _ in range(2000)])
+    finally:
+        sys.setswitchinterval(switch)
+    assert _cuda.launches["wdx_dtw"] == 16 * 2000

@@ -32,11 +32,18 @@ def test_module_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# what the GPU host lacks: jax and the JAX package, and the optional
+# dependencies of the pod5 reader, the CSV writers and the MinKNOW client
+ABSENT = ("jax", "warpdemux_tpu", "pyarrow", "pandas", "zstandard", "minknow_api")
+
+
 def test_package_loads_without_jax():
+    """Every module imports with those blocked; the step and a live session
+    on the replay client build."""
     code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['warpdemux_tpu'] = None\n"
+        "import sys, tempfile\n"
+        f"for name in {ABSENT!r}:\n"
+        "    sys.modules[name] = None\n"
         "import pkgutil, importlib, warpdemux_tpu_torch\n"
         "for m in pkgutil.walk_packages(warpdemux_tpu_torch.__path__, 'warpdemux_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -44,6 +51,19 @@ def test_package_loads_without_jax():
         "from warpdemux_tpu_torch.models.registry import load_model\n"
         "from warpdemux_tpu_torch.pipeline.step import make_demux_step\n"
         "make_demux_step(load_model('WDX4_rna004_v1_0', 'cpu'), get_model_spc_config('WDX4_rna004_v1_0'), device='cpu')\n"
+        "from warpdemux_tpu_torch.live.balancer import BalancerConfig, BarcodeBalancers\n"
+        "from warpdemux_tpu_torch.live.dummy import DummyClient\n"
+        "from warpdemux_tpu_torch.live.session import Session, SessionConfig\n"
+        "session = Session(DummyClient(n_reads=2), SessionConfig(save_path=tempfile.mkdtemp()),\n"
+        "                  BarcodeBalancers.from_configs(4, [BalancerConfig()], [1.0]), device='cpu')\n"
+        "session.reporter.close()\n"
+        "from warpdemux_tpu_torch.live.read_until import minknow_transport\n"
+        "try:\n"
+        "    minknow_transport()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'minknow_api is required' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('minknow_transport ran without minknow_api')\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -143,3 +143,34 @@ def test_xla_rsqrt_is_within_two_ulp_of_the_rounded_rsqrt_and_not_it():
     ulps = (got.view(torch.int32) - exact.view(torch.int32)).abs()
     assert int(ulps.max()) <= 2
     assert 0.02 < float((ulps > 0).float().mean()) < 0.5
+
+
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, 111, 1000, 6272, 10000, 12288])
+def test_xla_sum_matches_jitted_jnp_sum(width):
+    """A float32 row sum in XLA:CPU's tree of 32-wide sequential windows,
+    with zeros, signed zeros and values of mixed magnitude."""
+    from warpdemux_tpu_torch.ops.numerics import xla_sum
+
+    rng = np.random.default_rng(width)
+    x = (rng.normal(80, 12, (7, width)) * rng.choice([1, 1e-3, 1e3], (7, width))).astype(np.float32)
+    x[1] = 0.0
+    x[2] = -0.0
+    x[3, ::3] = -x[3, ::3]
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=1))(x))
+    got = xla_sum(torch.from_numpy(x)).numpy()
+    assert _same_bits(got, want).all()
+
+
+@pytest.mark.parametrize("width", [33, 111, 121, 200])
+def test_mean_std_matches_jitted_masked_mean_std_over_all_lanes(width):
+    """The fingerprint's event mean and std (111 events, 121 for tRNA):
+    under an all-true mask XLA folds the count and multiplies by its
+    reciprocal."""
+    from warpdemux_tpu.ops.normalize import masked_mean_std
+    from warpdemux_tpu_torch.ops.normalize import mean_std
+
+    x = np.random.default_rng(width).normal(78, 8, (64, width)).astype(np.float32)
+    want = jax.jit(lambda a: masked_mean_std(a, jnp.ones(a.shape, bool)))(x)
+    got = mean_std(torch.from_numpy(x))
+    for g, w in zip(got, want):
+        assert _same_bits(g.numpy(), np.asarray(w)).all()

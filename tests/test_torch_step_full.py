@@ -129,6 +129,22 @@ def test_vbz_full_step_matches_jax_column_by_column(outputs):
     assert np.all(schema.unpack(gf, np.float32)["rna_std"][:64] > 0)
 
 
+def test_fingerprint_columns_equal_jax_bit_for_bit(outputs):
+    """Within the atol above, and in fact equal: the fingerprint's sums take
+    XLA:CPU's order (ops/numerics.xla_sum, ops/normalize.mean_std)."""
+    from warpdemux_tpu.pipeline.schema import PackSchema as JaxSchema
+    from warpdemux_tpu_torch.pipeline.schema import PackSchema
+
+    got, want = outputs
+    gi, gf = got.big_i.numpy(), got.big_f.numpy()
+    wi, wf = np.asarray(want.big_i), np.asarray(want.big_f)
+    ok = JaxSchema.from_buffers(wi, wf).unpack(wi, np.int32)["fpt_ok"] == 1
+    gcols = PackSchema.from_buffers(gi, gf).unpack(gf, np.float32)
+    wcols = JaxSchema.from_buffers(wi, wf).unpack(wf, np.float32)
+    for name in FPT_F:
+        np.testing.assert_array_equal(gcols[name][ok], wcols[name][ok], err_msg=name)
+
+
 def test_unpack_gives_the_jax_field_set(outputs):
     got, want = outputs
     g, w = got.unpack(), want.unpack()

@@ -23,6 +23,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -71,11 +72,16 @@ defines: tuple[str, ...] = ()
 
 _libraries: dict[tuple, ctypes.CDLL] = {}  # by the defines they were built with
 _entry_points: dict[tuple, object] = {}  # by (defines, name): resolved once, not per launch
+# the live lane calls the kernels from several threads: one builds and loads
+# the library while the others wait, and no count is lost
+_library_lock = threading.Lock()
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -118,7 +124,7 @@ def compile_library(sources, out: Path, defines=()) -> None:
     to `<out>.log` before the library appears."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    stem = f"{out.name}.{os.getpid()}"
+    stem = f"{out.name}.{os.getpid()}.{threading.get_ident()}"
     objects = [out.with_name(f"{stem}.{Path(src).stem}.o") for src in sources]
     procs = [
         subprocess.Popen(
@@ -183,15 +189,18 @@ def build(defines=()) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built with the module's `defines`."""
-    if defines not in _libraries:
-        lib = ctypes.CDLL(str(build(defines)))
-        for name, argtypes in {**SIGNATURES, **PROBES}.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [*argtypes, _P]
-            fn.restype = ctypes.c_int
-        _libraries[defines] = lib
-    return _libraries[defines]
+    """The loaded kernel library, built with the module's `defines`; built
+    and loaded once however many threads ask at the same time."""
+    key = defines
+    with _library_lock:
+        if key not in _libraries:
+            lib = ctypes.CDLL(str(build(key)))
+            for name, argtypes in {**SIGNATURES, **PROBES}.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [*argtypes, _P]
+                fn.restype = ctypes.c_int
+            _libraries[key] = lib
+        return _libraries[key]
 
 
 def _raw_stream(index: int) -> int:
@@ -222,7 +231,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     if name in launches:
-        launches[name] += 1
+        with _launches_lock:
+            launches[name] += 1
 
 
 def empty_launch(device: torch.device, blocks: int, threads: int) -> None:

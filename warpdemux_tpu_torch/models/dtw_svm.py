@@ -9,6 +9,7 @@ whole minibatch at once.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -54,6 +55,10 @@ class DTWSVMModel(nn.Module):
             self.coef, self.intercept, self.probA, self.probB, self.n_classes
         )
 
+    @property
+    def fingerprint_len(self) -> int:
+        return int(self.X_sv.shape[1])
+
     def forward(self, fpts: torch.Tensor):
         """(B, m) fingerprints -> (pred (B,) int32, conf (B,), probs (B, k))."""
         D = dtw_distance_matrix(fpts, self.X_sv, self.window, self.penalty)
@@ -61,3 +66,12 @@ class DTWSVMModel(nn.Module):
         probs = svm_ops.predict_proba(K, self.params)
         pred, conf = svm_ops.process_probs(probs, self.label_map, self.thresholds)
         return pred, conf, probs
+
+    def predict(self, fpts) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Classify numpy fingerprints on the model's device; returns numpy
+        (pred_labels, confidence, probs), as the JAX model's `predict`."""
+        fpts = torch.as_tensor(np.asarray(fpts, np.float32), device=self.X_sv.device)
+        if fpts.ndim == 1:
+            fpts = fpts[None]
+        pred, conf, probs = self(fpts)
+        return pred.cpu().numpy(), conf.cpu().numpy(), probs.cpu().numpy()

@@ -22,8 +22,8 @@ from warpdemux_tpu_torch.config.sig_proc import FingerprintConfig
 from warpdemux_tpu_torch.ops.normalize import (
     clip_outliers_prefix,
     masked_mad,
-    masked_mean_std,
     masked_median,
+    mean_std,
 )
 from warpdemux_tpu_torch.ops.segmentation import segment_signal_batch
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
@@ -92,7 +92,7 @@ def fingerprints_from_boundaries(
 
     # normalize event means over ALL events, keep the last
     # barcode_num_events as the fingerprint
-    ev_mean, ev_std = masked_mean_std(means, all_mask)
+    ev_mean, ev_std = mean_std(means)
     norm_ok = ev_std > 0
     norm_means = (means - ev_mean[:, None]) / torch.where(
         norm_ok, ev_std, torch.ones_like(ev_std)

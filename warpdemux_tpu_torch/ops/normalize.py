@@ -9,8 +9,10 @@ JAX package's radix-select result bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from warpdemux_tpu_torch.ops.numerics import exact_sqrt, xla_sum
 from warpdemux_tpu_torch.ops.select import range_median_mad
 
 
@@ -41,6 +43,19 @@ def masked_mean_std(x: torch.Tensor, mask: torch.Tensor):
     mean = _sum(torch.where(mask, x, zero)) / safe_n
     d = torch.where(mask, x - mean[..., None], zero)
     return mean, torch.sqrt(_sum(d * d) / safe_n)
+
+
+def mean_std(x: torch.Tensor):
+    """(mean, population std) over every lane of the last axis, with the
+    bits of the jitted JAX `masked_mean_std` under an all-true mask: the
+    sums in XLA's order (`xla_sum`), and the count folded, so that XLA
+    multiplies by its float32 reciprocal where it would divide. For rows
+    longer than 32 (a fingerprint's 111 or 121 events): in a shorter row
+    XLA also contracts the sum of squares into fused multiply-adds."""
+    inv_n = float(np.float32(1) / np.float32(max(x.shape[-1], 1)))
+    mean = xla_sum(x) * inv_n
+    d = x - mean[..., None]
+    return mean, exact_sqrt(xla_sum(d * d) * inv_n)
 
 
 def _sum(a: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,10 @@ device's summation order and contraction choices:
 - `blocked_cumsum`: XLA:CPU lowers a float32 cumsum to a blocked scan:
   sequential sums inside blocks of 16 samples, the block totals scanned the
   same way recursively, each block's exclusive offset added last.
+- `xla_sum`: XLA:CPU rewrites a float32 row sum longer than 32 into a
+  tree: sequential sums over windows of 32 (the row zero-padded to whole
+  windows, half the padding in front), the window sums summed the same
+  way, until 32 or fewer are left, which are summed in order.
 - `fma`: XLA:CPU contracts a*b + c into one fused multiply-add (a single
   rounding) where the expression allows it, e.g. s2/n - mean*mean.
 - `exact_sqrt`: XLA's float32 sqrt is correctly rounded; PyTorch's
@@ -57,6 +61,31 @@ def _sequential_cumsum(a: torch.Tensor) -> torch.Tensor:
     for j in range(1, a.shape[-1]):
         cols.append(cols[-1] + a[..., j])
     return torch.stack(cols, dim=-1)
+
+
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_sum(a: torch.Tensor) -> torch.Tensor:
+    """float32 sum along the last dim with the bits of a jitted `jnp.sum`
+    (a row of one is itself: XLA drops the initial zero, and keeps -0.0)."""
+    if a.shape[-1] == 1:
+        return a[..., 0]
+    while a.shape[-1] > XLA_REDUCE_WINDOW:
+        d = a.shape[-1]
+        windows = -(-d // XLA_REDUCE_WINDOW)
+        pad = windows * XLA_REDUCE_WINDOW - d
+        a = torch.nn.functional.pad(a, (pad // 2, pad - pad // 2))
+        a = _sequential_sum(a.reshape(*a.shape[:-1], windows, XLA_REDUCE_WINDOW))
+    return _sequential_sum(a)
+
+
+def _sequential_sum(a: torch.Tensor) -> torch.Tensor:
+    """0 + a[..., 0] + a[..., 1] + ... along the last dim, one add each."""
+    acc = a[..., 0] + 0.0
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., j]
+    return acc
 
 
 def prefix_sums(a: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from warpdemux_tpu_torch import _cuda
-from warpdemux_tpu_torch.ops.numerics import prefix_sums, rsqrt_table, xla_rsqrt
+from warpdemux_tpu_torch.ops.numerics import prefix_sums, rsqrt_table, xla_rsqrt, xla_sum
 from warpdemux_tpu_torch.ops.peaks import find_peaks_batch, select_top_peaks
 
 
@@ -96,14 +96,15 @@ def windowed_t_test(x, n_valid, w, w_max: int):
 def segment_means(x, boundaries, n_valid) -> torch.Tensor:
     """Mean of x between consecutive boundaries (B, E+1) -> (B, E).
 
-    The centering sum and the prefix sum accumulate in float64 and round
-    to float32, so CPU and CUDA give the same sums."""
+    The centering sum and the prefix sum take XLA:CPU's float32 order
+    (`xla_sum`, `blocked_cumsum`), so CPU and CUDA give the JAX package's
+    sums."""
     B, L = x.shape
     pos = torch.arange(L, device=x.device)[None, :]
     valid = pos < n_valid[:, None]
     zero = torch.zeros_like(x)
     nf = torch.clamp_min(n_valid, 1).to(x.dtype)
-    center = torch.where(valid, x, zero).sum(1, dtype=torch.float64).to(x.dtype) / nf
+    center = xla_sum(torch.where(valid, x, zero)) / nf
     xc = torch.where(valid, x - center[:, None], zero)
     cpad = prefix_sums(xc)
     b = boundaries.clamp(0, L).to(torch.int64)
