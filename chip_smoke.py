@@ -91,6 +91,23 @@ Phases (each raises on failure; nothing is caught):
       or more classified, no classifier thread raised; the decision
       latency's percentiles are printed.
 
+7. The offline run loop (pipeline/run.demux_minibatches, the loop behind
+   `python -m warpdemux_tpu_torch.cli demux`) on phase 4's four
+   minibatches, the last cut to 617 rows (3,617 reads, uuid read ids), in
+   three runs with batch_size_output 1500: a. the vbz wire, predictions
+   only (the CLI's default run); b. the adc wire, predictions only; c. the
+   vbz wire, prep (boundaries and fingerprints). Each run must account
+   for every read once (predictions or boundaries, or failed_reads),
+   count 3,617 reads, write fingerprint rows equal to its boundary rows
+   and launch each kernel its step's count x 4; runs a and b must write
+   equal CSV text, and run a must agree with a CPU run of the loop on the
+   first 256 reads (barcode and fail reason on 255 or more, the confidence
+   within 0.001). Each run's reads/s (host clock, call to return) is
+   printed beside phase 4's step rate, and run a is timed again on eight
+   minibatches (the loop's cost a minibatch beyond its fixed cost); phase
+   5 prints the device's busy time in run a against run a's time. Runs
+   after phase 4, before phase 6.
+
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -135,7 +152,15 @@ DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1
 # launches a step of each path, in KERNELS' order (K1 .. K9)
 LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0),
             "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0)}  # one micro-batch of the lane program
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0),  # one micro-batch of the lane program
+            # the offline run loop's steps (phase 7): the vbz decode is torch
+            # ops, and prep classifies nothing
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0)}
+# phase 7's runs: name -> (wire, prep, step path of LAUNCHES, phase 4's path printed beside it)
+OFFLINE_RUNS = {"offline_vbz_decision": ("vbz", False, "vbz_decision", "adc_decision"),
+                "offline_adc_decision": ("adc", False, "adc_decision", "adc_decision"),
+                "offline_vbz_prep": ("vbz", True, "vbz_prep", "vbz_full")}
+OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
 
 
 def time_ms(fn, reps=10, queued=False):
@@ -1268,10 +1293,30 @@ def run_live_lane(dev, card):
     return one_batch, lambda: lane._classify_on_device(rows)
 
 
-def count_step_ops(steps, lane_program):
+def device_busy_ms(fn):
+    """Milliseconds in which the device ran at least one operation during
+    fn(), as torch.profiler records them (overlapping operations counted
+    once)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def count_step_ops(steps, lane_program, offline_run):
     """Device operations a step of each path on phase 3's rows, and of one
-    micro-batch of the live lane. Run last: once the profiler has been
-    attached, every launch costs the host more."""
+    micro-batch of the live lane; the device's busy time in phase 7's run
+    a. Run last: once the profiler has been attached, every launch costs
+    the host more."""
     import numpy as np
 
     from bench import synth_minibatch
@@ -1285,6 +1330,11 @@ def count_step_ops(steps, lane_program):
     n_ops = count_device_ops(lane_program, ())
     require(n_ops > 0, "live lane: the profiler recorded no device operation")
     print(f"live lane program, B=16: {n_ops} device operations a micro-batch")
+    run, wall_ms = offline_run
+    busy = device_busy_ms(run)
+    require(busy > 0, "offline run: the profiler recorded no device operation")
+    print(f"offline_vbz_decision run: the device busy {busy!r} ms of the unprofiled run's {wall_ms!r} ms "
+          f"(idle share {1 - busy / wall_ms!r})")
 
 
 def run_main_paths(dev, steps):
@@ -1373,6 +1423,179 @@ def time_throughput(steps, card):
     return rates
 
 
+def offline_config(out, wire, prep, batch_size=B):
+    """The run configuration of phase 7's runs (the CLI's demux / prep)."""
+    from warpdemux_tpu_torch.config import config as c
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+
+    return c.Config(
+        c.InputConfig(),
+        c.OutputConfig(output_dir=str(out), save_fpts=prep, save_boundaries=prep, save_predictions=not prep),
+        c.BatchConfig(minibatch_size=batch_size, batch_size_output=1500, wire=wire),
+        c.TaskConfig(command="prep" if prep else "demux", predict=not prep),
+        c.ClassifConfig(model_name=MODEL),
+        get_model_spc_config(MODEL),
+    )
+
+
+def offline_batches(adc_batches, read_ids, wire):
+    """The feed's tuples (`yield_vbz_batches` / `yield_adc_batches`) of
+    in-memory (adc, offset, scale, lengths) minibatches."""
+    out, k = [], 0
+    for adc, off, sc, lens in adc_batches:
+        ids = read_ids[k : k + len(adc)]
+        k += len(adc)
+        arrays = vbz_batch(adc, off, sc, lens) if wire == "vbz" else (adc, off, sc, lens)
+        out.append((*arrays, lens, ids))
+    return out
+
+
+def shard_rows(run, sub):
+    """The rows (header left out) of a run's CSV shards of one kind, in
+    shard order."""
+    import csv
+    import gzip
+    import re
+    from pathlib import Path
+
+    paths = sorted(Path(run, sub).glob("*.csv.gz"), key=lambda p: int(re.findall(r"(\d+)\.csv\.gz$", p.name)[0]))
+    rows = []
+    for path in paths:
+        with gzip.open(path, "rt", encoding="utf-8", newline="") as fh:
+            rows += list(csv.reader(fh))[1:]
+    return rows
+
+
+def shard_texts(run):
+    """{relative path: text} of a run's CSV shards."""
+    import gzip
+    from pathlib import Path
+
+    return {str(p.relative_to(run)): gzip.open(p, "rt").read() for p in sorted(Path(run).glob("*/*.csv.gz"))}
+
+
+def run_calls(run):
+    """{read_id: (barcode or None, confidence or None, fail_reason or None)}
+    of a predictions run."""
+    calls = {}
+    preds = shard_rows(run, "predictions")
+    for row in preds:
+        calls[row[0]] = (row[1], float(row[2]), None)
+    fails = shard_rows(run, "failed_reads")
+    for row in fails:
+        calls[row[0]] = (None, None, row[-1])
+    return calls
+
+
+def check_offline_run(run, stats, read_ids, prep):
+    """Every read once in predictions (boundaries for prep) or
+    failed_reads, RunStats counting them all, and for prep the fingerprint
+    rows equal to the boundary rows."""
+    import numpy as np
+    from pathlib import Path
+
+    passed = shard_rows(run, "boundaries" if prep else "predictions")
+    failed = shard_rows(run, "failed_reads")
+    ids = [r[0] for r in passed] + [r[0] for r in failed]
+    require(len(ids) == len(set(ids)), f"{run}: a read is written twice")
+    require(set(ids) == set(read_ids.tolist()), f"{run}: {len(set(read_ids.tolist()) - set(ids))} reads missing")
+    require(stats.total == len(read_ids), f"{run}: RunStats.total {stats.total}, want {len(read_ids)}")
+    require(stats.failed == len(failed), f"{run}: RunStats.failed {stats.failed} but {len(failed)} failed rows")
+    if prep:
+        fpt_ids = []
+        for path in sorted(Path(run, "fingerprints").glob("*.npz"), key=lambda p: int(p.stem.rsplit("_", 1)[1])):
+            with np.load(path, allow_pickle=True) as z:
+                fpt_ids += z["read_ids"].tolist()
+                require(z["signals"].shape == (len(z["read_ids"]), 25), f"{path.name}: signals shape")
+                require(bool(np.isfinite(z["signals"]).all()), f"{path.name}: non-finite fingerprints")
+        require(fpt_ids == [r[0] for r in passed], f"{run}: fingerprint rows differ from the boundary rows")
+
+
+def run_offline_loop(dev, card, step_rates):
+    """Phase 7: the offline run loop on the card, three runs, and run a
+    again on eight minibatches. Returns the launch counts of each run, and
+    (a function that runs run a again, run a's milliseconds) for phase 5."""
+    import tempfile
+    import uuid
+
+    import numpy as np
+    import torch
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.detect.boundaries import fused_rolling_default
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+
+    rng = np.random.default_rng(0)
+    adc_batches = [synth_minibatch(rng, B, L) for _ in range(4)]  # phase 4's batches
+    adc_batches[-1] = tuple(a[:OFFLINE_LAST_ROWS] for a in adc_batches[-1])
+    id_rng = np.random.default_rng(17)
+    n = sum(len(b[0]) for b in adc_batches)
+    read_ids = np.array([str(uuid.UUID(int=int.from_bytes(id_rng.bytes(16), "big"))) for _ in range(n)], object)
+    feeds = {wire: offline_batches(adc_batches, read_ids, wire) for wire in ("vbz", "adc")}
+    model = load_model(MODEL, dev)
+    by_run, dirs, seconds_by = {}, {}, []
+    tmp = tempfile.TemporaryDirectory()
+    for name, (wire, prep, path, beside) in OFFLINE_RUNS.items():
+        dirs[name] = f"{tmp.name}/{name}"
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        stats = demux_minibatches(offline_config(dirs[name], wire, prep), None if prep else model,
+                                  feeds[wire], device=dev)
+        seconds = time.perf_counter() - t0
+        seconds_by.append(seconds)
+        torch.cuda.synchronize()
+        by_run[name] = dict(_cuda.launches)
+        check_offline_run(dirs[name], stats, read_ids, prep)
+        per_step = list(LAUNCHES[path])
+        if fused_rolling_default():  # K9 for K6 and both K7
+            per_step[5:9] = [0, 0, per_step[7], 1]
+        want = {key: 4 * k for key, k in zip(KERNELS, per_step)}
+        print(f"launches in the {name} run: {by_run[name]}")
+        require(by_run[name] == want, f"{name}: launches differ from 4 x {per_step}")
+        rate = sum(step_rates[beside]) / len(step_rates[beside])
+        print(f"{name} run: {n / seconds!r} reads/s ({seconds!r} s for {n} reads: {stats.passed} pass, "
+              f"{stats.failed} fail, {stats.predicted} predicted) beside the {beside} step's {rate!r} "
+              f"reads/s (phase 4) on {card}")
+
+    # the loop's own cost a minibatch: run a again on twice the minibatches
+    more_ids = np.array([str(uuid.UUID(int=int.from_bytes(id_rng.bytes(16), "big"))) for _ in range(n)], object)
+    twice = feeds["vbz"] + offline_batches(adc_batches, more_ids, "vbz")
+
+    def run_a(batches, out):
+        t0 = time.perf_counter()
+        stats = demux_minibatches(offline_config(out, "vbz", False), model, batches, device=dev)
+        return stats, time.perf_counter() - t0
+
+    stats, seconds8 = run_a(twice, f"{tmp.name}/twice")
+    check_offline_run(f"{tmp.name}/twice", stats, np.concatenate([read_ids, more_ids]), False)
+    step_ms = B / (sum(step_rates["adc_decision"]) / 2) * 1e3
+    print(f"offline_vbz_decision run on 8 minibatches: {2 * n / seconds8!r} reads/s ({seconds8!r} s); "
+          f"{(seconds8 - seconds_by[0]) / 4 * 1e3!r} ms a minibatch more than on 4, against {step_ms!r} "
+          f"ms a step (phase 4); {(seconds_by[0] - 4 * step_ms / 1e3) * 1e3!r} ms of run a beyond 4 steps")
+
+    a, b = dirs["offline_vbz_decision"], dirs["offline_adc_decision"]
+    texts = shard_texts(a)
+    require(texts == shard_texts(b), "the adc and vbz wires wrote different CSV text")
+    print(f"offline runs a and b: {len(texts)} CSV shards, equal text")
+
+    # run a against a CPU run of the same loop on the first 256 reads
+    cpu_dir = f"{tmp.name}/cpu"
+    first = [tuple(x[:N_ROWS] for x in adc_batches[0])]
+    demux_minibatches(offline_config(cpu_dir, "vbz", False, N_ROWS), load_model(MODEL, "cpu"),
+                      offline_batches(first, read_ids[:N_ROWS], "vbz"), device="cpu")
+    gpu, cpu = run_calls(a), run_calls(cpu_dir)
+    ids = read_ids[:N_ROWS].tolist()
+    same = [i for i in ids if (gpu[i][0], gpu[i][2]) == (cpu[i][0], cpu[i][2])]
+    conf = max((abs(gpu[i][1] - cpu[i][1]) for i in same if gpu[i][1] is not None), default=0.0)
+    print(f"offline run a vs a CPU run, first {N_ROWS} reads: (barcode, fail reason) equal on "
+          f"{len(same)}/{N_ROWS}, max |confidence gpu - cpu| = {conf!r}")
+    require(len(same) >= N_ROWS - 1, "offline run: GPU and CPU calls disagree")
+    require(conf <= 0.001 + 1e-9, "offline run: a confidence differs by more than 0.001")
+    return by_run, (lambda: run_a(feeds["vbz"], tempfile.mkdtemp(dir=tmp.name)), seconds_by[0] * 1e3)
+
+
 def main() -> int:
     import torch
 
@@ -1396,13 +1619,15 @@ def main() -> int:
     results = check_kernels(dev, card)
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
-    time_throughput(steps, card)
+    step_rates = time_throughput(steps, card)
+    offline_counts, offline_run = run_offline_loop(dev, card, step_rates)
+    by_path.update(offline_counts)
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
-    count_step_ops(steps, lane_program)
+    count_step_ops(steps, lane_program, offline_run)
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        counts = {path: by_path[path][key] for path in (*PATHS, "live_lane")}
+        counts = {path: by_path[path][key] for path in (*PATHS, *OFFLINE_RUNS, "live_lane")}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -31,6 +31,8 @@ from chip_smoke import (  # noqa: E402
     k8_edge_cases,
     live_bucket_batches,
     live_lane_reads,
+    offline_batches,
+    offline_config,
 )
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
@@ -539,3 +541,33 @@ def test_live_lane_gpu_matches_cpu(dev, tmp_path, bucket, max_batch):
         assert (got.pred[:kept] == want.pred[:kept]).sum() >= kept - 1
         if np.array_equal(got.ok, want.ok):
             np.testing.assert_allclose(got.conf[:kept], want.conf[:kept], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("wire", ["vbz", "adc"])
+def test_offline_run_loop_gpu_writes_the_cpu_runs_files(dev, tmp_path, wire):
+    """pipeline/run.demux_minibatches at B=64 (100 reads: a full and a
+    padded minibatch) on the card against the CPU: the same shard files,
+    failed_reads equal as text, predictions row for row with confidence
+    and probabilities within one unit of their last decimal; each kernel
+    of the decision step launched twice."""
+    from test_torch_run_cli import same_failed_reads, same_predictions
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 100, 10000)
+    batches = [(adc[:64], off[:64], sc[:64], lens[:64]), (adc[64:], off[64:], sc[64:], lens[64:])]
+    ids = np.array([f"read{i:03d}" for i in range(100)], object)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        runs[where] = tmp_path / where
+        _cuda.reset_launches()
+        stats = demux_minibatches(
+            offline_config(runs[where], wire, False, 64), load_model(MODEL, dev if where == "cuda" else "cpu"),
+            offline_batches(batches, ids, wire), device=dev if where == "cuda" else "cpu",
+        )
+        assert stats.total == 100
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert tuple(_cuda.launches.values()) == tuple(2 * k for k in LAUNCHES["adc_decision"])
+    same_failed_reads(runs["cuda"], runs["cpu"])
+    same_predictions(runs["cuda"], runs["cpu"])

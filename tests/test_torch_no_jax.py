@@ -39,7 +39,9 @@ ABSENT = ("jax", "warpdemux_tpu", "pyarrow", "pandas", "zstandard", "minknow_api
 
 def test_package_loads_without_jax():
     """Every module imports with those blocked; the step and a live session
-    on the replay client build."""
+    on the replay client build; the offline run loop writes its CSVs and
+    the resume scan reads them back (the card drives the loop from
+    minibatches held in memory, without pyarrow, pandas or zstandard)."""
     code = (
         "import sys, tempfile\n"
         f"for name in {ABSENT!r}:\n"
@@ -64,6 +66,21 @@ def test_package_loads_without_jax():
         "    assert 'minknow_api is required' in str(e)\n"
         "else:\n"
         "    raise AssertionError('minknow_transport ran without minknow_api')\n"
+        "import numpy as np\n"
+        "from bench import synth_minibatch\n"
+        "from warpdemux_tpu_torch.cli import main\n"
+        "from warpdemux_tpu_torch.config import config as c\n"
+        "from warpdemux_tpu_torch.pipeline.resume import scan_processed_reads\n"
+        "from warpdemux_tpu_torch.pipeline.run import demux_minibatches\n"
+        "out = tempfile.mkdtemp()\n"
+        "cfg = c.Config(c.InputConfig(), c.OutputConfig(output_dir=out, save_boundaries=True),\n"
+        "               c.BatchConfig(minibatch_size=4, batch_size_output=2, wire='adc'), c.TaskConfig(),\n"
+        "               c.ClassifConfig(model_name='WDX4_rna004_v1_0'), get_model_spc_config('WDX4_rna004_v1_0'))\n"
+        "adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 3, 10000)\n"
+        "ids = np.array(['r0', 'r1', 'r2'], object)\n"
+        "stats = demux_minibatches(cfg, None, [(adc, off, sc, lens, lens, ids)], device='cpu')\n"
+        "assert stats.total == 3, stats\n"
+        "assert scan_processed_reads(out)[0] == {'r0', 'r1', 'r2'}\n"
         "print('ok')\n"
     )
     out = subprocess.run(

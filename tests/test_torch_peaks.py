@@ -164,3 +164,22 @@ def test_suppress_variant_follows_the_reach_and_the_shared_memory_limit(L, W, sh
     if shared_bytes:
         assert shared_bytes == 16 * -(-(3 * -(-L // 32) + 4) // 4) <= _cuda.MAX_SHARED_BYTES
         assert W <= peaks._SUPPRESS_MAX_REACH
+
+
+@pytest.mark.parametrize("L", [1024, 6271, 6272])
+def test_select_top_peaks_on_rows_short_of_peaks_matches_jax(L):
+    """Rows with fewer than k kept peaks (the fingerprint fails there) fill
+    their positions as JAX does: the later of each pair of -inf positions,
+    the latest pairs first. Those positions set the dwell-time statistics
+    that the failed_reads CSV carries."""
+    rng = np.random.default_rng(L)
+    B, k = 6, 110
+    s = _scores(rng, B, L, False)
+    keep = np.zeros((B, L), bool)
+    for r, n_peaks in enumerate((0, 1, 5, 40, 109, 0)):
+        keep[r, rng.choice(L // 2, n_peaks, replace=False) * 2] = True
+    cnt = keep.sum(1).astype(np.int32)
+    got, ok = peaks.select_top_peaks(torch.from_numpy(s), torch.from_numpy(keep), torch.from_numpy(cnt), k)
+    want, wok = jax_peaks.select_top_peaks(jnp.asarray(s), jnp.asarray(keep), jnp.asarray(cnt), k)
+    assert not np.asarray(wok).any() and not ok.numpy().any()
+    np.testing.assert_array_equal(np.sort(got.numpy(), 1), np.sort(np.asarray(want), 1))

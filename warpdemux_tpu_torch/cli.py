@@ -1,0 +1,332 @@
+"""Command-line interface of the PyTorch port: demux / prep / predict /
+continue.
+
+    python -m warpdemux_tpu_torch.cli demux -i <pod5s> -o <dir> -m WDX4_rna004_v1_0
+
+The command surface of warpdemux_tpu/cli.py (the same flags, run-directory
+layout, command.json manifest and `--export` overrides), on the port's run
+loop. A run goes on the CUDA GPU unless `--device` names another; with no
+GPU and no `--device` the command exits 2 before anything runs. Runs on
+several GPUs (`-j` other than 1, `--coordinator`) are not ported. The
+JAX package's two-stage wire is not ported either: `--stage1_preload` is
+accepted and the one-shot decision step runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import datetime
+import logging
+import os
+import sys
+from pathlib import Path
+
+
+def _str2bool(v) -> bool:
+    """The reference parser's boolean argument convention."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def _collect_inputs(paths: list[str], suffix: str) -> list[str]:
+    out = []
+    for p in paths:
+        path = Path(p)
+        if path.is_dir():
+            out.extend(str(f) for f in sorted(path.rglob(f"*{suffix}")))
+        elif path.suffix and str(path).endswith(suffix):
+            out.append(str(path))
+    return out
+
+
+def _read_id_file(path: str | None) -> set[str]:
+    if not path:
+        return set()
+    return {line.strip() for line in Path(path).read_text().splitlines() if line.strip()}
+
+
+def _add_device(p):
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="torch device of the run (default: the CUDA GPU)")
+
+
+def _add_common(p):
+    p.add_argument("-i", "--input", nargs="+", required=True,
+                   help="pod5 file(s) or dir(s)")
+    p.add_argument("-o", "--output", required=True, help="output dir root")
+    p.add_argument("-m", "--model_name", required=True)
+    p.add_argument("-b", "--minibatch_size", type=int, default=1000)
+    p.add_argument("--batch_size_output", type=int, default=40000)
+    p.add_argument("--read_id_csv", default=None,
+                   help="file with read ids to include (one per line)")
+    p.add_argument("--export", nargs="*", default=[],
+                   help="config overrides, e.g. core.max_obs_trace=8000")
+    # both bare (--save_boundaries) and valued (--save_boundaries true)
+    p.add_argument("--save_dwell_time", type=_str2bool, nargs="?",
+                   const=True, default=False)
+    p.add_argument("--save_boundaries", type=_str2bool, nargs="?",
+                   const=True, default=False)
+    p.add_argument("--save_fpts", type=_str2bool, nargs="?",
+                   const=True, default=False)
+    p.add_argument("--create_subdir", action="store_true", default=True)
+    p.add_argument("--no-create_subdir", dest="create_subdir", action="store_false")
+    p.add_argument("--wire", choices=("vbz", "adc"), default="vbz",
+                   help="host->device wire: the VBZ inner layout (decoded on "
+                        "the device) or raw int16 ADC counts")
+    p.add_argument("--stage1_preload", type=int, default=7168,
+                   help="the JAX package's two-stage wire; accepted, not "
+                        "ported (the one-shot decision step runs)")
+    p.add_argument("-j", "--devices", type=int, default=1,
+                   help="devices to run on; only 1 is ported")
+    _add_device(p)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run there")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host runs: not ported")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="warpdemux-tpu-torch",
+        description="Raw-signal barcode demultiplexing on one CUDA GPU",
+    )
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    d = sub.add_parser("demux", help="detect + fingerprint + classify")
+    _add_common(d)
+
+    pr = sub.add_parser("prep", help="detect + fingerprint only")
+    _add_common(pr)
+
+    # `predict PREDICT_FROM_DIR` / `continue CONTINUE_FROM_DIR` (positional
+    # run dir; -i kept as an alias)
+    pd_ = sub.add_parser("predict", help="classify fingerprints from a prep run")
+    pd_.add_argument("input_dir", nargs="?", default=None,
+                     help="previous prep run dir (with command.json)")
+    pd_.add_argument("-i", "--input", default=None)
+    pd_.add_argument("-m", "--model_name", default=None)
+    pd_.add_argument("--batch_size_output", type=int, default=40000)
+    _add_device(pd_)
+
+    c = sub.add_parser("continue", help="resume a previous run")
+    c.add_argument("input_dir", nargs="?", default=None, help="previous run dir")
+    c.add_argument("-i", "--input", default=None)
+    c.add_argument("-m", "--model_name", default=None)
+    c.add_argument("-b", "--minibatch_size", type=int, default=None)
+    _add_device(c)
+    return ap
+
+
+def _make_run_dir(root: str, command: str, create_subdir: bool) -> str:
+    if not create_subdir:
+        os.makedirs(root, exist_ok=True)
+        return root
+    stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M")
+    run_dir = os.path.join(root, f"warpdemux_tpu_{command}_{stamp}")
+    os.makedirs(run_dir, exist_ok=True)
+    return run_dir
+
+
+def _setup_logging(run_dir: str):
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(message)s",
+        handlers=[
+            logging.StreamHandler(sys.stdout),
+            logging.FileHandler(os.path.join(run_dir, "warpdemux.log")),
+        ],
+        force=True,
+    )
+
+
+def _profile(profile_dir: str | None, device):
+    """A torch.profiler context writing a Chrome trace into profile_dir."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    logging.info("profiling to %s", profile_dir)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
+def _run_batch_command(args, command: str, device, read_ids_excl=None, run_dir=None, bidx=None):
+    from warpdemux_tpu_torch.config.config import (
+        BatchConfig, ClassifConfig, Config, InputConfig, OutputConfig, TaskConfig,
+    )
+    from warpdemux_tpu_torch.config.utils import (
+        dump_toml, get_model_spc_config, parse_export_overrides,
+        resolve_model_chemistry_dict,
+    )
+    from warpdemux_tpu_torch.pipeline.run import run_demux
+
+    files = _collect_inputs(args.input, ".pod5")
+    if not files:
+        raise SystemExit(f"no pod5 inputs found under {args.input}")
+
+    run_dir = run_dir or _make_run_dir(args.output, command, args.create_subdir)
+    _setup_logging(run_dir)
+    logging.info("run dir: %s (%d pod5 files, device %s)", run_dir, len(files), device)
+
+    overrides = parse_export_overrides(args.export)
+    spc = get_model_spc_config(args.model_name, overrides)
+
+    do_predict = command == "demux"
+    bidx = bidx or (0, 0, 0)
+    config = Config(
+        input=InputConfig(
+            files=files,
+            read_ids_incl=_read_id_file(args.read_id_csv),
+            read_ids_excl=read_ids_excl or set(),
+        ),
+        output=OutputConfig(
+            output_dir=run_dir,
+            save_fpts=args.save_fpts or command == "prep",
+            save_dwell_time=args.save_dwell_time,
+            save_boundaries=args.save_boundaries or command == "prep",
+            save_predictions=do_predict,
+        ),
+        batch=BatchConfig(
+            minibatch_size=args.minibatch_size,
+            batch_size_output=args.batch_size_output,
+            bidx_pass=bidx[0],
+            bidx_fail=bidx[1],
+            bidx_predict=bidx[2],
+            devices=args.devices,
+            wire=args.wire,
+            stage1_preload=args.stage1_preload,
+        ),
+        task=TaskConfig(command=command, preprocess=True, predict=do_predict),
+        classif=ClassifConfig(model_name=args.model_name),
+        sig_proc=spc,
+    )
+    config.write_command_json(sys.argv[1:])
+    # snapshot the resolved chemistry config into the run dir
+    (Path(run_dir) / "config.toml").write_text(
+        dump_toml(resolve_model_chemistry_dict(args.model_name, overrides))
+    )
+    with _profile(args.profile_dir, device):
+        stats = run_demux(config, device=device)
+    print(
+        f"done: {stats.total} reads, {stats.passed} pass, {stats.failed} fail,"
+        f" {stats.predicted} predicted, {stats.elapsed_s:.1f}s"
+        f" ({stats.total / max(stats.elapsed_s, 1e-9):.0f} reads/s)"
+    )
+    return 0
+
+
+def _cmd_predict(args, device):
+    from warpdemux_tpu_torch.config.config import (
+        BatchConfig, ClassifConfig, Config, InputConfig, OutputConfig, TaskConfig,
+    )
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.pipeline.resume import scan_processed_reads
+    from warpdemux_tpu_torch.pipeline.run import run_predict_from_fpts
+
+    manifest = Config.read_command_json(args.input)
+    if manifest["command"] not in ("prep",):
+        raise SystemExit(
+            f"predict requires a prep run dir; {args.input} was a "
+            f"{manifest['command']} run"
+        )
+    model_name = args.model_name or manifest["model_name"]
+    fpt_files = sorted(str(p) for p in (Path(args.input) / "fingerprints").glob("*.npz"))
+    if not fpt_files:
+        raise SystemExit(f"no fingerprints found in {args.input}/fingerprints")
+    _setup_logging(args.input)
+    spc = get_model_spc_config(model_name)
+    # failed_reads shards of the prep run already occupy bidx 0..N; the
+    # predict pass (non-finite fingerprints) continues the numbering
+    _, _, bidx_fail, _ = scan_processed_reads(args.input, "fingerprints")
+    config = Config(
+        input=InputConfig(files=fpt_files),
+        output=OutputConfig(output_dir=args.input, save_predictions=True),
+        batch=BatchConfig(batch_size_output=args.batch_size_output, bidx_fail=bidx_fail),
+        task=TaskConfig(command="predict", preprocess=False, predict=True),
+        classif=ClassifConfig(model_name=model_name),
+        sig_proc=spc,
+    )
+    stats = run_predict_from_fpts(config, device=device)
+    print(
+        f"done: {stats.predicted} predicted of {stats.total} fingerprints "
+        f"in {stats.elapsed_s:.1f}s"
+    )
+    return 0
+
+
+def _cmd_continue(args, device):
+    from warpdemux_tpu_torch.config.config import Config
+    from warpdemux_tpu_torch.pipeline.resume import scan_processed_reads
+
+    manifest = Config.read_command_json(args.input)
+    processed, bp, bf, bpr = scan_processed_reads(
+        args.input,
+        "predictions" if manifest["command"] == "demux" else "fingerprints",
+    )
+    logging.info("continue: %d reads already processed", len(processed))
+
+    ns = argparse.Namespace(
+        input=manifest["input_files"],
+        output=args.input,
+        model_name=args.model_name or manifest["model_name"],
+        minibatch_size=args.minibatch_size or manifest["batch"]["minibatch_size"],
+        batch_size_output=manifest["batch"]["batch_size_output"],
+        read_id_csv=None,
+        export=[],
+        save_dwell_time=manifest["output"]["save_dwell_time"],
+        save_boundaries=manifest["output"]["save_boundaries"],
+        save_fpts=manifest["output"]["save_fpts"],
+        create_subdir=False,
+        devices=manifest["batch"].get("devices", 1),
+        wire=manifest["batch"].get("wire", "vbz"),
+        stage1_preload=manifest["batch"].get("stage1_preload", 7168),
+        profile_dir=None,
+    )
+    if ns.devices != 1:
+        raise SystemExit(f"{args.input} was a run on several devices: not ported (ROADMAP queue 1 item 8)")
+    return _run_batch_command(
+        ns, manifest["command"], device,
+        read_ids_excl=processed, run_dir=args.input, bidx=(bp, bf, bpr),
+    )
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.command in ("predict", "continue"):
+        args.input = args.input or args.input_dir
+        if not args.input:
+            raise SystemExit(f"{args.command} requires a run directory")
+    if getattr(args, "devices", 1) != 1 or getattr(args, "coordinator", None):
+        print(
+            "warpdemux-tpu-torch: runs on several devices or hosts (-j, "
+            "--coordinator) are not ported (ROADMAP queue 1 item 8)",
+            file=sys.stderr,
+        )
+        return 2
+
+    from warpdemux_tpu_torch._cuda import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 2
+    if args.command in ("demux", "prep"):
+        return _run_batch_command(args, args.command, device)
+    if args.command == "predict":
+        return _cmd_predict(args, device)
+    return _cmd_continue(args, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,13 @@
 
 Reads the reference package's chemistry TOMLs and model registry by path
 (warpdemux_tpu/config/config_files/, warpdemux_tpu/models/model_files/),
-with the same layered overrides as warpdemux_tpu/config/utils.py.
+with the same layered overrides as warpdemux_tpu/config/utils.py, its
+`--export` parsing and its `config.toml` snapshot writer.
 """
 
 from __future__ import annotations
 
+import ast
 import tomllib
 from pathlib import Path
 
@@ -65,3 +67,72 @@ def get_model_spc_config(
 ) -> SigProcConfig:
     """Resolve a model name to its chemistry SigProcConfig via the registry."""
     return load_chemistry_config(model_config(model_name)["spc"], overrides)
+
+
+def parse_export_overrides(pairs: list[str]) -> dict:
+    """Parse `section.key=value` CLI overrides (`--export`) into a nested
+    dict. An argument naming an existing .toml file is loaded and merged
+    whole."""
+    out: dict = {}
+    for pair in pairs:
+        if pair.endswith(".toml") and Path(pair).exists():
+            out = _deep_merge(out, _read_toml(Path(pair)))
+            continue
+        if "=" not in pair:
+            raise ValueError(f"override {pair!r} is not key=value")
+        key, val = pair.split("=", 1)
+        try:
+            value = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            value = val
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return out
+
+
+def _toml_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        if v == float("inf"):
+            return "inf"
+        if v == float("-inf"):
+            return "-inf"
+        return repr(v)
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    raise TypeError(f"cannot serialize {type(v)} to TOML")
+
+
+def dump_toml(d: dict) -> str:
+    """Serialize a two-level {section: {key: value}} dict to TOML: the
+    `config.toml` snapshot of the resolved chemistry in a run directory."""
+    lines = []
+    for k, v in d.items():
+        if not isinstance(v, dict):
+            lines.append(f"{k} = {_toml_value(v)}")
+    for section, body in d.items():
+        if isinstance(body, dict):
+            lines.append("")
+            lines.append(f"[{section}]")
+            for k, v in body.items():
+                lines.append(f"{k} = {_toml_value(v)}")
+    return "\n".join(lines) + "\n"
+
+
+def resolve_model_chemistry_dict(
+    model_name: str, overrides: dict | None = None
+) -> dict:
+    """The merged chemistry dict (registry -> chemistry TOML -> overrides)
+    for snapshotting alongside a run."""
+    d = load_chemistry_dict(model_config(model_name)["spc"])
+    if overrides:
+        d = _deep_merge(d, overrides)
+    return d

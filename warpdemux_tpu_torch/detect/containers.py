@@ -4,7 +4,9 @@ Port of warpdemux_tpu/detect/containers.py: one struct of (B,) tensors per
 minibatch, with the JAX package's fields in its order; fail reasons are
 integer codes mapped to strings on the host. Where the region summary
 statistics are skipped (with_stats=False, the decision lane) their fields
-hold zeros. The CSV summary frame (to_summary_frame, pandas) is not ported.
+hold zeros. `to_summary_frame` builds the boundaries / failed-reads rows
+as an io/writers.Table (no pandas), with the JAX frame's columns in its
+order.
 """
 
 from __future__ import annotations
@@ -78,3 +80,66 @@ class DetectArrays(NamedTuple):
     llr_polya_start: torch.Tensor
     llr_polya_end: torch.Tensor
     llr_fail: torch.Tensor
+
+    def to_summary_frame(self, read_ids, full_lengths, in_lengths, primary_method: str = "llr"):
+        """Rows for the detected_boundaries / failed_reads CSVs from host
+        (numpy) fields: the JAX `to_summary_frame`'s columns in its order,
+        the per-method `<primary>_*` / `llr_*` columns where the detect pass
+        recorded them (`llr_fail` not None), prefixed with the configured
+        primary method's name."""
+        from warpdemux_tpu_torch.io.writers import Table
+
+        g = np.asarray
+        B = len(read_ids)
+        zf = lambda a: g(a) if a is not None else np.zeros(B, np.float32)
+        cols = {
+            "read_id": list(read_ids),
+            "signal_len": g(full_lengths),
+            "preloaded": g(in_lengths),
+            "adapter_start": g(self.adapter_start),
+            "adapter_end": g(self.adapter_end),
+            "adapter_len": g(self.adapter_end) - g(self.adapter_start),
+            "adapter_mean": g(self.adapter_mean),
+            "adapter_std": g(self.adapter_std),
+            "adapter_med": g(self.adapter_med),
+            "adapter_mad": g(self.adapter_mad),
+            "polya_start": g(self.polya_start),
+            "polya_end": g(self.polya_end),
+            "polya_len": g(self.polya_end) - g(self.polya_start),
+            "polya_mean": g(self.polya_mean),
+            "polya_std": g(self.polya_std),
+            "polya_med": g(self.polya_med),
+            "polya_mad": g(self.polya_mad),
+            "polya_candidates": g(self.polya_candidates),
+            "rna_preloaded_start": g(self.rna_start),
+            "rna_preloaded_len": g(self.rna_len),
+            "rna_preloaded_mean": g(self.rna_mean),
+            "rna_preloaded_std": g(self.rna_std),
+            "rna_preloaded_med": g(self.rna_med),
+            "rna_preloaded_mad": g(self.rna_mad),
+            "used_llr_fallback": (
+                g(self.used_llr_fallback)
+                if self.used_llr_fallback is not None
+                else np.zeros(B, bool)
+            ),
+            "mvs_med_shift": zf(self.mvs_med_shift),
+            "mvs_min_polya_var": zf(self.mvs_min_polya_var),
+        }
+        if self.llr_fail is not None:
+            methods = [
+                ("llr", self.llr_adapter_start, self.llr_adapter_end,
+                 self.llr_polya_start, self.llr_polya_end, self.llr_fail),
+            ]
+            if primary_method != "llr" and self.prim_fail is not None:
+                methods.insert(0, (
+                    primary_method, self.prim_adapter_start, self.prim_adapter_end,
+                    self.prim_polya_start, self.prim_polya_end, self.prim_fail,
+                ))
+            for name, a0, a1, p0, p1, fc in methods:
+                cols[f"{name}_adapter_start"] = g(a0)
+                cols[f"{name}_adapter_end"] = g(a1)
+                cols[f"{name}_polya_start"] = g(p0)
+                cols[f"{name}_polya_end"] = g(p1)
+                cols[f"{name}_fail_reason"] = fail_code_to_reason(g(fc))
+        cols["fail_reason"] = fail_code_to_reason(g(self.fail_code))
+        return Table(cols)

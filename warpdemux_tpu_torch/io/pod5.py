@@ -1,10 +1,12 @@
-"""Read-only pod5 access: Arrow-container parsing + VBZ signal decode.
+"""Pod5 ingest: Arrow-container parsing, VBZ signal decode and the
+fixed-shape minibatch feeds of the offline run.
 
-A copy of the `Pod5Reader` part of warpdemux_tpu/io/pod5.py, which the live
-balancer's pod5 watcher reads (read ids, `num_minknow_events`). The batch
-feeds (`yield_vbz_batches`, `yield_adc_batches`) are not ported yet.
-`pyarrow` is imported inside the functions, so the package imports where it
-is not installed.
+A copy of warpdemux_tpu/io/pod5.py: `Pod5Reader` (which the live
+balancer's pod5 watcher also reads), `count_reads` and the feeds
+`yield_signal_batches` (picoamps), `yield_adc_batches` (int16 ADC counts
+with calibration scalars) and `yield_vbz_batches` (the VBZ inner layout,
+decoded on the device). `pyarrow` and `zstandard` are imported inside the
+functions, so the package imports where they are not installed.
 
 The pod5 format is a container of embedded Apache Arrow IPC files (a signal
 table, a run-info table, and a reads table) behind an 8-byte signature.
@@ -175,3 +177,207 @@ class Pod5Reader:
                 _reader=self,
                 _signal_rows=np.asarray(self._signal_rows[i], np.int64),
             )
+
+
+def count_reads(pod5_files: Iterable[str | Path]) -> int:
+    total = 0
+    for f in pod5_files:
+        total += len(Pod5Reader(f))
+    return total
+
+
+def _selection(read_ids_incl, read_ids_excl):
+    """(selection or None, exclude set): an include set wins over an
+    exclude set, less the excluded ids."""
+    read_ids_incl = set(read_ids_incl or ())
+    read_ids_excl = set(read_ids_excl or ())
+    if read_ids_incl and read_ids_excl:
+        read_ids_incl = read_ids_incl - read_ids_excl
+        read_ids_excl = set()
+    return read_ids_incl or None, read_ids_excl
+
+
+def _records(pod5_files, read_ids_incl, read_ids_excl):
+    """(reader, record) of every selected read, file by file."""
+    selection, excl = _selection(read_ids_incl, read_ids_excl)
+    for filename in pod5_files:
+        with Pod5Reader(filename) as reader:
+            for rec in reader.reads(selection=selection, missing_ok=True):
+                if rec.read_id not in excl:
+                    yield reader, rec
+
+
+def yield_signal_batches(
+    pod5_files: Iterable[str | Path],
+    read_ids_incl: set[str] | None,
+    read_ids_excl: set[str] | None,
+    batch_size: int,
+    preload_size: int,
+) -> Generator[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray], None, None]:
+    """Fixed-shape minibatch preloading in picoamps.
+
+    Yields (signals (N, m) f32 zero-padded, in_arr_lengths (N,), full_lengths
+    (N,), read_ids (N,) object). The final batch may be short.
+    """
+    N, m = batch_size, preload_size
+    signals = np.zeros((N, m), np.float32)
+    full_lengths = np.empty(N, np.int32)
+    in_lengths = np.empty(N, np.int32)
+    read_ids = np.empty(N, object)
+    i = 0
+    for _, rec in _records(pod5_files, read_ids_incl, read_ids_excl):
+        _m = min(m, rec.num_samples)
+        sig = rec.signal_pa_head(_m)
+        _m = min(_m, sig.size)
+        full_lengths[i] = rec.num_samples
+        in_lengths[i] = _m
+        signals[i, :_m] = sig[:_m]
+        signals[i, _m:] = 0.0
+        read_ids[i] = rec.read_id
+        if i == N - 1:
+            yield signals, in_lengths, full_lengths, read_ids
+            signals = np.zeros((N, m), np.float32)
+            full_lengths = np.empty(N, np.int32)
+            in_lengths = np.empty(N, np.int32)
+            read_ids = np.empty(N, object)
+            i = 0
+        else:
+            i += 1
+    if i > 0:
+        yield signals[:i], in_lengths[:i], full_lengths[:i], read_ids[:i]
+
+
+# data widths a vbz batch is padded to: a few fixed shapes, whatever the reads
+_DATA_WIDTH_LADDER = (10752, 11776, 12800, 14336, 16384, 20480, 24576)
+
+
+def yield_vbz_batches(
+    pod5_files: Iterable[str | Path],
+    read_ids_incl: set[str] | None,
+    read_ids_excl: set[str] | None,
+    batch_size: int,
+    preload_size: int,
+) -> Generator[tuple, None, None]:
+    """Compressed-wire minibatch preloading: the VBZ inner layout to the
+    device.
+
+    The pod5 payload is zstd(keys || data); after the host's zstd step the
+    inner layout itself crosses to the device (~11.5 KB a 10k-sample read
+    against 20 KB of int16) and ops/vbz_device.vbz_decode_batch rebuilds the
+    ADC counts there. Yields (keys (B, L/8) u8, data (B, D) u8, offset,
+    scale, in_lengths, full_lengths, read_ids) with D the first width of
+    `_DATA_WIDTH_LADDER` that holds the batch's longest body.
+
+    Reads whose first signal row covers the preload slice that row's keys
+    and data; a head over several rows is decoded and re-encoded with
+    inner_layout_from_adc (pod5 rows delta-encode independently, so their
+    bodies cannot be concatenated).
+    """
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc
+
+    N, L = batch_size, preload_size
+    klen = (L + 7) // 8
+
+    def flush(rows):
+        B = len(rows)
+        keys = np.zeros((B, klen), np.uint8)
+        max_d = max((r[1].size for r in rows), default=1)
+        D = next(
+            (d for d in _DATA_WIDTH_LADDER if d >= max_d),
+            ((max_d + 1023) // 1024) * 1024,
+        )
+        data = np.zeros((B, D), np.uint8)
+        offset = np.zeros(B, np.float32)
+        scale = np.zeros(B, np.float32)
+        in_lengths = np.zeros(B, np.int32)
+        full_lengths = np.zeros(B, np.int32)
+        read_ids = np.empty(B, object)
+        for i, (kb, db, off, sc, n, full, rid) in enumerate(rows):
+            keys[i, : kb.size] = kb
+            data[i, : db.size] = db
+            offset[i], scale[i] = off, sc
+            in_lengths[i], full_lengths[i] = n, full
+            read_ids[i] = rid
+        return keys, data, offset, scale, in_lengths, full_lengths, read_ids
+
+    def make_row(reader, rec):
+        n = min(L, rec.num_samples)
+        srows = rec._signal_rows
+        if len(srows) and int(reader._sig_samples[srows[0]]) >= n:
+            row_n = int(reader._sig_samples[srows[0]])
+            raw = vbz.zstd_decompressor().decompress(
+                reader._sig_payload[srows[0]], max_output_size=4 * row_n + 16
+            )
+            row_klen = (row_n + 7) // 8
+            bits = np.unpackbits(
+                np.frombuffer(raw, np.uint8, count=row_klen),
+                bitorder="little",
+                count=n,
+            )
+            kb = np.packbits(bits, bitorder="little")
+            db = np.frombuffer(raw, np.uint8, offset=row_klen, count=n + int(bits.sum()))
+        else:  # a head over several rows: decode and re-encode
+            body = inner_layout_from_adc(rec.signal_adc(n)[:n])
+            kb = np.frombuffer(body, np.uint8, count=(n + 7) // 8)
+            db = np.frombuffer(body, np.uint8, offset=(n + 7) // 8)
+        return (
+            kb, db, rec.calibration_offset, rec.calibration_scale, n,
+            rec.num_samples, rec.read_id,
+        )
+
+    rows: list = []
+    for reader, rec in _records(pod5_files, read_ids_incl, read_ids_excl):
+        rows.append(make_row(reader, rec))
+        if len(rows) == N:
+            yield flush(rows)
+            rows = []
+    if rows:
+        yield flush(rows)
+
+
+def yield_adc_batches(
+    pod5_files: Iterable[str | Path],
+    read_ids_incl: set[str] | None,
+    read_ids_excl: set[str] | None,
+    batch_size: int,
+    preload_size: int,
+) -> Generator[tuple, None, None]:
+    """ADC-domain minibatch preloading.
+
+    The batching of yield_signal_batches, with the signals left as the
+    pod5's int16 ADC counts beside each read's calibration scalars; the
+    step converts `(adc + offset) * scale` on the device. Yields (adc (N, m)
+    int16, offset (N,) f32, scale (N,) f32, in_lengths (N,) i32,
+    full_lengths (N,) i32, read_ids (N,) object).
+    """
+    N, m = batch_size, preload_size
+    adc = np.zeros((N, m), np.int16)
+    offset = np.zeros(N, np.float32)
+    scale = np.zeros(N, np.float32)
+    full_lengths = np.empty(N, np.int32)
+    in_lengths = np.empty(N, np.int32)
+    read_ids = np.empty(N, object)
+    i = 0
+    for _, rec in _records(pod5_files, read_ids_incl, read_ids_excl):
+        sig = rec.signal_adc(m)
+        _m = min(m, sig.size)
+        full_lengths[i] = rec.num_samples
+        in_lengths[i] = _m
+        adc[i, :_m] = sig[:_m]
+        adc[i, _m:] = 0
+        offset[i] = rec.calibration_offset
+        scale[i] = rec.calibration_scale
+        read_ids[i] = rec.read_id
+        if i == N - 1:
+            yield adc, offset, scale, in_lengths, full_lengths, read_ids
+            adc = np.zeros((N, m), np.int16)
+            offset = np.zeros(N, np.float32)
+            scale = np.zeros(N, np.float32)
+            full_lengths = np.empty(N, np.int32)
+            in_lengths = np.empty(N, np.int32)
+            read_ids = np.empty(N, object)
+            i = 0
+        else:
+            i += 1
+    if i > 0:
+        yield adc[:i], offset[:i], scale[:i], in_lengths[:i], full_lengths[:i], read_ids[:i]

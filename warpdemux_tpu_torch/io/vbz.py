@@ -3,7 +3,9 @@ streamvbyte-16 with zig-zag delta encoding.
 
 A numpy copy of warpdemux_tpu/io/vbz.py without its native decoder.
 `zstandard` is imported inside the functions, so the package imports where
-it is not installed.
+it is not installed. A zstd decompressor is not safe for concurrent use,
+so each thread takes its own (`zstd_decompressor`): the run loop's
+producer and the live pod5 watcher decode at the same time.
 
 Decode layout (n = sample count):
   raw = zstd_decompress(payload)
@@ -15,16 +17,28 @@ Decode layout (n = sample count):
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
+
+_ZSTD_TLS = threading.local()
+
+
+def zstd_decompressor():
+    """This thread's zstandard.ZstdDecompressor."""
+    d = getattr(_ZSTD_TLS, "d", None)
+    if d is None:
+        import zstandard
+
+        d = _ZSTD_TLS.d = zstandard.ZstdDecompressor()
+    return d
 
 
 def decode(payload: bytes, n: int) -> np.ndarray:
     """Decode a VBZ-compressed signal chunk into int16 ADC counts."""
-    import zstandard
-
     if n == 0:
         return np.zeros(0, np.int16)
-    raw = zstandard.ZstdDecompressor().decompress(payload, max_output_size=4 * n + 16)
+    raw = zstd_decompressor().decompress(payload, max_output_size=4 * n + 16)
     keylen = (n + 7) // 8
     keys = np.frombuffer(raw, np.uint8, count=keylen)
     data = np.frombuffer(raw, np.uint8, offset=keylen)

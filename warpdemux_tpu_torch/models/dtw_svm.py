@@ -41,6 +41,9 @@ class DTWSVMModel(nn.Module):
         self.register_buffer("probA", probA)
         self.register_buffer("probB", probB)
         self.register_buffer("label_map", label_map)  # (k,) int32
+        # the labels on the host, read once: a table built on another thread
+        # never waits for the device
+        self.label_values = label_map.cpu().numpy()
         self.register_buffer("thresholds", thresholds)  # (k,)
         self.n_classes = int(n_classes)
         self.window = int(window)
@@ -75,3 +78,18 @@ class DTWSVMModel(nn.Module):
             fpts = fpts[None]
         pred, conf, probs = self(fpts)
         return pred.cpu().numpy(), conf.cpu().numpy(), probs.cpu().numpy()
+
+    def predictions_to_table(self, read_ids, pred, conf, probs):
+        """The prediction table of the JAX model's `predictions_to_df`
+        (numpy inputs): #read_id, predicted_barcode, confidence_score
+        rounded to 3 decimals, p{label:02d} rounded to 4, as a Table."""
+        from warpdemux_tpu_torch.io.writers import Table
+
+        cols = {
+            "#read_id": read_ids,
+            "predicted_barcode": pred,
+            "confidence_score": np.round(conf, 3),
+        }
+        for i in range(probs.shape[1]):
+            cols[f"p{self.label_values[i]:02d}"] = np.round(probs[:, i], 4)
+        return Table(cols)

@@ -15,6 +15,12 @@ Port of warpdemux_tpu/ops/peaks.py:
 3. `select_top_peaks`: the num_events highest kept peaks, ties going to
    the later position, as np.argsort(scores)[-k:] does: torch.topk runs on
    unique int64 keys (score order key, position), so no two candidates tie.
+   On rows of 1024 positions or more (and at least 4 x num_events) the
+   candidates are the JAX package's: the better of each pair of positions
+   (2j, 2j + 1). Kept peaks are never adjacent, so where a row has
+   num_events peaks this changes nothing; where it has fewer, the filler
+   positions are the ones JAX picks, and the fingerprint statistics it
+   writes for failed reads are JAX's.
 """
 
 from __future__ import annotations
@@ -158,8 +164,13 @@ def select_top_peaks(scores, keep_mask, peak_count, num_events: int):
     Rows with ok=False carry positions of non-peaks; callers mask them."""
     B, L = scores.shape
     masked = torch.where(keep_mask, scores, torch.full_like(scores, float("-inf")))
-    pos = torch.arange(L, device=scores.device, dtype=torch.int64)[None, :]
+    pairs = L >= 4 * num_events and L >= 1024
+    if pairs:  # an odd row ends in a -inf pad, as in JAX
+        masked = torch.nn.functional.pad(masked, (0, L % 2), value=float("-inf"))
+    pos = torch.arange(masked.shape[1], device=scores.device, dtype=torch.int64)[None, :]
     key = order_keys(masked).to(torch.int64) * (2**32) + pos
+    if pairs:
+        key = key.view(B, -1, 2).amax(dim=2)
     top = torch.topk(key, num_events, dim=1).values
     sel_pos = torch.remainder(top, 2**32).to(torch.int32)
     return sel_pos, peak_count >= num_events
