@@ -10,7 +10,7 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels of csrc/ from source and print what ptxas reported for each
    (registers, spills).
-2. For each kernel K1-K9, on numpy-seeded inputs at the step's shapes
+2. For each kernel K1-K10, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
    the card and time both (the kernel twice: as a caller sees it, and with
@@ -52,9 +52,13 @@ Phases (each raises on failure; nothing is caught):
    vector alignment and rows at and beyond its staging limit, on both of
    its variants (keys staged in shared memory; the streaming bisection); K9
    against K6 and K7 (at edge lengths too) and timed beside K6 + 2 x K7 on
-   the same inputs. An empty launch is timed as called through
-   `_cuda.launch` and through a launch that resolves the entry point, the
-   device context and the stream object every time.
+   the same inputs. K10 (the tRNA path's subsequence DTW, new: no Pallas
+   counterpart) is held bit for bit at 1000 series of 121 events against
+   the 84-event consensus, and on series lengths of 0, 1 and below the
+   query's, psi_2b at and beyond the width, constant series, exact ties,
+   NaN and infinite values and other widths. An empty launch is timed as
+   called through `_cuda.launch` and through a launch that resolves the
+   entry point, the device context and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -106,7 +110,23 @@ Phases (each raises on failure; nothing is caught):
    printed beside phase 4's step rate, and run a is timed again on eight
    minibatches (the loop's cost a minibatch beyond its fixed cost); phase
    5 prints the device's busy time in run a against run a's time. Runs
-   after phase 4, before phase 6.
+   after phase 4, before phase 8.
+8. The tRNA chemistry (WDX4_tRNA_rna004_v1_0, rna004_130bps@v1.0_tRNA:
+   start_peak detect, the [real_range] and [med_shift] gates, consensus-
+   refined fingerprints with K10) on trna_minibatch(default_rng(0), 1000):
+   a. the adc feed, decision outputs, on the first 256 rows: the launch
+      counts of LAUNCHES["trna_adc_decision"], (success, fail_code, pred)
+      equal to the CPU step's on at least 255 rows, each branch's rows and
+      fail codes printed, 0.9 of the called planted barcodes as planted;
+   b. the vbz feed, full outputs: LAUNCHES["trna_vbz_full"], every column
+      (cons_i, the consensus match, included) as in phase 3b;
+   c. reads/s of both over three B=1000 minibatches after one warm-up, in
+      the rounds of phase 4;
+   d. one demux_minibatches run (the vbz wire, predictions and boundaries)
+      over the four minibatches: every read once, the consensus columns in
+      the boundaries rows, launches 4 x the vbz full step's.
+   Runs after phase 7, before phase 6; phase 5 counts the device
+   operations of both tRNA steps too.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -144,23 +164,90 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_run_sum": ("K7 rolling run-sum", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:123"),
     "wdx_range_median_adc": ("K8 ADC-domain range median", "select.cu", "warpdemux_tpu/ops/select_pallas.py:279"),
     "wdx_rolling_detect": ("K9 fused rolling detect", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:206"),
+    "wdx_subseq_dtw": ("K10 subsequence DTW", "subsequence.cu",
+                       "new, no Pallas counterpart (warpdemux_tpu/ops/subsequence.py:60, a lax.scan)"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 # device operations a step of each path before K5's callers stopped copying
 # for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
-# launches a step of each path, in KERNELS' order (K1 .. K9)
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0),  # one micro-batch of the lane program
+# launches a step of each path, in KERNELS' order (K1 .. K10)
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0)}
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0),
+            # the tRNA paths (phase 8): K3 twice (the adapter's events, then
+            # the barcode's from its start), K4 for the clip and the gates
+            # (with the adapter MAD) or the four region statistics, K5 for the
+            # refine windows, the split window and the adapter, K8 for the
+            # adapter-level proxy, K10 for the consensus match
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1)}
+TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
+# phase 8's run of the offline loop: the vbz wire, predictions and boundaries
+TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
 # phase 7's runs: name -> (wire, prep, step path of LAUNCHES, phase 4's path printed beside it)
 OFFLINE_RUNS = {"offline_vbz_decision": ("vbz", False, "vbz_decision", "adc_decision"),
                 "offline_adc_decision": ("adc", False, "adc_decision", "adc_decision"),
                 "offline_vbz_prep": ("vbz", True, "vbz_prep", "vbz_full")}
 OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
+
+
+TRNA_MODEL = "WDX4_tRNA_rna004_v1_0"
+TRNA_BARCODES = (3, 4, 5, 7)  # the model's classes, in the order of trna_barcode_patterns
+# the branches of the tRNA path a minibatch reaches, one kind a row in turn
+TRNA_KINDS = ("poly(A)", "poly(A)", "poly(A)", "poly(A)", "no poly(A)", "no poly(A)",
+              "real dwell", "no spike", "body at adapter level", "mRNA")
+
+
+def trna_minibatch(rng, n, length=L):
+    """(adc (n, length) int16, offset, scale, lens, kind, barcode): tRNA
+    reads of the port's utils/synthetic, row k of kind TRNA_KINDS[k % 10]:
+    barcoded reads with a 600-sample poly(A), without one (the split
+    path), with real-fitted dwell times; tRNA reads without a capture
+    spike (rna start peak not found), with the body at the adapter's level
+    (med shift check failed); and bench.synth_minibatch mRNA rows (no
+    consensus: real signal check failed or consensus query outlier).
+    barcode is the planted class, -1 where none was planted."""
+    import numpy as np
+
+    from bench import ADC_OFFSET, ADC_SCALE, synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import (
+        real_dwell_sampler,
+        synth_trna_barcoded_read,
+        synth_trna_read,
+        trna_barcode_patterns,
+    )
+
+    pats = trna_barcode_patterns(4, 25)
+    kind = np.arange(n) % len(TRNA_KINDS)
+    m_adc, m_off, m_sc, m_lens = synth_minibatch(rng, int((kind == 9).sum()), length)
+    adc = np.zeros((n, length), np.int16)
+    offset = np.full(n, ADC_OFFSET, np.float32)
+    scale = np.full(n, ADC_SCALE, np.float32)
+    lens = np.zeros(n, np.int32)
+    barcode = np.full(n, -1, np.int32)
+    m = 0
+    for k in range(n):
+        name = TRNA_KINDS[kind[k]]
+        if name == "mRNA":
+            adc[k], offset[k], scale[k], lens[k] = m_adc[m], m_off[m], m_sc[m], m_lens[m]
+            m += 1
+            continue
+        if name == "no spike":
+            sig, _ = synth_trna_read(rng, spike_idx=None)
+        elif name == "body at adapter level":
+            sig, _ = synth_trna_read(rng, trna_level=70.0)
+        else:
+            kw = {"no poly(A)": {"polya_len": 0}, "real dwell": {"dwell": real_dwell_sampler()}}.get(name, {})
+            sig, _ = synth_trna_barcoded_read(rng, pats[k % 4], **kw)
+            barcode[k] = TRNA_BARCODES[k % 4]
+        a = np.clip(np.rint(sig / ADC_SCALE - ADC_OFFSET), -32768, 32767).astype(np.int16)
+        lens[k] = min(length, a.size)
+        adc[k, : lens[k]] = a[: lens[k]]
+    return adc, offset, scale, lens, kind, barcode
 
 
 def time_ms(fn, reps=10, queued=False):
@@ -426,6 +513,54 @@ def k5_edge_cases():
     return cases
 
 
+def k10_step_series(rng, n):
+    """(query (84,), series (n, 121), lens (n,)): the consensus adapter
+    and series of normalized event means at the tRNA path's shape, the
+    consensus planted (with noise) at a random offset in every other row."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.models.consensus_data import CONSENSUS
+
+    q = np.asarray(CONSENSUS["rna004_130bps_v1_0"], np.float32)
+    s = rng.normal(0, 1, (n, 121)).astype(np.float32)
+    for b in range(0, n, 2):
+        o = int(rng.integers(0, 121 - q.size + 1))
+        s[b, o : o + q.size] = q + rng.normal(0, 0.3, q.size)
+    return q, s, np.full(n, 121, np.int32)
+
+
+def k10_edge_cases():
+    """[(name, query (m,), series (B, C), lens (B,), psi)]: the matches that
+    K10 and its plain version are held to: series lengths of 0, 1 and
+    shorter than the query, psi_2b at and beyond the series' width,
+    constant series, exact ties, non-finite values, and other widths and
+    query lengths (one warp, several warps)."""
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    q, s, full = k10_step_series(rng, 33)
+    cases = [("step shape, psi (5, 0, 40, 0)", q, s, full, (5, 0, 40, 0))]
+    short = rng.integers(0, q.size, 33).astype(np.int32)
+    short[:3] = [0, 1, q.size - 1]
+    cases.append(("series_len < m (0, 1, m - 1 and random)", q, s, short, (5, 0, 40, 0)))
+    cases.append(("psi_2b = c", q, s, full, (5, 0, 121, 0)))
+    cases.append(("psi_2b > c, psi_1b = m", q, s, full, (84, 0, 300, 0)))
+    const = np.full((5, 121), 0.5, np.float32)
+    const[1], const[2] = 0.0, q[10]
+    cases.append(("constant series", q, const, np.int32([121, 121, 121, 60, 0]), (5, 0, 40, 0)))
+    ties = np.round(s[:9] * 2) / 2
+    cases.append(("exact ties (half-integer series and query)", np.round(q * 2) / 2, ties, full[:9], (5, 0, 40, 0)))
+    bad = s[:8].copy()
+    bad[0, 5], bad[1, :], bad[2, 50], bad[3, :], bad[4, 7] = np.nan, np.nan, np.inf, np.inf, -np.inf
+    bad[5, 100:] = np.nan
+    cases.append(("NaN and infinite values", q, bad, np.int32([121, 121, 121, 121, 121, 90, 121, 0]), (5, 0, 40, 0)))
+    for m, C in ((1, 7), (31, 1), (32, 300), (200, 64)):
+        qe = rng.normal(0, 1, m).astype(np.float32)
+        se = rng.normal(0, 1, (6, C)).astype(np.float32)
+        cases.append((f"m={m} C={C}", qe, se, rng.integers(0, C + 2, 6).astype(np.int32), (2, 0, 3, 0)))
+    return cases
+
+
 def live_lane_reads(X_sv, n=64):
     """[(read, cut)]: n barcoded replay reads on the model's support vectors,
     drawn as tools/live_latency.py draws them, each also cut where the live
@@ -514,6 +649,15 @@ def k5_work(lengths, out_len):
     return int(lengths.clamp(0, out_len).sum()) * 4 + rows * out_len * 4 + 2 * rows * 4, 0
 
 
+def k10_work(m, lens, width):
+    """The series (below the lengths), the query, the lengths and the three
+    outputs moved once; 7 operations a cell of the m x length grid (a
+    subtract, a square, two adds, three compares)."""
+    rows = lens.shape[0]
+    cells = int(lens.clamp(0, width).sum()) * m
+    return int(lens.clamp(0, width).sum()) * 4 + m * 4 + rows * 4 + rows * 12, 7 * cells
+
+
 def check_kernels(dev, card):
     """Phase 2: kernel vs plain version on the card, at the step's shapes,
     with each kernel's bound from this run's inputs (every input byte read
@@ -528,7 +672,7 @@ def check_kernels(dev, card):
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
-    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, window_gather
+    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, subsequence, window_gather
 
     rng = np.random.default_rng(1)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -970,6 +1114,30 @@ def check_kernels(dev, card):
         lambda: bd.rolling_detect_plain(*args),
         B * L * (4 + 4 + 12 + 8) + B * 8, B * L * (24 + 6 + 2 * 2),  # K6, the mask's compares, two sliding counts
     )
+
+    # K10: the consensus (m=84) matched into B series of E=121 normalized
+    # event means (the tRNA path's shape), bit for bit, then the edge cases
+    def k10_same(k, p):
+        return torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and same_bits(k[2], p[2])
+
+    q, s_np, lens_np = k10_step_series(rng, B)
+    q, series, slens = t(q), t(s_np), t(lens_np)
+    k = subsequence.subsequence_dtw(q, series, slens)
+    p = subsequence.subsequence_dtw_plain(q, series, slens)
+    require(k10_same(k, p), "K10 at the step shape: differs from the plain version")
+    planted = torch.arange(B, device=dev) % 2 == 0
+    require(bool((k[1] - k[0])[planted].float().mean() > 70), "K10: the planted consensus was not matched")
+    for name, qe, se, le, psi in k10_edge_cases():
+        args = (t(qe), t(se), t(le), 1.5, psi)
+        require(k10_same(subsequence.subsequence_dtw(*args), subsequence.subsequence_dtw_plain(*args)),
+                f"K10 {name}: differs from the plain version")
+        print(f"K10 {name}: start, end and dist bit-equal to the plain version")
+    record(
+        "wdx_subseq_dtw", max_abs(k[2], p[2]),
+        lambda: subsequence.subsequence_dtw(q, series, slens),
+        lambda: subsequence.subsequence_dtw_plain(q, series, slens),
+        *k10_work(q.shape[0], slens, series.shape[1]), plain_reps=3,
+    )
     return results
 
 
@@ -1046,11 +1214,12 @@ def _tolerance(name, is_int):
     raise AssertionError(f"no tolerance for column {name}")
 
 
-def _compare_full(gpu, cpu):
-    """Rows agreeing exactly on every integer, median and MAD column; the
-    other floats must be within tolerance. The fingerprint columns are held
-    where the fingerprint succeeded (an empty adapter's changepoints are
-    unspecified)."""
+def _compare_full(gpu, cpu, exact_rows=None):
+    """Rows agreeing exactly on every integer, median and MAD column (and
+    where `exact_rows`, a (B,) bool of rows agreeing on other columns, says
+    so); the other floats must be within tolerance. The fingerprint columns
+    are held where the fingerprint succeeded (an empty adapter's
+    changepoints are unspecified)."""
     import numpy as np
 
     from warpdemux_tpu_torch.pipeline.schema import PackSchema
@@ -1062,7 +1231,7 @@ def _compare_full(gpu, cpu):
     gpu_cols = {**schema.unpack(gi, np.int32), **schema.unpack(gf, np.float32)}
     n = ci.shape[0]
     ok = cpu_cols["fpt_ok"] == 1
-    same = np.ones(n, bool)
+    same = np.ones(n, bool) if exact_rows is None else np.asarray(exact_rows, bool).copy()
     for name, c in cpu_cols.items():
         g = gpu_cols[name]
         rows = ok if name == "dwell" or name.startswith(("fpt", "adapter_dt_", "adapter_event_")) else np.ones(n, bool)
@@ -1312,11 +1481,12 @@ def device_busy_ms(fn):
     return busy / 1e3
 
 
-def count_step_ops(steps, lane_program, offline_run):
-    """Device operations a step of each path on phase 3's rows, and of one
-    micro-batch of the live lane; the device's busy time in phase 7's run
-    a. Run last: once the profiler has been attached, every launch costs
-    the host more."""
+def count_step_ops(steps, lane_program, offline_run, trna):
+    """Device operations a step of each path on phase 3's rows, of each
+    tRNA path on phase 8's (`trna`: (steps, rows)), and of one micro-batch
+    of the live lane; the device's busy time in phase 7's run a. Run last:
+    once the profiler has been attached, every launch costs the host
+    more."""
     import numpy as np
 
     from bench import synth_minibatch
@@ -1327,6 +1497,11 @@ def count_step_ops(steps, lane_program, offline_run):
         n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
         print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE[path]} before this kernel round)")
+    trna_steps, trna_rows = trna
+    for path in TRNA_PATHS:
+        n_ops = count_device_ops(trna_steps[path], vbz_batch(*trna_rows) if "vbz" in path else trna_rows)
+        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
+        print(f"{path} step: {n_ops} device operations")
     n_ops = count_device_ops(lane_program, ())
     require(n_ops > 0, "live lane: the profiler recorded no device operation")
     print(f"live lane program, B=16: {n_ops} device operations a micro-batch")
@@ -1353,7 +1528,7 @@ def run_main_paths(dev, steps):
     # a. adc feed, decision outputs
     out, by_path["adc_decision"] = _drive("adc_decision", steps["adc_decision"], rows)
     for key, n in by_path["adc_decision"].items():
-        if key != "wdx_rolling_detect":
+        if key not in ("wdx_rolling_detect", "wdx_subseq_dtw"):  # the fused and the tRNA paths' kernels
             require(n > 0, f"{key} was never launched by the adc decision path")
     ref = cpu_steps["adc_decision"](*rows)
     probs = out.probs.cpu()
@@ -1392,24 +1567,20 @@ def run_main_paths(dev, steps):
     return by_path
 
 
-def time_throughput(steps, card):
-    """Phase 4: reads/s of each path over three B=1000 minibatches after
-    one warm-up, in two rounds (the second in reverse path order, since
-    the host clock drifts within a run)."""
-    import numpy as np
+def time_throughput(steps, card, paths, batches):
+    """Phase 4 (and 8): reads/s of each path over three B=1000 minibatches
+    (`batches`: four (adc, offset, scale, lens)) after one warm-up, in two
+    rounds (the second in reverse path order, since the host clock drifts
+    within a run). A vbz path reads the batches packed into the wire."""
     import torch
 
-    from bench import synth_minibatch
-
-    rng = np.random.default_rng(0)
-    batches = [synth_minibatch(rng, B, L) for _ in range(4)]
-    wires = [vbz_batch(*b) for b in batches]
-    inputs = {path: wires if path == "vbz_full" else batches for path in PATHS}
-    for path in PATHS:
+    wires = [vbz_batch(*b[:4]) for b in batches]
+    inputs = {path: wires if "vbz" in path else [b[:4] for b in batches] for path in paths}
+    for path in paths:
         steps[path](*inputs[path][0])
     torch.cuda.synchronize()
-    rates = {path: [] for path in PATHS}
-    for order in (PATHS, PATHS[::-1]):
+    rates = {path: [] for path in paths}
+    for order in (paths, paths[::-1]):
         for path in order:
             t0 = time.perf_counter()
             for batch in inputs[path][1:]:
@@ -1423,18 +1594,20 @@ def time_throughput(steps, card):
     return rates
 
 
-def offline_config(out, wire, prep, batch_size=B):
-    """The run configuration of phase 7's runs (the CLI's demux / prep)."""
+def offline_config(out, wire, prep, batch_size=B, model=MODEL, boundaries=None):
+    """The run configuration of phase 7's and 8's runs (the CLI's demux /
+    prep; boundaries: a demux that also saves the boundaries)."""
     from warpdemux_tpu_torch.config import config as c
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
 
+    boundaries = prep if boundaries is None else boundaries
     return c.Config(
         c.InputConfig(),
-        c.OutputConfig(output_dir=str(out), save_fpts=prep, save_boundaries=prep, save_predictions=not prep),
+        c.OutputConfig(output_dir=str(out), save_fpts=prep, save_boundaries=boundaries, save_predictions=not prep),
         c.BatchConfig(minibatch_size=batch_size, batch_size_output=1500, wire=wire),
         c.TaskConfig(command="prep" if prep else "demux", predict=not prep),
-        c.ClassifConfig(model_name=MODEL),
-        get_model_spc_config(MODEL),
+        c.ClassifConfig(model_name=model),
+        get_model_spc_config(model),
     )
 
 
@@ -1442,7 +1615,7 @@ def offline_batches(adc_batches, read_ids, wire):
     """The feed's tuples (`yield_vbz_batches` / `yield_adc_batches`) of
     in-memory (adc, offset, scale, lengths) minibatches."""
     out, k = [], 0
-    for adc, off, sc, lens in adc_batches:
+    for adc, off, sc, lens, *_ in adc_batches:
         ids = read_ids[k : k + len(adc)]
         k += len(adc)
         arrays = vbz_batch(adc, off, sc, lens) if wire == "vbz" else (adc, off, sc, lens)
@@ -1464,6 +1637,17 @@ def shard_rows(run, sub):
         with gzip.open(path, "rt", encoding="utf-8", newline="") as fh:
             rows += list(csv.reader(fh))[1:]
     return rows
+
+
+def shard_header(run, sub):
+    """The header of a run's first CSV shard of one kind."""
+    import csv
+    import gzip
+    from pathlib import Path
+
+    path = sorted(Path(run, sub).glob("*.csv.gz"))[0]
+    with gzip.open(path, "rt", encoding="utf-8", newline="") as fh:
+        return next(csv.reader(fh))
 
 
 def shard_texts(run):
@@ -1596,13 +1780,115 @@ def run_offline_loop(dev, card, step_rates):
     return by_run, (lambda: run_a(feeds["vbz"], tempfile.mkdtemp(dir=tmp.name)), seconds_by[0] * 1e3)
 
 
+def _trna_steps(dev):
+    """Phase 8's two tRNA steps on `dev`."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    spc, model = get_model_spc_config(TRNA_MODEL), load_model(TRNA_MODEL, dev)
+    return {
+        "trna_adc_decision": make_demux_step(model, spc, input_format="adc", outputs="decision", device=dev),
+        "trna_vbz_full": make_demux_step(model, spc, input_format="vbz", outputs="full", device=dev),
+    }
+
+
+def run_trna_path(dev, card):
+    """Phase 8: the tRNA chemistry (WDX4_tRNA) on the card: the two paths
+    held against the CPU, their reads/s, and one offline run with the
+    boundaries saved. Returns (launch counts by path, the steps, phase 3's
+    rows of the tRNA minibatch) for phase 5."""
+    import tempfile
+    import uuid
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+
+    rng = np.random.default_rng(0)
+    batches = [trna_minibatch(rng, B) for _ in range(4)]
+    steps, cpu_steps = _trna_steps(dev), _trna_steps("cpu")
+    adc, off, sc, lens, kind, barcode = (a[:N_ROWS] for a in batches[0])
+    rows = (adc, off, sc, lens)
+    by_path = {}
+
+    # a. adc feed, decision outputs
+    out, by_path["trna_adc_decision"] = _drive("trna_adc_decision", steps["trna_adc_decision"], rows)
+    ref = cpu_steps["trna_adc_decision"](*rows)
+    require(bool(torch.isfinite(out.probs).all()) and out.probs.shape == (N_ROWS, 5), "tRNA: probabilities")
+    gpu_d, cpu_d = _decisions(out), _decisions(ref)
+    same = int(np.logical_and.reduce([a == b for a, b in zip(gpu_d, cpu_d)]).sum())
+    print(f"tRNA adc decision: rows agreeing GPU vs CPU on (success, fail_code, pred): {same}/{N_ROWS}")
+    require(same >= N_ROWS - 1, "tRNA: GPU and CPU decisions disagree")
+    succ, fail, pred = cpu_d
+    for k, name in enumerate(TRNA_KINDS):
+        if name in TRNA_KINDS[:k]:
+            continue
+        sel = np.isin(kind, [j for j, n in enumerate(TRNA_KINDS) if n == name])
+        print(f"tRNA branch {name!r}: {int(sel.sum())} rows, fail codes {dict(sorted(Counter(fail[sel].tolist()).items()))}")
+    planted = barcode >= 0
+    called = succ & planted & (pred != -1)
+    print(f"tRNA planted barcodes: {int(planted.sum())} rows, {int((succ & planted).sum())} pass, "
+          f"{int(called.sum())} called, {int((pred[called] == barcode[called]).sum())} as planted")
+    require({0, 6, 9, 13} <= set(fail.tolist()), f"tRNA: a branch was not reached: {Counter(fail.tolist())}")
+    require((pred[called] == barcode[called]).mean() >= 0.9, "tRNA: planted barcodes not recovered")
+
+    # b. vbz feed, full outputs: the columns and the consensus match
+    wire = vbz_batch(*rows)
+    full, by_path["trna_vbz_full"] = _drive("trna_vbz_full", steps["trna_vbz_full"], wire)
+    full_ref = cpu_steps["trna_vbz_full"](*wire)
+    same_rows = _compare_full(full, full_ref, exact_rows=(full.cons_i.cpu() == full_ref.cons_i).all(1).numpy())
+    print(f"tRNA vbz full: rows agreeing GPU vs CPU on every int, median, MAD and consensus column: {same_rows}/{N_ROWS}")
+    require(same_rows >= N_ROWS - 1, "tRNA: GPU and CPU full outputs disagree")
+    for path in TRNA_PATHS:
+        require(by_path[path]["wdx_subseq_dtw"] == 1, f"{path}: K10 not launched once")
+
+    # c. reads/s of both paths
+    rates = time_throughput(steps, card, TRNA_PATHS, batches)
+
+    # d. the offline run loop on the four minibatches, boundaries saved
+    id_rng = np.random.default_rng(19)
+    read_ids = np.array([str(uuid.UUID(int=int.from_bytes(id_rng.bytes(16), "big"))) for _ in range(4 * B)], object)
+    tmp = tempfile.TemporaryDirectory()
+    run = f"{tmp.name}/{TRNA_OFFLINE_RUN}"
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    stats = demux_minibatches(
+        offline_config(run, "vbz", False, model=TRNA_MODEL, boundaries=True), load_model(TRNA_MODEL, dev),
+        offline_batches(batches, read_ids, "vbz"), device=dev,
+    )
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    by_path[TRNA_OFFLINE_RUN] = dict(_cuda.launches)
+    check_offline_run(run, stats, read_ids, False)
+    header = shard_header(run, "boundaries")
+    require({"seg_cons_query_start", "seg_cons_query_end", "sig_barcode_start"} <= set(header),
+            "tRNA run: the boundaries lack the consensus columns")
+    require(sorted(r[0] for r in shard_rows(run, "boundaries")) == sorted(r[0] for r in shard_rows(run, "predictions")),
+            "tRNA run: the boundaries rows are not the predicted reads")
+    want = {key: 4 * k for key, k in zip(KERNELS, LAUNCHES["trna_vbz_full"])}
+    print(f"launches in the {TRNA_OFFLINE_RUN} run: {by_path[TRNA_OFFLINE_RUN]}")
+    require(by_path[TRNA_OFFLINE_RUN] == want, f"{TRNA_OFFLINE_RUN}: launches differ from 4 x {LAUNCHES['trna_vbz_full']}")
+    print(f"{TRNA_OFFLINE_RUN} run: {4 * B / seconds!r} reads/s ({seconds!r} s for {4 * B} reads: {stats.passed} pass, "
+          f"{stats.failed} fail, {stats.predicted} predicted; {len(list(Path(run, 'boundaries').glob('*.csv.gz')))} "
+          f"boundaries shards) beside the trna_vbz_full step's {sum(rates['trna_vbz_full']) / 2!r} reads/s on {card}")
+    tmp.cleanup()
+    return by_path, steps, rows
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from warpdemux_tpu_torch import _cuda  # fails outside the repository
+    from bench import synth_minibatch  # fails outside the repository
+    from warpdemux_tpu_torch import _cuda
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -1619,15 +1905,19 @@ def main() -> int:
     results = check_kernels(dev, card)
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
-    step_rates = time_throughput(steps, card)
+    rng = np.random.default_rng(0)
+    step_rates = time_throughput(steps, card, PATHS, [synth_minibatch(rng, B, L) for _ in range(4)])
     offline_counts, offline_run = run_offline_loop(dev, card, step_rates)
     by_path.update(offline_counts)
+    trna_counts, trna_steps, trna_rows = run_trna_path(dev, card)
+    by_path.update(trna_counts)
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
-    count_step_ops(steps, lane_program, offline_run)
+    count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows))
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        counts = {path: by_path[path][key] for path in (*PATHS, *OFFLINE_RUNS, "live_lane")}
+        counts = {path: by_path[path][key]
+                  for path in (*PATHS, *OFFLINE_RUNS, *TRNA_PATHS, TRNA_OFFLINE_RUN, "live_lane")}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -29,15 +29,18 @@ from chip_smoke import (  # noqa: E402
     k5_edge_cases,
     k7_edge_cases,
     k8_edge_cases,
+    k10_edge_cases,
+    k10_step_series,
     live_bucket_batches,
     live_lane_reads,
     offline_batches,
     offline_config,
+    trna_minibatch,
 )
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
 from warpdemux_tpu_torch.models.registry import load_model_arrays  # noqa: E402
-from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, window_gather  # noqa: E402
+from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, subsequence, window_gather  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 MODEL = "WDX4_rna004_v1_0"
@@ -505,12 +508,73 @@ def test_decision_step_gpu_matches_cpu(dev):
     _cuda.reset_launches()
     gpu = make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
-    idle = {"wdx_rolling_detect"}  # the fused kernel replaces K6 + K7
+    idle = {"wdx_rolling_detect", "wdx_subseq_dtw"}  # K9 replaces K6 + K7; K10 is the tRNA path's
     assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
     cpu = make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu", **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     torch.testing.assert_close(gpu.probs.cpu(), cpu.probs, rtol=1e-5, atol=1e-6)
+
+
+def _k10_equal(args):
+    k = subsequence.subsequence_dtw(*args)
+    p = subsequence.subsequence_dtw_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(k[2].isnan(), p[2].isnan())
+    assert torch.equal(k[2].nan_to_num().view(torch.int32), p[2].nan_to_num().view(torch.int32))
+
+
+def test_k10_subseq_dtw(dev):
+    """The tRNA path's shape: the consensus (m=84) into 256 series of 121
+    events; start, end and dist bit for bit."""
+    q, s, lens = k10_step_series(np.random.default_rng(3), 256)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    _cuda.reset_launches()
+    _k10_equal((t(q), t(s), t(lens)))
+    assert _cuda.launches["wdx_subseq_dtw"] == 1
+
+
+@pytest.mark.parametrize("case", k10_edge_cases(), ids=lambda c: c[0])
+def test_k10_subseq_dtw_edge_cases(dev, case):
+    _, q, s, lens, psi = case
+    t = lambda a: torch.as_tensor(a, device=dev)
+    _k10_equal((t(q), t(s), t(lens), 1.5, psi))
+
+
+@pytest.mark.parametrize("path", ["trna_adc_decision", "trna_vbz_full"])
+def test_trna_step_gpu_matches_cpu(dev, path):
+    """The WDX4_tRNA step on the card: the pinned launch counts (K10 once),
+    and the CPU step's decisions and consensus columns."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    name = "WDX4_tRNA_rna004_v1_0"
+    spc = get_model_spc_config(name)
+    adc, off, sc, lens, _, _ = trna_minibatch(np.random.default_rng(0), 64)
+    if path == "trna_vbz_full":
+        keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], 10000, 10 * 1024)
+        args, kw = (keys, data, off, sc, lens), dict(input_format="vbz", outputs="full")
+    else:
+        args, kw = (adc, off, sc, lens), dict(input_format="adc", outputs="decision")
+    _cuda.reset_launches()
+    gpu = make_demux_step(load_model(name, dev), spc, device=dev, **kw)(*args)
+    torch.cuda.synchronize()
+    assert tuple(_cuda.launches.values()) == LAUNCHES[path], _cuda.launches
+    cpu = make_demux_step(load_model(name, "cpu"), spc, device="cpu", **kw)(*args)
+    if path == "trna_vbz_full":
+        gpu, cpu = gpu.unpack(), cpu.unpack()
+        for field in gpu.consensus._fields:
+            np.testing.assert_array_equal(getattr(gpu.consensus, field), getattr(cpu.consensus, field))
+        gpu_d = (gpu.success, gpu.fail_code, gpu.pred)
+        cpu_d = (cpu.success, cpu.fail_code, cpu.pred)
+    else:
+        gpu_d = [getattr(gpu, f).cpu().numpy() for f in ("success", "fail_code", "pred")]
+        cpu_d = [getattr(cpu, f).numpy() for f in ("success", "fail_code", "pred")]
+    for g, c in zip(gpu_d, cpu_d):
+        np.testing.assert_array_equal(g, c)
 
 
 def _lane_session(device, max_batch, tmp_path):

@@ -242,11 +242,28 @@ def test_detect_llr_matches_jax_on_synthetic_reads(seed):
         {"detect_med_shift": True},
     ],
 )
-def test_unported_detect_options_raise(change):
-    cfg = replace(get_model_spc_config(MODEL).detect, **change)
-    x, lens = _bench_rows(2)
-    with pytest.raises(NotImplementedError):
-        bd.detect_boundaries_batch(torch.from_numpy(x), torch.from_numpy(lens), cfg)
+def test_trna_detect_options_on_the_mrna_config_equal_jax(change):
+    """The options of the tRNA chemistry on the production mRNA
+    configuration (CNN prior + LLR fallback, start_peak with the fallback):
+    every column the decision lane computes equals the jitted JAX
+    function's on 16 bench reads."""
+    spc = get_model_spc_config(MODEL)
+    cfg = replace(spc.detect, **change)
+    x, lens = _bench_rows(16)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test workers share the machine's cores
+    try:
+        got = bd.detect_boundaries_with_fallback(
+            torch.from_numpy(x), torch.from_numpy(lens), cfg, load_cnn(spc.cnn_model_name, "cpu"),
+            with_stats=False,
+        )
+    finally:
+        torch.set_num_threads(threads)
+    jcfg = replace(jax_spc(MODEL).detect, **change)
+    want = jax_bd.detect_boundaries_with_fallback(
+        x, lens, jcfg, jax_cnn.load_params(spc.cnn_model_name), with_stats=False
+    )
+    _assert_detect_equal(got, want)
 
 
 def test_rolling_detect_matches_jax_kernel_and_the_unfused_stats():

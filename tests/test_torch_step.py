@@ -129,22 +129,42 @@ def test_pa_feed_matches_adc_feed(steps):
 
 
 @pytest.mark.parametrize("option", ["consensus_refinement", "start_peak"])
-def test_unported_step_options_raise(option):
+def test_trna_step_options_on_the_mrna_config_equal_jax(option):
     """The tRNA chemistry's consensus-refined fingerprints and start_peak
-    detector are not ported: the step refuses them when it is built."""
+    detector, each switched on in the WDX4 configuration: the port's
+    decisions equal the JAX step's on 16 bench reads."""
     from dataclasses import replace
 
+    from warpdemux_tpu.config.utils import get_model_spc_config as jax_spc
+    from warpdemux_tpu.models.registry import load_model as jax_load_model
+    from warpdemux_tpu.pipeline.step import make_demux_step as jax_make_step
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
 
-    spc = get_model_spc_config(MODEL)
-    if option == "consensus_refinement":
-        spc = replace(spc, seg_extra=replace(spc.seg_extra, consensus_refinement=True))
-    else:
-        spc = replace(spc, detect=replace(spc.detect, method="start_peak"))
-    with pytest.raises(NotImplementedError):
-        make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu")
+    def switch(spc):
+        if option == "consensus_refinement":
+            return replace(spc, seg_extra=replace(
+                spc.seg_extra, consensus_refinement=True, consensus_model="rna004_130bps_v1_0"
+            ))
+        return replace(spc, detect=replace(spc.detect, method="start_peak"))
+
+    args = tuple(a[:16] for a in synth_minibatch(np.random.default_rng(0), 16, L))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test workers share the machine's cores
+    try:
+        got = make_demux_step(
+            load_model(MODEL, "cpu"), switch(get_model_spc_config(MODEL)), input_format="adc",
+            outputs="decision", device="cpu",
+        )(*args)
+    finally:
+        torch.set_num_threads(threads)
+    want = jax_make_step(
+        jax_load_model(MODEL), switch(jax_spc(MODEL)), input_format="adc", outputs="decision"
+    )(*args)
+    for g, w in zip(_decisions(got), _decisions(want)):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.fail_code.numpy(), np.asarray(want.fail_code))
 
 
 def test_a_positional_feed_name_fails_loudly():

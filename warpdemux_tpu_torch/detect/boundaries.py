@@ -1,8 +1,9 @@
 """Batched adapter / poly(A) boundary detection.
 
-Port of warpdemux_tpu/detect/boundaries.py for the `llr` and `cnn`
-methods and the per-read LLR fallback. RNA004 reads traverse the pore
-adapter -> poly(A) -> RNA; detection:
+Port of warpdemux_tpu/detect/boundaries.py: the `llr`, `cnn` and
+`start_peak` methods, the per-read LLR fallback and every fail gate
+([mvs_polya], [real_range], [med_shift], open pores). RNA004 reads
+traverse the pore adapter -> poly(A) -> RNA; detection (llr / cnn):
 
 1. adapter-level proxy: the median of the first min_obs_adapter samples
    (kernel K8 over the int16 ADC preimage when the feed has one, else K4),
@@ -15,16 +16,22 @@ adapter -> poly(A) -> RNA; detection:
    the run's lapse gives poly(A) -> RNA,
 5. both are refined to the sample with an exact two-segment Gaussian
    changepoint scan in a local window (window copy: kernel K5),
-6. gate medians (K8 or K4) and the [mvs_polya] check give the fail codes,
+6. gate medians (K8 or K4) and the gates give the fail codes,
 7. with_stats: mean / std / median / MAD of the adapter, poly(A) and RNA
    regions (medians and MADs: kernel K4).
+
+The start_peak method (the tRNA chemistry) anchors the adapter on the
+capture spike at the read's head, found on the signal downscaled by
+downscale_factor; the adapter-level proxy is the median of the window
+after it; a short poly(A) is searched as above (K6, K7, K5), and without
+one the adapter ends at the best two-segment split of the max_obs_adapter
+window after its start (one more K5 window).
 
 The JAX package relies on XLA's common-subexpression elimination to run
 the proxy median and the rolling statistics once for the fallback pair;
 here detect_boundaries_with_fallback computes them once and hands them to
 both passes. First-index semantics (argmax / argmin) are written out
-explicitly. The start_peak method, resolve_limit, [real_range] and
-[med_shift] gates are not ported and raise NotImplementedError.
+explicitly. resolve_limit (the two-stage wire) is not ported.
 """
 
 from __future__ import annotations
@@ -33,14 +40,15 @@ import os
 from dataclasses import replace
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.config.sig_proc import DetectConfig
 from warpdemux_tpu_torch.detect import cnn as cnn_mod
 from warpdemux_tpu_torch.detect.containers import DetectArrays
-from warpdemux_tpu_torch.ops.normalize import masked_mean_std
-from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log
+from warpdemux_tpu_torch.ops.normalize import masked_mean_std, masked_median
+from warpdemux_tpu_torch.ops.numerics import BLOCK, _sequential_sum, fma, prefix_sums, xla_log
 from warpdemux_tpu_torch.ops.select import range_median_mad, range_medians_adc
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
 
@@ -271,6 +279,48 @@ def _llr_cost(win):
     return fma(n1, log_v1, n2 * log_v2)
 
 
+def _llr_split_window(xz, start, W: int, min_split: int, n_valid):
+    """Two-segment Gaussian split of the window [start, start + W), for
+    splits at min_split or later that leave both segments inside n_valid;
+    returns the absolute position, clamped to [0, n_valid]. The window
+    reads zeros past the row (K5 with lengths). The cost is rounded as
+    _llr_cost's, with the second segment's sums and count taken at the
+    row's own window end."""
+    L = xz.shape[1]
+    start = start.clamp(0, max(L - 1, 0))
+    win = shift_rows(xz, start, W, torch.full_like(start, W))
+    c1 = prefix_sums(win)
+    c2 = prefix_sums(win * win)
+    weff = (n_valid - start).clamp(1, W)
+    n1 = torch.arange(1, W, device=xz.device, dtype=torch.float32)[None, :]
+    n2 = torch.clamp_min(weff.to(torch.float32)[:, None] - n1, 1.0)
+    s1, s2 = c1[:, 1:W], c2[:, 1:W]
+    q1 = s1 / n1
+    v1 = torch.clamp_min(fma(-q1, q1, s2 / n1), 1e-6)
+    idx = weff.to(torch.int64)[:, None]
+    sT1 = torch.gather(c1, 1, idx) - s1
+    sT2 = torch.gather(c2, 1, idx) - s2
+    q2 = sT1 / n2
+    v2 = torch.clamp_min(fma(-q2, q2, sT2 / n2), 1e-6)
+    log_v1, log_v2 = xla_log(torch.stack([v1, v2]))
+    cost = fma(n1, log_v1, n2 * log_v2)
+    tpos = torch.arange(1, W, device=xz.device)[None, :]
+    ok = (tpos >= min_split) & (tpos < weff[:, None])
+    cost = torch.where(ok, cost, torch.full_like(cost, float("inf")))
+    split = _first_argmin(cost) + 1
+    return torch.minimum(torch.clamp_min(start + split, 0), n_valid)
+
+
+def downscale_mean(xz: torch.Tensor, ds: int) -> torch.Tensor:
+    """Means of consecutive blocks of ds samples, (B, L // ds), rounded as
+    the jitted jnp.mean rounds them on the CPU: a left-to-right sum, then
+    a product with float32(1 / ds)."""
+    B, L = xz.shape
+    Lds = L // ds
+    blocks = xz[:, : Lds * ds].reshape(B, Lds, ds)
+    return _sequential_sum(blocks) * float(np.float32(1.0) / np.float32(ds))
+
+
 def cnn_region_mask(xz, in_lens, cfg: DetectConfig, cnn, L: int) -> torch.Tensor:
     """CNN region prior as a float32 0/1 (B, L) mask. Prefix-causal: input,
     validity and normalization are capped at cnn_input_cap samples."""
@@ -297,14 +347,13 @@ def fused_rolling_default() -> bool:
     return os.environ.get("WDX_FUSED_ROLLING", "0") == "1"
 
 
+METHODS = ("llr", "cnn", "start_peak")
+
+
 def check_supported(cfg: DetectConfig) -> None:
-    """Raise NotImplementedError for the detect options not ported."""
-    if cfg.method not in ("llr", "cnn"):
-        raise NotImplementedError(f"detect method {cfg.method!r} is not ported")
-    if cfg.real_signal_check or cfg.detect_med_shift:
-        raise NotImplementedError(
-            "the [real_range] and [med_shift] gates are not ported"
-        )
+    """Raise ValueError for a detect method that does not exist."""
+    if cfg.method not in METHODS:
+        raise ValueError(f"detect method must be one of {METHODS}, got {cfg.method!r}")
 
 
 def _range_medians(x, starts, ends, adc=None):
@@ -371,9 +420,10 @@ def _signal(signals, in_lens, adc, calibration) -> _Signal:
 
 class _Rolling(NamedTuple):
     """What both passes of a fallback pair read: the adapter-level proxy
-    and the rolling statistics, plus K9's run sums when fused."""
+    (None where no pass of the pair is llr or cnn) and the rolling
+    statistics, plus K9's run sums when fused."""
 
-    proxy_med: torch.Tensor  # (B,)
+    proxy_med: torch.Tensor | None  # (B,)
     mean_f: torch.Tensor
     var_f: torch.Tensor
     var_w: torch.Tensor
@@ -383,13 +433,15 @@ class _Rolling(NamedTuple):
 
 def _rolling(sig: _Signal, cfg: DetectConfig, cnn_region, fused: bool) -> _Rolling:
     B = sig.x.shape[0]
-    # adapter level proxy: median of the first min_obs_adapter samples
-    proxy = _range_medians(
-        sig.x,
-        torch.zeros((1, B), dtype=torch.int32, device=sig.x.device),
-        torch.clamp_max(sig.in_lens, cfg.min_obs_adapter)[None],
-        sig.adc,
-    )[0]
+    proxy = None
+    if cfg.method != "start_peak" or cfg.fallback_to_llr:
+        # adapter level proxy: median of the first min_obs_adapter samples
+        proxy = _range_medians(
+            sig.x,
+            torch.zeros((1, B), dtype=torch.int32, device=sig.x.device),
+            torch.clamp_max(sig.in_lens, cfg.min_obs_adapter)[None],
+            sig.adc,
+        )[0]
     if fused and cnn_region is not None:
         return _Rolling(proxy, *rolling_detect(
             sig.xz, cnn_region, cfg.search_scale * proxy, sig.in_lens,
@@ -412,12 +464,13 @@ def detect_boundaries_batch(
     fused_rolling: bool | None = None,
 ) -> DetectArrays:
     """Detect adapter / poly(A) / RNA boundaries for a (B, L) minibatch
-    with the cfg.method detector ("llr" or "cnn").
+    with the cfg.method detector ("llr", "cnn" or "start_peak").
 
     `cnn`: the BoundaryCNN module (method "cnn"), or a precomputed
     `cnn_region` (B, L) 0/1 mask from cnn_region_mask.
     with_stats=False skips the region summary statistics (their fields are
-    0); only the gate medians are computed.
+    0); only the gate medians (and the adapter MAD of [real_range]) are
+    computed.
     `adc`: the int16 ADC preimage of `signals` (adc and vbz feeds); the
     median-only launches then bisect it (K8).
     `calibration`: (offset (B,), scale (B,)) when the caller computed
@@ -438,67 +491,196 @@ def detect_boundaries_batch(
     return _detect_pass(sig, cfg, cnn_region, rolled, with_stats)
 
 
-def _detect_pass(
-    sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling, with_stats: bool
-) -> DetectArrays:
-    x, in_lens, pos, valid = sig.x, sig.in_lens, sig.pos, sig.valid
-    B = x.shape[0]
-    dev = x.device
-    region_mask = cnn_region > 0 if cfg.method == "cnn" else None
-    mean_f, var_f, var_w = rolled.mean_f, rolled.var_f, rolled.var_w
+class _Boundaries(NamedTuple):
+    """One method's boundaries, before the statistics and the gates."""
 
-    # poly(A) candidates: elevated + flat + fully inside the valid region
-    thr = cfg.search_scale * rolled.proxy_med[:, None]
-    W = cfg.min_obs_polya
-    win_ok = (pos + W) <= in_lens[:, None]
-    cand = (mean_f > thr) & (var_w < cfg.search_var_max) & valid & win_ok
-    if region_mask is not None:
-        cand = cand & region_mask
-    if rolled.rs_plain is not None:  # K9 counted both masks already
-        runs = rolled.rs_plain if region_mask is None else rolled.rs_masked
-    else:
+    adapter_start: torch.Tensor
+    adapter_end: torch.Tensor
+    polya_start: torch.Tensor
+    polya_end: torch.Tensor
+    polya_candidates: torch.Tensor
+    found: torch.Tensor  # poly(A) found (always True for start_peak)
+    sp_fail: torch.Tensor | None  # start_peak: no capture spike
+    xds: torch.Tensor | None  # the downscaled signal, where computed
+
+
+def _polya_search(sig: _Signal, cfg: DetectConfig, rolled: _Rolling, cand, thr, W: int, var_max: float,
+                  runs=None):
+    """(coarse poly(A) start, found, candidate runs, coarse end) from the
+    candidate mask: the first run of W sustained candidates, and the first
+    position W or more past it where the signal stops being elevated and
+    flat (variance at most var_max; plus mean_window / 2). `runs`: the run
+    sums where K9 counted them, else K7 counts them here."""
+    if runs is None:
         runs = run_sum(cand, W)
     sustained = (runs == W) & cand
     coarse_ps, found = _first_true(sustained, 0)
-
     sust_prev = torch.cat([torch.zeros_like(sustained[:, :1]), sustained[:, :-1]], 1)
     polya_candidates = (sustained & ~sust_prev).sum(1).to(torch.int32)
-
-    # poly(A) end: first position past the run where the region stops being
-    # both elevated and flat
-    flat_high = (mean_f > thr) & (var_f <= cfg.search_var_max) & valid
-    lapse = ~flat_high & (pos >= coarse_ps[:, None] + W)
+    flat_high = (rolled.mean_f > thr) & (rolled.var_f <= var_max) & sig.valid
+    lapse = ~flat_high & (sig.pos >= coarse_ps[:, None] + W)
     pe_first, has_end = _first_true(lapse, 0)
-    coarse_pe = torch.where(has_end, pe_first, in_lens)
-    coarse_pe = torch.minimum(coarse_pe + cfg.mean_window // 2, in_lens)
+    coarse_pe = torch.where(has_end, pe_first, sig.in_lens)
+    coarse_pe = torch.minimum(coarse_pe + cfg.mean_window // 2, sig.in_lens)
+    return coarse_ps, found, polya_candidates, coarse_pe
 
-    zero_i = torch.zeros_like(in_lens)
+
+def _refine_polya(sig: _Signal, cfg: DetectConfig, coarse_ps, coarse_pe):
+    """Both coarse poly(A) boundaries refined in one batch of windows (one
+    K5 launch), clamped to [0, len] and [start, len]."""
     ps, pe = _llr_refine(sig.xz, torch.stack([coarse_ps, coarse_pe]), cfg.llr_refine_window)
-    polya_start = torch.minimum(torch.maximum(ps, zero_i), in_lens)
-    polya_end = torch.minimum(torch.maximum(pe, polya_start), in_lens)
+    polya_start = torch.minimum(torch.clamp_min(ps, 0), sig.in_lens)
+    polya_end = torch.minimum(torch.maximum(pe, polya_start), sig.in_lens)
+    return polya_start, polya_end
+
+
+def _llr_boundaries(sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling) -> _Boundaries:
+    """[llr_boundaries] / [cnn_boundaries]: the sustained elevated, flat
+    region is the poly(A); the adapter runs from the first sub-open-pore
+    sample to its start."""
+    W = cfg.min_obs_polya
+    thr = cfg.search_scale * rolled.proxy_med[:, None]
+    win_ok = (sig.pos + W) <= sig.in_lens[:, None]
+    cand = (rolled.mean_f > thr) & (rolled.var_w < cfg.search_var_max) & sig.valid & win_ok
+    if cfg.method == "cnn":
+        cand = cand & (cnn_region > 0)
+    runs = rolled.rs_masked if cfg.method == "cnn" else rolled.rs_plain
+    coarse_ps, found, polya_candidates, coarse_pe = _polya_search(
+        sig, cfg, rolled, cand, thr, W, cfg.search_var_max, runs
+    )
+    polya_start, polya_end = _refine_polya(sig, cfg, coarse_ps, coarse_pe)
+    zero_i = torch.zeros_like(sig.in_lens)
     polya_start = torch.where(found, polya_start, zero_i)
     polya_end = torch.where(found, polya_end, zero_i)
-
     # adapter start: first sub-open-pore sample (usually 0)
-    adapter_start, _ = _first_true((mean_f < cfg.open_pore_pa) & valid, 0)
-    adapter_end = polya_start
+    adapter_start, _ = _first_true((rolled.mean_f < cfg.open_pore_pa) & sig.valid, 0)
+    return _Boundaries(
+        adapter_start, polya_start, polya_start, polya_end, polya_candidates, found, None, None
+    )
+
+
+def _start_peak_boundaries(sig: _Signal, cfg: DetectConfig, rolled: _Rolling) -> _Boundaries:
+    """[rna_start_peak] (tRNA): the adapter starts sp_offset1 downscaled
+    positions past the capture spike at the head of the read; a poly(A)
+    of min_len_polya downscaled positions is searched from sp_offset2 past
+    it; without one, the adapter ends at the strongest two-segment split of
+    the max_obs_adapter window after its start (at min_obs_adapter or
+    later). A missing poly(A) is no failure here."""
+    in_lens = sig.in_lens
+    ds = cfg.downscale_factor
+    xds = downscale_mean(sig.xz, ds)
+    Lds = xds.shape[1]
+    pds = torch.arange(Lds, device=xds.device)[None, :]
+    left = torch.cat([xds[:, :1], xds[:, :-1]], 1)
+    right = torch.cat([xds[:, 1:], xds[:, -1:]], 1)
+    is_pk = (
+        (xds >= left)
+        & (xds > right)
+        & (xds >= cfg.min_start_peak_pa)
+        & (xds < cfg.open_pore_pa)
+        & (pds >= 1)
+        & (pds < cfg.start_peak_max_idx)
+        & ((pds + 1) * ds <= in_lens[:, None])
+    )
+    pk_idx, pk_found = _first_true(is_pk, 0)
+    adapter_start = torch.minimum((pk_idx + cfg.sp_offset1) * ds, in_lens)
+
+    # adapter level: the median of the window right after the start
+    proxy = _range_medians(
+        sig.x, adapter_start[None],
+        torch.minimum(adapter_start + cfg.min_obs_adapter, in_lens)[None], sig.adc,
+    )[0]
+    search_from = (pk_idx + cfg.sp_offset2) * ds
+    thr = cfg.sp_polya_scale * proxy[:, None]
+    Wp = cfg.min_len_polya * ds
+    win_ok = (sig.pos + Wp) <= in_lens[:, None]
+    cand = (
+        (rolled.mean_f > thr)
+        & (rolled.var_w < cfg.polya_var_max)
+        & sig.valid
+        & win_ok
+        & (sig.pos >= search_from[:, None])
+    )
+    coarse_ps, found, polya_candidates, coarse_pe = _polya_search(
+        sig, cfg, rolled, cand, thr, Wp, cfg.polya_var_max
+    )
+    polya_start, polya_end = _refine_polya(sig, cfg, coarse_ps, coarse_pe)
+
+    split_end = _llr_split_window(
+        sig.xz, adapter_start, cfg.max_obs_adapter, cfg.min_obs_adapter, in_lens
+    )
+    adapter_end = torch.where(found & cfg.sp_detect_polya, polya_start, split_end)
+    polya_start = torch.where(found, polya_start, adapter_end)
+    polya_end = torch.where(found, polya_end, adapter_end)
+    return _Boundaries(
+        adapter_start, adapter_end, polya_start, polya_end, polya_candidates,
+        torch.ones_like(found), ~pk_found, xds,
+    )
+
+
+def _local_range_median(xds, adapter_start, adapter_end, cfg: DetectConfig):
+    """[real_range]: the median, over the windows of local_range_window //
+    downscale_factor downscaled positions that lie inside the adapter (cut
+    at max_obs_local_range), of each window's max - min (NaN where no
+    window fits)."""
+    ds = cfg.downscale_factor
+    B, Lds = xds.shape
+    pds = torch.arange(Lds, device=xds.device)[None, :]
+    lim = torch.clamp_max(adapter_end, cfg.max_obs_local_range) // ds
+    admask = (pds >= (adapter_start // ds)[:, None]) & (pds < lim[:, None])
+    wds = max(cfg.local_range_window // ds, 2)
+    if Lds < wds:
+        return torch.full((B,), float("nan"), dtype=xds.dtype, device=xds.device)
+    ninf = torch.full_like(xds, float("-inf"))
+    pool = lambda a: torch.nn.functional.max_pool1d(a[:, None], wds, stride=1)[:, 0]
+    hi = pool(torch.where(admask, xds, ninf))
+    lo = -pool(torch.where(admask, -xds, ninf))
+    ok = admask[:, : hi.shape[1]] & admask[:, wds - 1 :]
+    local = torch.where(ok, hi - lo, torch.full_like(hi, float("nan"))).nan_to_num(nan=0.0)
+    return masked_median(local, ok)
+
+
+def _detect_pass(
+    sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling, with_stats: bool
+) -> DetectArrays:
+    x, in_lens, pos = sig.x, sig.in_lens, sig.pos
+    B = x.shape[0]
+    dev = x.device
+    if cfg.method == "start_peak":
+        bnd = _start_peak_boundaries(sig, cfg, rolled)
+    else:
+        bnd = _llr_boundaries(sig, cfg, cnn_region, rolled)
+    adapter_start, adapter_end = bnd.adapter_start, bnd.adapter_end
+    polya_start, polya_end, found = bnd.polya_start, bnd.polya_end, bnd.found
     rna_start = polya_end
+    starts = [adapter_start, polya_start]
+    ends = [adapter_end, polya_end]
+    if with_stats:
+        starts.append(rna_start)
+        ends.append(in_lens)
+    if cfg.detect_med_shift:  # the [med_shift] window of the RNA
+        starts.append(rna_start)
+        ends.append(torch.minimum(rna_start + cfg.med_shift_window, in_lens))
+    starts, ends = torch.stack(starts), torch.stack(ends)
 
     zero_f = torch.zeros(B, dtype=torch.float32, device=dev)
     if with_stats:
-        means, stds, meds, mads = _region_stats(
-            sig,
-            torch.stack([adapter_start, polya_start, rna_start]),
-            torch.stack([adapter_end, polya_end, in_lens]),
-        )
+        means, stds, meds, mads = _region_stats(sig, starts, ends)
+        rna_med_w = meds[3] if cfg.detect_med_shift else None
     else:
-        # gate medians of the adapter and poly(A) regions (0 when empty)
-        starts = torch.stack([adapter_start, polya_start])
-        ends = torch.stack([adapter_end, polya_end])
-        gmeds = _range_medians(x, starts, ends, sig.adc)
-        gmeds = torch.where(ends <= starts, torch.zeros_like(gmeds), torch.nan_to_num(gmeds))
+        # gate medians (0 for empty ranges); the adapter MAD only where
+        # [real_range] reads it
+        empty = ends <= starts
         means = stds = mads = zero_f.expand(3, B)
-        meds = torch.cat([gmeds, zero_f[None]])
+        if cfg.real_signal_check:
+            gmeds, gmads = range_median_mad(x, starts, ends, with_mad=True, calibration=sig.calibration)
+            ad_mad = torch.where(empty[0], zero_f, torch.nan_to_num(gmads[0]))
+            mads = torch.stack([ad_mad, zero_f, zero_f])
+        else:
+            gmeds = _range_medians(x, starts, ends, sig.adc)
+        gmeds = torch.where(empty, torch.zeros_like(gmeds), torch.nan_to_num(gmeds))
+        rna_med_w = gmeds[2] if cfg.detect_med_shift else None
+        meds = torch.cat([gmeds[:2] if cfg.detect_med_shift else gmeds, zero_f[None]])
     ad_med, pa_med = meds[0], meds[1]
 
     # fail taxonomy (lower code = earlier gate)
@@ -509,6 +691,8 @@ def _detect_pass(
         return torch.where((fail == 0) & cond, torch.full_like(fail, code), fail)
 
     fail = set_fail(fail, in_lens < (cfg.min_obs_adapter + cfg.min_obs_polya), 1)
+    if bnd.sp_fail is not None:
+        fail = set_fail(fail, bnd.sp_fail, 9)  # rna start peak not found
     fail = set_fail(fail, ~found, 2)
     fail = set_fail(fail, found & (adapter_len < cfg.min_obs_adapter), 3)
     fail = set_fail(fail, found & (adapter_len > cfg.max_obs_adapter), 4)
@@ -518,6 +702,7 @@ def _detect_pass(
         # [mvs_polya] validation of the detected region: median shift
         # adapter -> poly(A), the flattest var_window inside the poly(A),
         # poly(A) mean / adapter median
+        var_w = rolled.var_w
         med_shift = pa_med - ad_med
         pa_var_mask = (pos >= polya_start[:, None]) & (
             pos + cfg.var_window <= polya_end[:, None]
@@ -539,6 +724,23 @@ def _detect_pass(
         fail = set_fail(fail, mvs_bad, 5)
         mvs_shift_val, mvs_minvar_val = med_shift, min_pa_var
 
+    if cfg.real_signal_check:
+        # local range plausibility on the downscaled adapter region, and
+        # the adapter MAD
+        xds = bnd.xds if bnd.xds is not None else downscale_mean(sig.xz, cfg.downscale_factor)
+        med_rng = _local_range_median(xds, adapter_start, adapter_end, cfg)
+        ad_mad = mads[0]
+        rr_bad = (
+            (med_rng < cfg.local_range[0])
+            | (med_rng > cfg.local_range[1])
+            | (ad_mad < cfg.adapter_mad_range[0])
+            | (ad_mad > cfg.adapter_mad_range[1])
+        )
+        fail = set_fail(fail, rr_bad, 6)
+
+    if cfg.detect_med_shift:
+        fail = set_fail(fail, (rna_med_w - ad_med) < cfg.med_shift_min, 7)
+
     if cfg.detect_open_pores:
         op_mask = (pos >= adapter_start[:, None]) & (pos < adapter_end[:, None])
         n_open = (op_mask & (x > cfg.open_pore_pa)).sum(1).to(torch.float32)
@@ -552,7 +754,7 @@ def _detect_pass(
         adapter_end=adapter_end,
         polya_start=polya_start,
         polya_end=polya_end,
-        polya_candidates=polya_candidates,
+        polya_candidates=bnd.polya_candidates,
         adapter_mean=means[0],
         adapter_std=stds[0],
         adapter_med=ad_med,

@@ -4,7 +4,10 @@ Port of warpdemux_tpu/ops/peaks.py:
 
 1. `peak_mask_batch`: plateau-aware local maxima (scipy `_local_maxima_1d`):
    a maximal run x[s..e] of equal values with x[s-1] < v and x[e+1] < v,
-   s >= 1, e <= n - 2, marked at its midpoint (s + e) // 2.
+   s >= 1, e <= n - 2, marked at its midpoint (s + e) // 2. With a
+   per-row slice origin `min_pos`, only runs with s >= min_pos + 1 count:
+   the peaks of scores[min_pos:n] at their positions in the row (the tRNA
+   path re-segments the scores from the barcode start on).
 2. `suppress_by_distance`: scipy `_select_by_peak_distance` as a priority
    fixpoint (priority = score, the later position winning ties). CUDA
    tensors go to kernel K3 (csrc/peaks.cu): a block a row runs the fixpoint
@@ -31,8 +34,11 @@ from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops.select import order_keys
 
 
-def peak_mask_batch(scores: torch.Tensor, n_scores: torch.Tensor):
-    """(B, L) local-maxima mask at plateau midpoints, and (B,) counts."""
+def peak_mask_batch(scores: torch.Tensor, n_scores: torch.Tensor, min_pos=None):
+    """(B, L) local-maxima mask at plateau midpoints, and (B,) counts.
+
+    min_pos: optional (B,) slice origin; a plateau counts only if it starts
+    at min_pos + 1 or later."""
     B, L = scores.shape
     pos = torch.arange(L, device=scores.device, dtype=torch.int64)[None, :]
     neg1 = torch.full((B, L), -1, dtype=torch.int64, device=scores.device)
@@ -65,6 +71,8 @@ def peak_mask_batch(scores: torch.Tensor, n_scores: torch.Tensor):
         & (e <= n_scores.to(torch.int64)[:, None] - 2)
         & (pos == torch.div(s + e, 2, rounding_mode="floor"))
     )
+    if min_pos is not None:
+        is_peak = is_peak & (s >= min_pos.to(torch.int64)[:, None] + 1)
     return is_peak, is_peak.sum(1).to(torch.int32)
 
 
@@ -148,11 +156,12 @@ def suppress_by_distance(scores, is_peak, distance, max_distance: int):
     return keep
 
 
-def find_peaks_batch(scores, n_scores, distance, max_distance: int = 32):
-    """scipy.signal.find_peaks(row, distance=distance_row) per row.
+def find_peaks_batch(scores, n_scores, distance, max_distance: int = 32, min_pos=None):
+    """scipy.signal.find_peaks(row, distance=distance_row) per row; with
+    min_pos, of the slice scores[min_pos:n_scores] at row positions.
 
     Returns (keep_mask (B, L) bool, peak_count (B,) int32)."""
-    is_peak, _ = peak_mask_batch(scores, n_scores)
+    is_peak, _ = peak_mask_batch(scores, n_scores, min_pos)
     keep = suppress_by_distance(scores, is_peak, distance, max_distance)
     return keep, keep.sum(1).to(torch.int32)
 

@@ -391,6 +391,10 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
             "adapter_event_std", "adapter_event_med", "adapter_event_mad",
         ):
             table[col] = getattr(fptA, col)[:n]
+        if res.consensus is not None:  # the tRNA path's consensus match
+            table["seg_cons_query_start"] = res.consensus.seg_query_start[:n]
+            table["seg_cons_query_end"] = res.consensus.seg_query_end[:n]
+            table["sig_barcode_start"] = res.consensus.sig_barcode_start[:n]
         table["fail_reason"] = fail_code_to_reason(res.fail_code[:n])
 
         if out.save_boundaries:

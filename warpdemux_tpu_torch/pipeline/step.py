@@ -4,12 +4,14 @@ Port of warpdemux_tpu/pipeline/step.py `make_demux_step` with the "pa",
 "adc" and "vbz" feeds and both output modes:
 
     [vbz decode] -> calibrate (adc, vbz) -> detect_boundaries_with_fallback
-        -> fingerprints_from_boundaries -> DTW -> exp kernel -> SVM proba
-        -> argmax / margin / thresholds -> pack (outputs="full")
+        -> fingerprints_from_boundaries (fingerprints_consensus_refined
+           where the chemistry asks for consensus refinement: the tRNA path)
+        -> DTW -> exp kernel -> SVM proba -> argmax / margin / thresholds
+        -> pack (outputs="full")
 
 On CUDA tensors every kernel of the chain is a hand-written kernel from
-csrc/ (K1-K8, K9 in place of K6 + K7 with fused_rolling); on CPU tensors
-each takes its plain PyTorch version.
+csrc/ (K1-K8, K9 in place of K6 + K7 with fused_rolling, K10 on the tRNA
+path); on CPU tensors each takes its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ from warpdemux_tpu_torch.detect.boundaries import (
     fused_rolling_default,
 )
 from warpdemux_tpu_torch.detect.containers import DetectArrays
+from warpdemux_tpu_torch.models.consensus_data import CONSENSUS
 from warpdemux_tpu_torch.models.registry import load_cnn
 from warpdemux_tpu_torch.ops.fingerprint import (
     FingerprintArrays,
+    fingerprints_consensus_refined,
     fingerprints_from_boundaries,
 )
 from warpdemux_tpu_torch.ops.vbz_device import vbz_decode_batch
@@ -37,6 +41,14 @@ from warpdemux_tpu_torch.pipeline.schema import PackSchema
 
 INPUT_FORMATS = ("pa", "adc", "vbz")
 OUTPUTS = ("full", "decision")
+
+
+class ConsensusView(NamedTuple):
+    """Consensus-match columns of the tRNA path (host view)."""
+
+    seg_query_start: np.ndarray
+    seg_query_end: np.ndarray
+    sig_barcode_start: np.ndarray
 
 
 class DemuxStepOutput(NamedTuple):
@@ -49,7 +61,7 @@ class DemuxStepOutput(NamedTuple):
     pred: np.ndarray  # (B,) int32 barcode (-1 noise; valid where success)
     conf: np.ndarray  # (B,)
     probs: np.ndarray  # (B, k)
-    consensus: None = None  # the tRNA consensus columns (not ported)
+    consensus: ConsensusView | None = None  # the tRNA path's columns
 
 
 class PackedStepOutput(NamedTuple):
@@ -59,7 +71,7 @@ class PackedStepOutput(NamedTuple):
 
     big_i: torch.Tensor  # (B, C_i) int32
     big_f: torch.Tensor  # (B, C_f) float32
-    cons_i: None  # the tRNA consensus columns (not ported)
+    cons_i: torch.Tensor | None  # (B, 3) int32: ConsensusView's columns (tRNA path)
     success: torch.Tensor  # (B,) bool
     pred: torch.Tensor  # (B,) int32
     conf: torch.Tensor  # (B,) float32
@@ -87,6 +99,9 @@ class PackedStepOutput(NamedTuple):
             **{f: cols[f] for f in FingerprintArrays._fields if f in cols},
             "ok": ci["fpt_ok"].astype(bool),
         })
+        cons = None
+        if self.cons_i is not None:
+            cons = ConsensusView(*self.cons_i.cpu().numpy().T)
         return DemuxStepOutput(
             detect=det,
             fpt=fpt,
@@ -95,6 +110,7 @@ class PackedStepOutput(NamedTuple):
             pred=self.pred.cpu().numpy(),
             conf=self.conf.cpu().numpy(),
             probs=cf["probs"],
+            consensus=cons,
         )
 
 
@@ -108,7 +124,7 @@ class DecisionStepOutput(NamedTuple):
     probs: torch.Tensor  # (B, k) float32 per-class probabilities
 
 
-def _pack(det: DetectArrays, fpt: FingerprintArrays, fail, success, pred, conf, probs):
+def _pack(det: DetectArrays, fpt: FingerprintArrays, cons, fail, success, pred, conf, probs):
     schema = PackSchema(k=fpt.fpt.shape[1], kc=probs.shape[1])
     int_vals = {f: getattr(det, f) for f in DetectArrays._fields}
     int_vals.update(
@@ -119,7 +135,9 @@ def _pack(det: DetectArrays, fpt: FingerprintArrays, fail, success, pred, conf, 
     return PackedStepOutput(
         big_i=schema.pack(int_vals, torch.int32),
         big_f=schema.pack(float_vals, torch.float32),
-        cons_i=None,
+        cons_i=None if cons is None else torch.stack(
+            [cons.seg_query_start, cons.seg_query_end, cons.sig_barcode_start], dim=1
+        ).to(torch.int32),
         success=success,
         pred=pred.to(torch.int32),
         conf=conf.to(torch.float32),
@@ -164,11 +182,14 @@ def make_demux_step(
         raise ValueError(f"input_format must be one of {INPUT_FORMATS}, got {input_format!r}")
     if outputs not in OUTPUTS:
         raise ValueError(f"outputs must be one of {OUTPUTS}, got {outputs!r}")
-    if spc.seg_extra.consensus_refinement:
-        raise NotImplementedError("consensus-refined fingerprints are not ported")
     check_supported(spc.detect)
     device = resolve_device(device)
-    dcfg, fcfg = spc.detect, spc.fingerprint
+    dcfg, fcfg, sx = spc.detect, spc.fingerprint, spc.seg_extra
+    query = None
+    if sx.consensus_refinement:
+        query = torch.as_tensor(
+            np.asarray(CONSENSUS[sx.consensus_model], np.float32), device=device
+        )
     classify = with_predict and model is not None
     if classify:
         model = model.to(device)
@@ -205,16 +226,22 @@ def make_demux_step(
             signals, in_lens, dcfg, cnn, with_stats=full, adc=adc,
             calibration=calibration, fused_rolling=fused_rolling,
         )
-        fpt = fingerprints_from_boundaries(
-            signals, in_lens, det.adapter_start, det.adapter_end, fcfg
-        )
-        # detect failures win; any other fingerprint failure is "event
-        # segmentation failed" (10)
-        fail = torch.where(
-            (det.fail_code == 0) & ~fpt.ok,
-            torch.full_like(det.fail_code, 10),
-            det.fail_code,
-        )
+        cons = None
+        if query is not None:
+            cons = fingerprints_consensus_refined(
+                signals, in_lens, det.adapter_start, det.adapter_end, query, fcfg, sx
+            )
+            fpt = cons.base
+        else:
+            fpt = fingerprints_from_boundaries(
+                signals, in_lens, det.adapter_start, det.adapter_end, fcfg
+            )
+        # detect failures win; then "consensus query outlier" (13); any
+        # other fingerprint failure is "event segmentation failed" (10)
+        passed = det.fail_code == 0
+        fail = torch.where(passed & ~fpt.ok, torch.full_like(det.fail_code, 10), det.fail_code)
+        if cons is not None:
+            fail = torch.where(passed & cons.outlier, torch.full_like(fail, 13), fail)
         success = fail == 0
         if classify:
             fpts = torch.where(success[:, None], fpt.fpt, torch.zeros_like(fpt.fpt))
@@ -225,7 +252,7 @@ def make_demux_step(
             conf = torch.zeros(B, dtype=torch.float32, device=device)
             probs = torch.zeros((B, 1), dtype=torch.float32, device=device)
         if full:
-            return _pack(det, fpt, fail, success, pred, conf, probs)
+            return _pack(det, fpt, cons, fail, success, pred, conf, probs)
         return DecisionStepOutput(pred, conf, fail, success, probs)
 
     return step
