@@ -56,9 +56,13 @@ Phases (each raises on failure; nothing is caught):
    counterpart) is held bit for bit at 1000 series of 121 events against
    the 84-event consensus, and on series lengths of 0, 1 and below the
    query's, psi_2b at and beyond the width, constant series, exact ties,
-   NaN and infinite values and other widths. An empty launch is timed as
-   called through `_cuda.launch` and through a launch that resolves the
-   entry point, the device context and the stream object every time.
+   NaN and infinite values, other widths and the warp kernel's seams
+   (query lengths 1 to 258, series of 1 and 31 events), on both of its
+   variants (one warp a read, for queries of at most 256; one block a
+   read, which longer queries take), and both are timed in turns at the
+   step's shape. An empty launch is timed as called through `_cuda.launch`
+   and through a launch that resolves the entry point, the device context
+   and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -533,8 +537,11 @@ def k10_edge_cases():
     """[(name, query (m,), series (B, C), lens (B,), psi)]: the matches that
     K10 and its plain version are held to: series lengths of 0, 1 and
     shorter than the query, psi_2b at and beyond the series' width,
-    constant series, exact ties, non-finite values, and other widths and
-    query lengths (one warp, several warps)."""
+    constant series, exact ties, non-finite values, other widths and
+    query lengths, and the warp kernel's seams: query lengths where a
+    lane's rows, the busy lanes or the variant change, series of 1 and 31
+    events, a row of length 0 among full ones, NaN only in the last busy
+    lane's query rows."""
     import numpy as np
 
     rng = np.random.default_rng(10)
@@ -558,6 +565,22 @@ def k10_edge_cases():
         qe = rng.normal(0, 1, m).astype(np.float32)
         se = rng.normal(0, 1, (6, C)).astype(np.float32)
         cases.append((f"m={m} C={C}", qe, se, rng.integers(0, C + 2, 6).astype(np.int32), (2, 0, 3, 0)))
+    # the warp kernel's seams: R = 3 rows a lane (m = 33, 63, 96) or 8 (the
+    # others), the last busy lane full or not, all 32 busy, the largest m it
+    # takes (256) and the block kernel's first
+    for m in (1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 255, 256, 257, 258):
+        qe = rng.normal(0, 1, m).astype(np.float32)
+        se = rng.normal(0, 1, (6, 121)).astype(np.float32)
+        cases.append((f"m={m} C=121", qe, se, np.int32([121, 0, 1, 60, 121, 126]), (5, 0, 40, 0)))
+    for C in (1, 31):
+        se = rng.normal(0, 1, (6, C)).astype(np.float32)
+        cases.append((f"m=84 C={C}", q, se, np.int32([C, 0, 1, C, C // 2, C + 3]), (5, 0, 40, 0)))
+    cases.append(("a row of length 0 among full rows", q, s[:8], np.int32([121, 121, 121, 0, 121, 121, 121, 121]), (5, 0, 40, 0)))
+    last = q.copy()
+    last[-3:] = np.nan  # the three rows of the last busy lane at m = 84
+    cases.append(("NaN only in the last lane's query rows (m=84)", last, s[:6], full[:6], (5, 0, 40, 0)))
+    q85 = np.append(q, np.float32(np.nan))  # m = 85 (R = 8): row 85 in the last lane, rows past it copying it
+    cases.append(("NaN only in the last lane's query row (m=85)", q85, s[:6], full[:6], (5, 0, 40, 0)))
     return cases
 
 
@@ -1122,16 +1145,35 @@ def check_kernels(dev, card):
 
     q, s_np, lens_np = k10_step_series(rng, B)
     q, series, slens = t(q), t(s_np), t(lens_np)
+    require(subsequence._warp_rows(q.shape[0]) == 3, "K10: the step's shape does not take the warp kernel")
     k = subsequence.subsequence_dtw(q, series, slens)
     p = subsequence.subsequence_dtw_plain(q, series, slens)
     require(k10_same(k, p), "K10 at the step shape: differs from the plain version")
+    with long_row_variant(subsequence, "_warp_rows"):
+        require(k10_same(subsequence.subsequence_dtw(q, series, slens), p),
+                "K10 (block kernel) at the step shape: differs from the plain version")
     planted = torch.arange(B, device=dev) % 2 == 0
     require(bool((k[1] - k[0])[planted].float().mean() > 70), "K10: the planted consensus was not matched")
     for name, qe, se, le, psi in k10_edge_cases():
         args = (t(qe), t(se), t(le), 1.5, psi)
-        require(k10_same(subsequence.subsequence_dtw(*args), subsequence.subsequence_dtw_plain(*args)),
-                f"K10 {name}: differs from the plain version")
-        print(f"K10 {name}: start, end and dist bit-equal to the plain version")
+        want = subsequence.subsequence_dtw_plain(*args)
+        variant = "warp" if subsequence._warp_rows(qe.size) else "block"
+        require(k10_same(subsequence.subsequence_dtw(*args), want), f"K10 {name} ({variant} kernel): differs from the plain version")
+        with long_row_variant(subsequence, "_warp_rows"):
+            require(k10_same(subsequence.subsequence_dtw(*args), want), f"K10 {name} (block kernel): differs from the plain version")
+        print(f"K10 {name} ({variant} kernel, and the block kernel): start, end and dist bit-equal to the plain version")
+    # the two variants at the step's shape in turns (warp, block, block, warp)
+    def k10_warp():
+        return subsequence.subsequence_dtw(q, series, slens)
+
+    def k10_block():
+        with long_row_variant(subsequence, "_warp_rows"):
+            return subsequence.subsequence_dtw(q, series, slens)
+
+    k10_turns = [(name, time_ms(fn), time_ms(fn, queued=True))
+                 for name, fn in (("warp", k10_warp), ("block", k10_block), ("block", k10_block), ("warp", k10_warp))]
+    for name, ms, device_ms in k10_turns:
+        print(f"K10 {name} kernel at the step's shape: kernel_ms={ms!r} device_ms={device_ms!r} on {card}")
     record(
         "wdx_subseq_dtw", max_abs(k[2], p[2]),
         lambda: subsequence.subsequence_dtw(q, series, slens),

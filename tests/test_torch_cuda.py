@@ -525,9 +525,13 @@ def _k10_equal(args):
     assert torch.equal(k[2].nan_to_num().view(torch.int32), p[2].nan_to_num().view(torch.int32))
 
 
-def test_k10_subseq_dtw(dev):
+@pytest.mark.parametrize("variant", ["warp", "block"])
+def test_k10_subseq_dtw(dev, monkeypatch, variant):
     """The tRNA path's shape: the consensus (m=84) into 256 series of 121
-    events; start, end and dist bit for bit."""
+    events; start, end and dist bit for bit, on both kernels (the block
+    kernel forced)."""
+    if variant == "block":
+        monkeypatch.setattr(subsequence, "_warp_rows", lambda r: 0)
     q, s, lens = k10_step_series(np.random.default_rng(3), 256)
     t = lambda a: torch.as_tensor(a, device=dev)
     _cuda.reset_launches()
@@ -535,9 +539,15 @@ def test_k10_subseq_dtw(dev):
     assert _cuda.launches["wdx_subseq_dtw"] == 1
 
 
+@pytest.mark.parametrize("variant", ["by length", "block"])
 @pytest.mark.parametrize("case", k10_edge_cases(), ids=lambda c: c[0])
-def test_k10_subseq_dtw_edge_cases(dev, case):
+def test_k10_subseq_dtw_edge_cases(dev, monkeypatch, case, variant):
+    """Each case on the kernel its query length takes (the warp kernel up to
+    256, the block kernel above) and on the block kernel, forced at any
+    length."""
     _, q, s, lens, psi = case
+    if variant == "block":
+        monkeypatch.setattr(subsequence, "_warp_rows", lambda r: 0)
     t = lambda a: torch.as_tensor(a, device=dev)
     _k10_equal((t(q), t(s), t(lens), 1.5, psi))
 

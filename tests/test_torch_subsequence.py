@@ -10,6 +10,9 @@ start and end exact where the consensus is embedded, the distance within
 rtol 1e-5 (float32 against float64 sums over 84 + steps).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,9 @@ from warpdemux_tpu.ops import subsequence as jax_ss
 from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.models.consensus_data import CONSENSUS
 from warpdemux_tpu_torch.ops import subsequence as ss
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import k10_edge_cases  # noqa: E402
 
 QUERY = np.asarray(CONSENSUS["rna004_130bps_v1_0"], np.float32)
 E = 121
@@ -131,18 +137,25 @@ def test_cpu_tensors_take_the_plain_version():
     assert _cuda.launches["wdx_subseq_dtw"] == 0
 
 
-def test_k10_edge_cases_plain_matches_jax():
-    """The inputs kernel K10 is held to on the card (chip_smoke.k10_edge_cases):
-    the plain version gives the JAX function's bits on each."""
-    import sys
-    from pathlib import Path
+@pytest.mark.parametrize("case", k10_edge_cases(), ids=lambda case: case[0])
+def test_k10_edge_cases_plain_matches_jax(case):
+    """The inputs kernel K10 is held to on the card (chip_smoke.k10_edge_cases),
+    one case a test: the plain version gives the JAX function's bits."""
+    name, q, s, lens, psi = case
+    got = [a.numpy() for a in ss.subsequence_dtw(torch.from_numpy(q), torch.from_numpy(s),
+                                                 torch.from_numpy(lens), 1.5, psi)]
+    want = [np.asarray(a) for a in jax_ss.subsequence_dtw_batch(q, s, lens, penalty=1.5, psi=psi)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import k10_edge_cases
 
-    for name, q, s, lens, psi in k10_edge_cases():
-        got = [a.numpy() for a in ss.subsequence_dtw(torch.from_numpy(q), torch.from_numpy(s),
-                                                     torch.from_numpy(lens), 1.5, psi)]
-        want = [np.asarray(a) for a in jax_ss.subsequence_dtw_batch(q, s, lens, penalty=1.5, psi=psi)]
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w, err_msg=name)
+def test_k10_variant_by_query_length():
+    """The warp kernel for queries of at most 256 (3 rows a lane for a
+    multiple of 3 up to 96, else 8), at any series width; the block kernel
+    from 257 to 1023 where its shared memory fits; ValueError beyond both."""
+    rows = {r: ss._rows_per_lane(r, E) for r in (1, 3, 32, 33, 64, 65, 84, 96, 97, 99, 255, 256, 257, 1023)}
+    assert rows == {1: 8, 3: 3, 32: 8, 33: 3, 64: 8, 65: 8, 84: 3, 96: 3, 97: 8, 99: 8, 255: 8, 256: 8, 257: 0, 1023: 0}
+    assert ss._rows_per_lane(84, 10**6) == 3
+    for r, c in ((0, E), (84, 0), (1024, E), (257, 20000)):
+        with pytest.raises(ValueError, match="beyond K10"):
+            ss._rows_per_lane(r, c)

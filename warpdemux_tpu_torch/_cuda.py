@@ -56,7 +56,7 @@ SIGNATURES = {
     "wdx_rolling_detect": (
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
-    "wdx_subseq_dtw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F),
+    "wdx_subseq_dtw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I),
 }
 
 # entry points that launch no kernel of the port and are not counted

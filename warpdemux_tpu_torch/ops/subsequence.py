@@ -19,7 +19,29 @@ walks the r + c + 1 anti-diagonals as the JAX function's lax.scan does,
 with the operations XLA:CPU compiles for it (d + best as one fused
 multiply-add, the division by r as a product with float32(1 / r), minima
 that propagate NaN); `subsequence_dtw` launches kernel K10
-(csrc/subsequence.cu, one block a read) on CUDA tensors.
+(csrc/subsequence.cu) on CUDA tensors, in one of two variants:
+
+- the warp kernel, for queries of r <= 256 (the consensus: r = 84): one
+  warp a read, a skewed pipeline in registers. Lane l of the first
+  ceil(r / R) owns R query rows (R = 3 for r a multiple of 3 up to 96, the
+  consensus's case; R = 8 for any other r) and computes two columns of
+  them a step, 2 (t - l) + 1 and 2 (t - l) + 2 at step t; the cells
+  above its first row come from the previous lane by shuffles. The last
+  busy lane puts row r into a ring of 32 steps in shared memory, and the
+  warp merges each ring into the running first minimum.
+  ceil(n / 2) + ceil(r / R) - 1 steps a read, no barrier, no limit in the
+  series' width. It answers the first design's four limits: a block-wide
+  barrier on each of the r + c + 1 diagonals, a diagonal's shared-memory
+  traffic and branches with 42% of the threads idle, three warps a read
+  stalled on the same barriers, and one thread's serial argmin over row r
+  at the end.
+- the block kernel, for 257 <= r <= 1023 (where its shared memory fits):
+  the first design, one block of r + 1 threads a read, a diagonal a step.
+
+`_warp_rows` says which: the rows a lane of the warp kernel holds, or 0
+for the block kernel. Both are bound by operations (7 a cell of the r x n
+grid) and wait on the program's dependency chain of r + c - 1 cells, ~1 us
+at the tRNA step's shape; a CUDA tensor beyond both raises ValueError.
 """
 
 from __future__ import annotations
@@ -32,6 +54,37 @@ from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma
 
 # the program's "infinity": finite, so that adding the penalty stays finite
 INF = float(np.float32(np.finfo(np.float32).max / 4))
+
+# the warp kernel: 32 lanes hold query rows, 3 each for queries of a
+# multiple of 3 up to 96 (the consensus, r = 84), else 8, so it takes
+# r <= 256; the block kernel takes longer queries
+_WARP_MAX_R = 256
+_BLOCK_MAX_R = 1023
+
+
+def _warp_rows(r: int) -> int:
+    """Rows a lane of K10's warp kernel holds for a query of r: 3 where r is
+    a multiple of 3 up to 96, 8 for any other r <= 256; 0 above (the block
+    kernel)."""
+    if r % 3 == 0 and r <= 96:
+        return 3
+    return 8 if r <= _WARP_MAX_R else 0
+
+
+def _block_shared_bytes(r: int, c: int) -> int:
+    """Shared memory a block of K10's block kernel: the series row, row r's
+    D and S, three diagonals of D and S."""
+    return 4 * (3 * c + 6 * (r + 1))
+
+
+def _rows_per_lane(r: int, c: int) -> int:
+    """K10's variant for a query of r into series of c: the warp kernel's
+    rows a lane, or 0 for the block kernel; ValueError beyond both."""
+    rows = _warp_rows(r)
+    block_fits = r <= _BLOCK_MAX_R and _block_shared_bytes(r, c) <= _cuda.MAX_SHARED_BYTES
+    if r < 1 or c < 1 or not (rows or block_fits):
+        raise ValueError(f"subsequence_dtw: query of {r} and series of {c} are beyond K10")
+    return rows
 
 
 def subsequence_dtw_ref(query, series, penalty, psi):
@@ -137,7 +190,8 @@ def subsequence_dtw(
     penalty: float = 1.5,
     psi: tuple = (5, 0, 40, 0),
 ):
-    """Batched subsequence match; K10 on CUDA.
+    """Batched subsequence match; K10 on CUDA (its warp kernel for a query
+    of at most 256, the block kernel above).
 
     Args:
       query: (m,) consensus signal.
@@ -158,8 +212,7 @@ def subsequence_dtw(
     _cuda.check(series, torch.float32, 2, "subsequence_dtw series")
     if lens.shape != (B,):
         raise ValueError("series_len must be (B,) for series of shape (B, C)")
-    if not 1 <= r <= 1023 or c < 1 or 4 * (3 * c + 6 * (r + 1)) > _cuda.MAX_SHARED_BYTES:
-        raise ValueError(f"subsequence_dtw: query of {r} and series of {c} are beyond K10")
+    rows = _rows_per_lane(r, c)
     p, inv_r = _scalars(r, penalty)
     psi_1b, _, psi_2b, _ = (int(v) for v in psi)
     start = torch.empty(B, dtype=torch.int32, device=series.device)
@@ -167,6 +220,6 @@ def subsequence_dtw(
     dist = torch.empty(B, dtype=torch.float32, device=series.device)
     _cuda.launch(
         "wdx_subseq_dtw", series.device, query.data_ptr(), series.data_ptr(), lens.data_ptr(),
-        start.data_ptr(), end.data_ptr(), dist.data_ptr(), B, r, c, psi_1b, psi_2b, p, INF, inv_r,
+        start.data_ptr(), end.data_ptr(), dist.data_ptr(), B, r, c, psi_1b, psi_2b, p, INF, inv_r, rows,
     )
     return start, end, dist
