@@ -10,7 +10,7 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels of csrc/ from source and print what ptxas reported for each
    (registers, spills).
-2. For each kernel K1-K10, on numpy-seeded inputs at the step's shapes
+2. For each kernel K1-K11, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
    the card and time both (the kernel twice: as a caller sees it, and with
@@ -60,9 +60,17 @@ Phases (each raises on failure; nothing is caught):
    (query lengths 1 to 258, series of 1 and 31 events), on both of its
    variants (one warp a read, for queries of at most 256; one block a
    read, which longer queries take), and both are timed in turns at the
-   step's shape. An empty launch is timed as called through `_cuda.launch`
-   and through a launch that resolves the entry point, the device context
-   and the stream object every time.
+   step's shape. K11 (the masked row means and stds of the region
+   statistics and the [mvs_polya] gate in XLA's order, new: no Pallas
+   counterpart) is held bit for bit at the step's shapes (three ranges with
+   stds over the calibrated reads, the gate's one range of means, float
+   rows) and on rows of 1, 31, 32, 33, 1024, 1025, 10000, 15000 and 32769
+   samples, empty, inverted and out-of-row ranges, ranges at 0 and at L,
+   rows of length 0, NaN and inf, constant rows, -0.0 and cancellations,
+   with and without the calibration, and timed beside
+   torch.where(mask, x, 0).sum(-1). An empty launch is timed as called
+   through `_cuda.launch` and through a launch that resolves the entry
+   point, the device context and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
    bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -71,9 +79,10 @@ Phases (each raises on failure; nothing is caught):
       255 of 256 rows, and the CPU result must hit the repository's pins;
    b. the vbz feed (the reads packed into the VBZ wire by the port's numpy
       helpers), full outputs: the GPU decode must equal the int16 reads,
-      K8 and K4 must launch, and the packed columns must agree with the CPU
-      step (integer, median and MAD columns exactly on at least 255 rows,
-      the other floats within the CPU tests' tolerances);
+      K8, K4 and K11 must launch, and the packed columns must agree with
+      the CPU step (integer, median, MAD, mean and std columns exactly on
+      at least 255 rows, the other floats within the CPU tests'
+      tolerances);
    c. the adc feed, decision outputs, fused_rolling=True: K9 must launch
       once per step and K6 and K7 never; the decisions must equal path a's
       on every row.
@@ -81,9 +90,10 @@ Phases (each raises on failure; nothing is caught):
    one warm-up, in two rounds of alternating order.
 5. One step of each path under torch.profiler: its device operations
    (kernels, copies, memsets) are counted and printed beside the count
-   before K5's callers stopped copying for it; and those of one micro-batch
-   of the live lane. Run last, after phase 6: an attached profiler slows
-   every later launch.
+   before K11 (the adc decision and vbz full steps may not exceed it by
+   more than 20) and before K5's callers stopped copying for it; those of
+   the tRNA and RNA002 steps, and of one micro-batch of the live lane. Run
+   last, after phase 6: an attached profiler slows every later launch.
 6. The live read-until lane (warpdemux_tpu_torch/live/) on the card:
    a. the lane program (`Session._classify_on_device`: one copy in, K5,
       K4, K2, K3 and K1, one fetch) on 64 replay reads cut at poly(A) plus
@@ -129,8 +139,24 @@ Phases (each raises on failure; nothing is caught):
    d. one demux_minibatches run (the vbz wire, predictions and boundaries)
       over the four minibatches: every read once, the consensus columns in
       the boundaries rows, launches 4 x the vbz full step's.
-   Runs after phase 7, before phase 6; phase 5 counts the device
+   Runs after phase 7, before phase 9; phase 5 counts the device
    operations of both tRNA steps too.
+9. The model families and RNA002 (runs after phase 8, before phase 6):
+   a. DTW-MLP (the WDX4 bundle's 851 reference fingerprints, one hidden
+      layer of 100, 5 classes) and Fpt-Boost (1,000 oblivious trees of
+      depth 6), arrays from a seed (family_arrays), predict the 1000
+      fingerprints of the seed-0 mRNA step on the card: pred equal to the
+      CPU's on 999 rows or more, probs within rtol 1e-5, atol 1e-6, the
+      launches of LAUNCHES["<family>_predict"];
+   b. the predict run (pipeline/run.run_predict_from_fpts) with each family
+      over those fingerprints saved as a prep run saves them: every read
+      predicted, (read_id, barcode) equal to a CPU run's on 999 or more;
+   c. the RNA002 step (WDX4 and WDX10 rna002_v0_4_4, rna002_70bps@v0.4.4:
+      LLR detect, no CNN) on rna002_minibatch(default_rng(0), 1000) at
+      L=15000, adc decision and vbz full: the launches of
+      LAUNCHES["rna002_..."] at B=1000, (success, fail_code, pred) equal to
+      the CPU step's on 255 of the first 256 rows or more (vbz full: every
+      int, median and MAD column compared as in phase 3b), and reads/s.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -170,25 +196,45 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_rolling_detect": ("K9 fused rolling detect", "rolling.cu", "warpdemux_tpu/ops/rolling_pallas.py:206"),
     "wdx_subseq_dtw": ("K10 subsequence DTW", "subsequence.cu",
                        "new, no Pallas counterpart (warpdemux_tpu/ops/subsequence.py:60, a lax.scan)"),
+    "wdx_rowstats": ("K11 masked row mean/std", "rowstats.cu",
+                     "new, no Pallas counterpart (XLA's row sums: warpdemux_tpu/ops/normalize.py:55, "
+                     "warpdemux_tpu/detect/boundaries.py:695)"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 # device operations a step of each path before K5's callers stopped copying
 # for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
-# launches a step of each path, in KERNELS' order (K1 .. K10)
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0),  # one micro-batch of the lane program
+# launches a step of each path, in KERNELS' order (K1 .. K11); K11 once for
+# the [mvs_polya] gate's poly(A) mean of each detect pass (the CNN's and
+# the LLR fallback's) and once for the region statistics of full outputs
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0),
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3),
             # the tRNA paths (phase 8): K3 twice (the adapter's events, then
             # the barcode's from its start), K4 for the clip and the gates
             # (with the adapter MAD) or the four region statistics, K5 for the
             # refine windows, the split window and the adapter, K8 for the
-            # adapter-level proxy, K10 for the consensus match
-            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1),
-            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1)}
+            # adapter-level proxy, K10 for the consensus match, K11 for the
+            # region statistics of full outputs (no [mvs_polya] gate)
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1),
+            # phase 9: the model families' predict (K1 for DTW-MLP's
+            # distances; the forest has no kernel) and the predict run over
+            # one fingerprint file; the RNA002 steps (LLR detect, no CNN: one
+            # detect pass, one gate)
+            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1),
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2)}
+FAMILIES = ("dtw_mlp", "fpt_boost")
+RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
+# device operations a step before K11 (`count_device_ops` on commit
+# 3f76e42, torch 2.11.0 on the card, PERF.md section 5)
+DEVICE_OPS_BEFORE_K11 = {"adc_decision": 1874, "vbz_full": 1989, "fused_decision": 1873,
+                         "trna_adc_decision": 1901, "trna_vbz_full": 2025}
 TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
 # phase 8's run of the offline loop: the vbz wire, predictions and boundaries
 TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
@@ -252,6 +298,25 @@ def trna_minibatch(rng, n, length=L):
         lens[k] = min(length, a.size)
         adc[k, : lens[k]] = a[: lens[k]]
     return adc, offset, scale, lens, kind, barcode
+
+
+RNA002_MODELS = ("WDX4_rna002_v0_4_4", "WDX10_rna002_v0_4_4")  # rna002_70bps@v0.4.4
+RNA002_L = 15000  # the chemistry's sig_preload_size
+
+
+def rna002_minibatch(rng, n, length=RNA002_L):
+    """(adc (n, length) int16, offset, scale, lens): the port's
+    utils/synthetic.synth_batch mRNA reads quantized to ADC counts with
+    bench.py's calibration."""
+    import numpy as np
+
+    from bench import ADC_OFFSET, ADC_SCALE
+    from warpdemux_tpu_torch.utils.synthetic import synth_batch
+
+    sigs, lens, _ = synth_batch(rng, n, L=length)
+    adc = np.clip(np.rint(sigs / ADC_SCALE - ADC_OFFSET), -32768, 32767).astype(np.int16)
+    adc[np.arange(length)[None, :] >= lens[:, None]] = 0
+    return adc, np.full(n, ADC_OFFSET, np.float32), np.full(n, ADC_SCALE, np.float32), lens
 
 
 def time_ms(fn, reps=10, queued=False):
@@ -584,6 +649,192 @@ def k10_edge_cases():
     return cases
 
 
+def k11_step_ranges(rng, b, length):
+    """(starts, ends), each (3, b) int32: adapter, poly(A) and RNA ranges
+    of reads of the step's shape, the RNA to a read length below `length`."""
+    import numpy as np
+
+    lens = rng.integers(length // 3, length + 1, b)
+    a0 = rng.integers(0, 400, b)
+    a1 = np.minimum(a0 + rng.integers(2500, 5500, b), lens)
+    p1 = np.minimum(a1 + rng.integers(500, 3000, b), lens)
+    return np.stack([a0, a1, p1]).astype(np.int32), np.stack([a1, p1, lens]).astype(np.int32)
+
+
+def k11_edge_cases():
+    """[(name, x (B, L) float32, calibration (adc (B, L) int16, offset (B,),
+    scale (B,)) or None, starts (R, B), ends (R, B))]: the ranges that K11,
+    its plain version and the JAX package are all held to. With the
+    calibration, x is (adc + offset) * scale as the step forms it."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    cases = []
+
+    def ranges(b, length):  # whole row, halves, one sample, empty, inverted, off the row
+        cand = [(0, length), (0, length // 2), (length // 3, length), (length - 1, length),
+                (length // 2, length // 2), (length // 2, length // 4), (-5, length + 7), (length, length)]
+        pick = rng.integers(0, len(cand), (3, b))
+        pick[:, : min(b, len(cand))] = np.arange(min(b, len(cand)))[None, :]
+        st = np.array([[cand[k][0] for k in row] for row in pick], np.int32)
+        en = np.array([[cand[k][1] for k in row] for row in pick], np.int32)
+        return st, en
+
+    x = np.array([[2.5], [-0.0], [np.nan], [7.0]], np.float32)
+    st = np.array([[0, 0, 0, 1], [0, 1, -3, 0]], np.int32)
+    en = np.array([[1, 1, 1, 1], [0, 1, 5, 1]], np.int32)
+    cases.append(("L=1", x, None, st, en))
+    for length in (31, 32, 33, 1024, 1025, 10000, 32769):
+        b = 3 if length > 10000 else 9
+        x = rng.normal(80, 15, (b, length)).astype(np.float32)
+        cases.append((f"L={length}", x, None, *ranges(b, length)))
+    x = rng.normal(80, 15, (6, 10000)).astype(np.float32)
+    st, en = k11_step_ranges(rng, 6, 10000)
+    x[0, st[1, 0] + 3] = np.nan  # inside the poly(A) range
+    x[1, st[0, 1]] = np.nan  # the adapter's first sample
+    x[2, en[2, 2] - 1] = np.nan  # the RNA's last sample
+    x[3, en[0, 3]] = np.inf  # the adapter's end: inside the poly(A)
+    if st[0, 4] > 0:
+        x[4, st[0, 4] - 1] = np.nan  # before every range
+    x[5, -1] = np.nan  # at the row's end
+    cases.append(("NaN and inf in rows", x, None, st, en))
+    x = rng.normal(80, 15, (5, 10000)).astype(np.float32)
+    z = np.zeros((3, 5), np.int32)
+    cases.append(("rows of length 0", x, None, z, z))
+    cases.append(("ranges at 0 and at L", x, None,
+                  np.array([[0] * 5, [9990] * 5, [10000] * 5], np.int32),
+                  np.array([[10] * 5, [10000] * 5, [10000] * 5], np.int32)))
+    x = np.full((4, 100), 3.0, np.float32)
+    x[1] = -0.0
+    x[2, ::2], x[2, 1::2] = 1e30, -1e30
+    cases.append(("constant rows, -0.0, cancellations", x, None, *ranges(4, 100)))
+    for length in (31, 33, 10000, 15000):
+        b = 8
+        adc = rng.integers(-2000, 3000, (b, length)).astype(np.int16)
+        off = rng.uniform(-5, 20, b).astype(np.float32)
+        sc = rng.uniform(0.1, 0.3, b).astype(np.float32)
+        x = ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
+        st, en = k11_step_ranges(rng, b, length) if length > 1000 else ranges(b, length)
+        cases.append((f"adc L={length}", x, (adc, off, sc), st, en))
+    return cases
+
+
+def k11_work(st, en, width, with_std, calibrated):
+    """A range's samples read once (the int16 preimage and its calibration
+    where calibrated), the means (and stds) written once; the function sums
+    the masked row, L adds a (range, row), and again its squared
+    deviations."""
+    n = sum(covered(st, en, width))
+    n_bytes = n * (2 if calibrated else 4) + st.numel() * (8 + 4 * (1 + with_std)) + 8 * st.shape[1] * calibrated
+    return n_bytes, st.numel() * width * (1 + with_std)
+
+
+def check_k11(dev, card):
+    """Phase 2, K11: the masked row means and stds against their plain
+    version bit for bit, at the step's shapes (the region statistics of
+    full outputs: three ranges with stds over the calibrated reads; the
+    [mvs_polya] gate: the poly(A) mean alone; the pa feed: float rows) and
+    on k11_edge_cases(); timed beside the one PyTorch call of the same sums
+    in another order, torch.where(mask, x, 0).sum(-1). Returns the kernel's
+    entry of the `kernels` line."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch.ops import rowstats
+
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a, device=dev)
+
+    def same(a, b):
+        return a is None and b is None or (torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32)))
+
+    def run(x, calibration, st, en, with_std):
+        k = rowstats.range_mean_std(x, st, en, with_std, calibration)
+        p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
+        return k, p, all(same(a, b) for a, b in zip(k, p))
+
+    adc = rng.integers(-1500, 2500, (B, L)).astype(np.int16)
+    off = rng.uniform(-5, 20, B).astype(np.float32)
+    sc = rng.uniform(0.1, 0.3, B).astype(np.float32)
+    cal = (t(adc), t(off), t(sc))
+    x = (cal[0].to(torch.float32) + cal[1][:, None]) * cal[2][:, None]
+    st, en = (t(a) for a in k11_step_ranges(rng, B, L))
+    k, p, ok = run(x, cal, st, en, True)
+    require(ok, "K11 at the region statistics' shape: differs from the plain version")
+    err = max(max_abs(a, b) for a, b in zip(k, p))
+    print(f"K11 region statistics B={B} L={L} R=3 with stds, calibrated: means and stds bit-equal to the plain version")
+    for name, args in (("gate, calibrated R=1", (x, cal, st[1:2], en[1:2], False)),
+                       ("pa feed R=3", (x, None, st, en, True))):
+        require(run(*args)[2], f"K11 {name}: differs from the plain version")
+        print(f"K11 {name} B={B} L={L}: bit-equal to the plain version; "
+              f"kernel_ms={time_ms(lambda: rowstats.range_mean_std(*args[:1], *args[2:], calibration=args[1]))!r}")
+    for name, xe, cale, ste, ene in k11_edge_cases():
+        xe_t = t(xe)
+        cale_t = None if cale is None else tuple(t(a) for a in cale)
+        for with_std in (True, False):
+            require(run(xe_t, cale_t, t(ste), t(ene), with_std)[2],
+                    f"K11 {name} (with_std={with_std}): differs from the plain version")
+        print(f"K11 {name}: means and stds bit-equal to the plain version")
+    pos = torch.arange(L, device=dev)
+    masks = (pos >= st[:, :, None]) & (pos < en[:, :, None])
+    return time_kernel(
+        "wdx_rowstats", card, err,
+        lambda: rowstats.range_mean_std(x, st, en, True, cal),
+        lambda: rowstats.range_mean_std_plain(x, st, en, True, cal),
+        *k11_work(st, en, L, True, True),
+        library=lambda: torch.where(masks, x, 0.0).sum(-1),
+    )
+
+
+# the model families' widths (phase 9): no bundle ships, so their arrays
+# come from a seed at the widths users train: DTW-MLP on the shipped WDX4
+# bundle's 851 reference fingerprints with sklearn MLPClassifier's default
+# hidden layer of 100; Fpt-Boost at catboost's defaults, 1,000 trees of
+# depth 6; both with 5 classes, the last the noise class
+FAMILY_LABELS = (3, 4, 5, 7, -1)
+MLP_HIDDEN = 100
+FOREST_TREES, FOREST_DEPTH = 1000, 6
+
+
+def family_arrays(kind, rng, X_ref=None, trees=FOREST_TREES, depth=FOREST_DEPTH, hidden=MLP_HIDDEN,
+                  scaler=None):
+    """A model bundle's arrays of family `kind` ("dtw_mlp": reference
+    fingerprints X_ref (n, m), standard scaling by `scaler` = (mean, scale)
+    of the distances, else drawn, one ReLU layer of `hidden`; "fpt_boost":
+    `trees` oblivious trees of `depth` over 25 features), drawn from `rng`,
+    the classes of FAMILY_LABELS."""
+    import numpy as np
+
+    k = len(FAMILY_LABELS)
+    common = dict(
+        model_type=np.str_(kind),
+        label_map=np.array(FAMILY_LABELS, np.int32),
+        thresholds=np.array([0.2] * (k - 1) + [1.01], np.float32),
+        noise_class=np.bool_(True),
+    )
+    if kind == "dtw_mlp":
+        n = X_ref.shape[0]
+        return dict(
+            common, X_sv=np.asarray(X_ref, np.float32), n_layers=np.int64(2), window=np.int64(15),
+            penalty=np.float64(0.1),
+            scaler_mean=np.asarray(scaler[0] if scaler else rng.uniform(2.0, 6.0, n), np.float32),
+            scaler_scale=np.asarray(scaler[1] if scaler else rng.uniform(0.5, 2.0, n), np.float32),
+            mlp_w0=(rng.normal(0, 1, (n, hidden)) / np.sqrt(n)).astype(np.float32),
+            mlp_b0=rng.normal(0, 0.1, hidden).astype(np.float32),
+            mlp_w1=(rng.normal(0, 3, (hidden, k)) / np.sqrt(hidden)).astype(np.float32),
+            mlp_b1=rng.normal(0, 0.1, k).astype(np.float32),
+        )
+    m = 25
+    return dict(
+        common, fingerprint_len=np.int64(m),
+        feat=rng.integers(0, m, (trees, depth)).astype(np.int32),
+        thr=rng.normal(0, 1, (trees, depth)).astype(np.float32),
+        leaf_values=(rng.normal(0, 1, (trees, 2**depth, k)) * 1.5 / np.sqrt(trees)).astype(np.float32),
+        bias=rng.normal(0, 0.1, k).astype(np.float32),
+    )
+
+
 def live_lane_reads(X_sv, n=64):
     """[(read, cut)]: n barcoded replay reads on the model's support vectors,
     drawn as tools/live_latency.py draws them, each also cut where the live
@@ -681,6 +932,27 @@ def k10_work(m, lens, width):
     return int(lens.clamp(0, width).sum()) * 4 + m * 4 + rows * 4 + rows * 12, 7 * cells
 
 
+def time_kernel(key, card, err, kernel, plain, n_bytes, n_ops, library=None, plain_reps=10):
+    """The `kernels` line's entry of kernel `key`: its max_abs_err `err`, the
+    wrapper `kernel` timed as a caller sees it and the device's time alone,
+    its `plain` version, the one `library` call, and the bound from the
+    function's bytes and operations on this run's inputs."""
+    ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
+    plain_ms = time_ms(plain, reps=plain_reps)
+    library_ms = None if library is None else time_ms(library)
+    library_device_ms = None if library is None else time_ms(library, queued=True)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} device_ms={device_ms!r} plain_ms={plain_ms!r}")
+    print(f"{KERNELS[key][0]}: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
+          f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r}); "
+          f"library_ms={library_ms!r} library_device_ms={library_device_ms!r} on {card}")
+    return {
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library_device_ms": library_device_ms,
+    }
+
+
 def check_kernels(dev, card):
     """Phase 2: kernel vs plain version on the card, at the step's shapes,
     with each kernel's bound from this run's inputs (every input byte read
@@ -701,23 +973,8 @@ def check_kernels(dev, card):
     t = lambda a: torch.as_tensor(a, device=dev)
     results = {}
 
-    def record(key, err, kernel, plain, n_bytes, n_ops, library=None, plain_reps=10):
-        """Times the wrapper `kernel` (as a caller sees it, and the device's
-        time alone), its `plain` version and the one `library` call."""
-        ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
-        plain_ms = time_ms(plain, reps=plain_reps)
-        library_ms = None if library is None else time_ms(library)
-        library_device_ms = None if library is None else time_ms(library, queued=True)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        results[key] = {
-            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "library_device_ms": library_device_ms,
-        }
-        print(f"{KERNELS[key][0]}: max_abs_err={err!r} kernel_ms={ms!r} device_ms={device_ms!r} plain_ms={plain_ms!r}")
-        print(f"{KERNELS[key][0]}: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
-              f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r}); "
-              f"library_ms={library_ms!r} library_device_ms={library_device_ms!r} on {card}")
+    def record(key, *args, **kw):
+        results[key] = time_kernel(key, card, *args, **kw)
 
     def same_bits(a, b):  # equal, NaN where the other has NaN
         return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
@@ -1180,6 +1437,7 @@ def check_kernels(dev, card):
         lambda: subsequence.subsequence_dtw_plain(q, series, slens),
         *k10_work(q.shape[0], slens, series.shape[1]), plain_reps=3,
     )
+    results["wdx_rowstats"] = check_k11(dev, card)
     return results
 
 
@@ -1199,11 +1457,15 @@ def _steps(dev):
 
 
 def vbz_batch(adc, off, sc, lens):
-    """Reads packed into the VBZ wire with the port's numpy helpers."""
+    """Reads packed into the VBZ wire with the port's numpy helpers, at
+    bench.VBZ_WIDTH data bytes a row, or the multiple of 1024 that holds
+    the longest (rows of more than 10,000 samples)."""
     from bench import VBZ_WIDTH
     from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host
 
-    keys, data = pack_inner_host([inner_layout_from_adc(r) for r in adc], adc.shape[1], VBZ_WIDTH)
+    bodies = [inner_layout_from_adc(r) for r in adc]
+    need = max(len(b) for b in bodies) - (adc.shape[1] + 7) // 8
+    keys, data = pack_inner_host(bodies, adc.shape[1], max(VBZ_WIDTH, -(-need // 1024) * 1024))
     return keys, data, off, sc, lens
 
 
@@ -1241,16 +1503,14 @@ def _drive(path, step, args):
 
 
 def _tolerance(name, is_int):
-    """(rtol, atol) of a full-output column GPU vs CPU; None = exact. As in
-    tests/test_torch_step_full.py: integers and order statistics exact,
-    region means / stds and probabilities to float32 summation order,
-    fingerprints and adapter event statistics to 1e-4."""
-    if is_int or name.endswith(("_med", "_mad")) or name.startswith("mvs_"):
-        return None
+    """(rtol, atol) of a full-output column GPU vs CPU; None = exact.
+    Integers, order statistics and the region means / stds (K11 and its
+    plain version sum in one order) exact; probabilities to float32
+    summation order, fingerprints and adapter event statistics to 1e-4."""
     if name == "fpt" or name.startswith("adapter_event_"):
         return (0.0, 1e-4)
-    if name.endswith(("_mean", "_std")):
-        return (1e-5, 1e-4)
+    if is_int or name.endswith(("_med", "_mad", "_mean", "_std")) or name.startswith("mvs_"):
+        return None
     if name == "probs":
         return (1e-5, 1e-6)
     raise AssertionError(f"no tolerance for column {name}")
@@ -1523,10 +1783,11 @@ def device_busy_ms(fn):
     return busy / 1e3
 
 
-def count_step_ops(steps, lane_program, offline_run, trna):
+def count_step_ops(steps, lane_program, offline_run, trna, rna002):
     """Device operations a step of each path on phase 3's rows, of each
-    tRNA path on phase 8's (`trna`: (steps, rows)), and of one micro-batch
-    of the live lane; the device's busy time in phase 7's run a. Run last:
+    tRNA path on phase 8's (`trna`: (steps, rows)), of each RNA002 path on
+    phase 9's (`rna002`), and of one micro-batch of the live lane; the
+    device's busy time in phase 7's run a. Run last:
     once the profiler has been attached, every launch costs the host
     more."""
     import numpy as np
@@ -1538,12 +1799,20 @@ def count_step_ops(steps, lane_program, offline_run, trna):
     for path in PATHS:
         n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE[path]} before this kernel round)")
+        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K11[path]} before K11, "
+              f"{DEVICE_OPS_BEFORE[path]} on commit 7cdf228)")
+        if path != "fused_decision":
+            require(n_ops <= DEVICE_OPS_BEFORE_K11[path] + 20, f"{path}: K11's repair grew the step's device operations")
     trna_steps, trna_rows = trna
     for path in TRNA_PATHS:
         n_ops = count_device_ops(trna_steps[path], vbz_batch(*trna_rows) if "vbz" in path else trna_rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations")
+        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K11[path]} before K11)")
+    rna002_steps, rna002_rows = rna002
+    for path in RNA002_PATHS:
+        n_ops = count_device_ops(rna002_steps[path], vbz_batch(*rna002_rows) if "vbz" in path else rna002_rows)
+        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
+        print(f"{RNA002_MODELS[0]} {path} step: {n_ops} device operations")
     n_ops = count_device_ops(lane_program, ())
     require(n_ops > 0, "live lane: the profiler recorded no device operation")
     print(f"live lane program, B=16: {n_ops} device operations a micro-batch")
@@ -1588,11 +1857,11 @@ def run_main_paths(dev, steps):
     dec = vbz_decode_batch(torch.as_tensor(wire[0], device=dev), torch.as_tensor(wire[1], device=dev), L)
     require(torch.equal(dec.to(torch.int16).cpu(), torch.from_numpy(rows[0])), "GPU VBZ decode differs")
     full, by_path["vbz_full"] = _drive("vbz_full", steps["vbz_full"], wire)
-    for key in ("wdx_range_median_adc", "wdx_range_median_mad"):
+    for key in ("wdx_range_median_adc", "wdx_range_median_mad", "wdx_rowstats"):
         require(by_path["vbz_full"][key] > 0, f"{key} was never launched by the vbz full path")
     full_ref = cpu_steps["vbz_full"](*wire)
     same = _compare_full(full, full_ref)
-    print(f"vbz full: rows agreeing GPU vs CPU on every int, median and MAD column: {same}/{N_ROWS}")
+    print(f"vbz full: rows agreeing GPU vs CPU on every int, median, MAD, mean and std column: {same}/{N_ROWS}")
     require(same >= N_ROWS - 1, "GPU and CPU full outputs disagree")
     _check_pins("vbz full gpu", full)
     require(_check_pins("vbz full cpu", full_ref) == PINS, f"CPU path misses the pins {PINS}")
@@ -1922,6 +2191,132 @@ def run_trna_path(dev, card):
     return by_path, steps, rows
 
 
+def _rna002_steps(dev, name):
+    """Phase 9's two RNA002 steps of model `name` on `dev`."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    spc, model = get_model_spc_config(name), load_model(name, dev)
+    return {
+        "rna002_adc_decision": make_demux_step(model, spc, input_format="adc", outputs="decision", device=dev),
+        "rna002_vbz_full": make_demux_step(model, spc, input_format="vbz", outputs="full", device=dev),
+    }
+
+
+def run_families_and_rna002(dev, card, mrna_full_step):
+    """Phase 9: the DTW-MLP and Fpt-Boost families and the RNA002 chemistry
+    on the card. Returns (launch counts by path, WDX4's RNA002 steps and
+    phase 9's rows) for phase 5."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config import config as c
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model_arrays, model_from_arrays
+    from warpdemux_tpu_torch.ops import dtw
+    from warpdemux_tpu_torch.pipeline.run import run_predict_from_fpts
+
+    by_path = {}
+    # a. the families' predict on the fingerprints of the B=1000 seed-0 mRNA
+    # step (rows that failed zeroed, as the step classifies them)
+    out = mrna_full_step(*vbz_batch(*synth_minibatch(np.random.default_rng(0), B, L))).unpack()
+    fpts = np.where(out.success[:, None], np.nan_to_num(out.fpt.fpt.astype(np.float32)), 0.0)
+    fpts = fpts.astype(np.float32)
+    X_ref = load_model_arrays(MODEL)["X_sv"].astype(np.float32)
+    # the DTW-MLP's scaler fitted to these fingerprints' distances, as a
+    # trained StandardScaler is to its training set's
+    D = dtw.dtw_distance_matrix(torch.as_tensor(fpts, device=dev), torch.as_tensor(X_ref, device=dev), 15, 0.1)
+    scaler = (D.mean(0).cpu().numpy(), D.std(0).clamp_min(1e-3).cpu().numpy())
+    for kind in FAMILIES:
+        arrays = family_arrays(kind, np.random.default_rng(4), X_ref, scaler=scaler)
+        gpu_model, cpu_model = model_from_arrays(arrays, dev, kind), model_from_arrays(arrays, "cpu", kind)
+        _cuda.reset_launches()
+        gpu = gpu_model.predict(fpts)
+        torch.cuda.synchronize()
+        path = f"{kind}_predict"
+        by_path[path] = dict(_cuda.launches)
+        print(f"launches in the {path} run: {by_path[path]}")
+        require(by_path[path] == dict(zip(KERNELS, LAUNCHES[path])), f"{path}: launches differ from {LAUNCHES[path]}")
+        cpu = cpu_model.predict(fpts)
+        same = int((gpu[0] == cpu[0]).sum())
+        err = float(np.abs(gpu[2] - cpu[2]).max())
+        print(f"{kind} predict, {B} fingerprints of the seed-0 step: pred equal GPU vs CPU on {same}/{B} rows, "
+              f"max |probs gpu - cpu| = {err!r}, calls {dict(sorted(Counter(gpu[0].tolist()).items()))}")
+        require(same >= B - 1, f"{kind}: GPU and CPU calls disagree")
+        require(np.allclose(gpu[2], cpu[2], rtol=1e-5, atol=1e-6), f"{kind}: probabilities off tolerance")
+        fpts_t = torch.as_tensor(fpts, device=dev)
+        print(f"{kind} forward, B={B}: kernel_ms={time_ms(lambda: gpu_model(fpts_t))!r} "
+              f"device_ms={time_ms(lambda: gpu_model(fpts_t), queued=True)!r} on {card}")
+
+        # b. the predict run (`python -m warpdemux_tpu_torch.cli predict`)
+        # over the fingerprints saved as a prep run saves them
+        tmp = tempfile.TemporaryDirectory()
+        fpt_file = Path(tmp.name, "barcode_fpts_0.npz")
+        ids = np.array([f"read{i:04d}" for i in range(B)], object)
+        np.savez(fpt_file, num_reads=B, read_ids=ids, signals=fpts)
+        runs = {}
+        for where, model in (("gpu", gpu_model), ("cpu", cpu_model)):
+            run = Path(tmp.name, where)
+            config = c.Config(
+                c.InputConfig(files=[str(fpt_file)]),
+                c.OutputConfig(output_dir=str(run), save_predictions=True),
+                c.BatchConfig(batch_size_output=400), c.TaskConfig(command="predict", preprocess=False, predict=True),
+                c.ClassifConfig(model_name=MODEL), get_model_spc_config(MODEL),
+            )
+            _cuda.reset_launches()
+            stats = run_predict_from_fpts(config, model, device=dev if where == "gpu" else "cpu")
+            if where == "gpu":
+                by_path[f"{kind}_predict_run"] = dict(_cuda.launches)
+                require(by_path[f"{kind}_predict_run"] == by_path[path], f"{kind} predict run: launches")
+            require(stats.predicted == B, f"{kind} predict run ({where}): {stats.predicted} of {B} predicted")
+            runs[where] = shard_rows(run, "predictions")
+        same = sum(a[:2] == b[:2] for a, b in zip(runs["gpu"], runs["cpu"]))
+        print(f"{kind} predict run on the card: {len(runs['gpu'])} predictions in "
+              f"{len(list(Path(tmp.name, 'gpu', 'predictions').glob('*.csv.gz')))} shards; "
+              f"(read_id, barcode) equal to a CPU run on {same}/{B} rows")
+        require(len(runs["gpu"]) == B and same >= B - 1, f"{kind} predict run: GPU and CPU shards disagree")
+        tmp.cleanup()
+
+    # c. RNA002 (rna002_70bps@v0.4.4: LLR detect, no CNN, the 15,000-sample
+    # preload), B=1000 of synth_batch, adc decision and vbz full
+    batch = rna002_minibatch(np.random.default_rng(0), B)
+    rows = tuple(a[:N_ROWS] for a in batch)
+    inputs = {  # (the batch, its first N_ROWS rows) as each path's feed takes them
+        "rna002_adc_decision": (batch, rows),
+        "rna002_vbz_full": (vbz_batch(*batch), vbz_batch(*rows)),
+    }
+    first_steps = None
+    for name in RNA002_MODELS:
+        steps, cpu_steps = _rna002_steps(dev, name), _rna002_steps("cpu", name)
+        first_steps = first_steps or steps
+        for path in RNA002_PATHS:
+            whole, head = inputs[path]
+            _, by_path[f"{name}:{path}"] = _drive(path, steps[path], whole)
+            gpu, cpu = steps[path](*head), cpu_steps[path](*head)
+            same = int(np.logical_and.reduce([a == b for a, b in zip(_decisions(gpu), _decisions(cpu))]).sum())
+            detail = ""
+            if "vbz" in path:
+                detail = f"; every int, median, MAD, mean and std column on {_compare_full(gpu, cpu)}/{N_ROWS}"
+            succ, fail, pred = _decisions(cpu)
+            print(f"{name} {path}: rows agreeing GPU vs CPU on (success, fail_code, pred): {same}/{N_ROWS}{detail}; "
+                  f"CPU passes={int(succ.sum())} calls={dict(sorted(Counter(pred[succ].tolist()).items()))} "
+                  f"fails={dict(sorted(Counter(fail[~succ].tolist()).items()))}")
+            require(same >= N_ROWS - 1, f"{name} {path}: GPU and CPU decisions disagree")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                steps[path](*whole)
+            torch.cuda.synchronize()
+            print(f"{name} {path} step: {3 * B / (time.perf_counter() - t0)!r} reads/s (B={B}, L={RNA002_L}) on {card}")
+    return by_path, first_steps, rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1953,13 +2348,14 @@ def main() -> int:
     by_path.update(offline_counts)
     trna_counts, trna_steps, trna_rows = run_trna_path(dev, card)
     by_path.update(trna_counts)
+    family_counts, rna002_steps, rna002_rows = run_families_and_rna002(dev, card, steps["vbz_full"])
+    by_path.update(family_counts)
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
-    count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows))
+    count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows))
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        counts = {path: by_path[path][key]
-                  for path in (*PATHS, *OFFLINE_RUNS, *TRNA_PATHS, TRNA_OFFLINE_RUN, "live_lane")}
+        counts = {path: n[key] for path, n in by_path.items()}
         kernels.append({
             "name": name,
             "route": "cuda",

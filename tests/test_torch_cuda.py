@@ -31,6 +31,11 @@ from chip_smoke import (  # noqa: E402
     k8_edge_cases,
     k10_edge_cases,
     k10_step_series,
+    k11_edge_cases,
+    k11_step_ranges,
+    family_arrays,
+    rna002_minibatch,
+    RNA002_MODELS,
     live_bucket_batches,
     live_lane_reads,
     offline_batches,
@@ -40,7 +45,7 @@ from chip_smoke import (  # noqa: E402
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
 from warpdemux_tpu_torch.models.registry import load_model_arrays  # noqa: E402
-from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, subsequence, window_gather  # noqa: E402
+from warpdemux_tpu_torch.ops import dtw, peaks, rowstats, segmentation, select, subsequence, window_gather  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 MODEL = "WDX4_rna004_v1_0"
@@ -645,3 +650,77 @@ def test_offline_run_loop_gpu_writes_the_cpu_runs_files(dev, tmp_path, wire):
             assert tuple(_cuda.launches.values()) == tuple(2 * k for k in LAUNCHES["adc_decision"])
     same_failed_reads(runs["cuda"], runs["cpu"])
     same_predictions(runs["cuda"], runs["cpu"])
+
+
+def _k11_equal(x, calibration, st, en, with_std):
+    k = _launched("wdx_rowstats", lambda: rowstats.range_mean_std(x, st, en, with_std, calibration))
+    p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
+    for a, b in zip(k, p):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32))
+
+
+@pytest.mark.parametrize("with_std", [True, False])
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_k11_rowstats_at_the_step_shape(dev, calibrated, with_std):
+    """The three region ranges of 1000 reads of 10,000 samples, bit for bit."""
+    x, adc, off, sc = _calibrated(dev, B=1000)
+    st, en = (torch.as_tensor(a, device=dev) for a in k11_step_ranges(np.random.default_rng(4), 1000, 10000))
+    _k11_equal(x, (adc, off, sc) if calibrated else None, st, en, with_std)
+
+
+@pytest.mark.parametrize("with_std", [True, False])
+@pytest.mark.parametrize("case", k11_edge_cases(), ids=lambda c: c[0])
+def test_k11_rowstats_edge_cases(dev, case, with_std):
+    _, x, calibration, st, en = case
+    t = lambda a: torch.as_tensor(a, device=dev)
+    _k11_equal(t(x), None if calibration is None else tuple(map(t, calibration)), t(st), t(en), with_std)
+
+
+def test_k11_rows_outside_its_domain_raise(dev):
+    L = 1_000_000  # the window sums of four warps exceed shared memory
+    x = torch.zeros((1, L), device=dev)
+    st = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="K11"):
+        rowstats.range_mean_std(x, st, st + 5)
+
+
+@pytest.mark.parametrize("kind", ["dtw_mlp", "fpt_boost"])
+def test_model_family_gpu_matches_cpu(dev, kind):
+    """DTW-MLP (851 references, hidden 100) and Fpt-Boost (1,000 trees of
+    depth 6) at 1000 fingerprints: pred on all but one row, probs within
+    rtol 1e-5, atol 1e-6."""
+    from warpdemux_tpu_torch.models.registry import model_from_arrays
+
+    X_ref = load_model_arrays(MODEL)["X_sv"].astype(np.float32)
+    arrays = family_arrays(kind, np.random.default_rng(4), X_ref)
+    rng = np.random.default_rng(5)
+    fpts = (X_ref[rng.integers(0, len(X_ref), 1000)] + rng.normal(0, 0.3, (1000, 25))).astype(np.float32)
+    _cuda.reset_launches()
+    gpu = model_from_arrays(arrays, dev).predict(fpts)
+    assert _cuda.launches["wdx_dtw"] == (1 if kind == "dtw_mlp" else 0)
+    cpu = model_from_arrays(arrays, "cpu").predict(fpts)
+    assert (gpu[0] == cpu[0]).sum() >= 999
+    np.testing.assert_allclose(gpu[2], cpu[2], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", RNA002_MODELS)
+def test_rna002_step_gpu_matches_cpu(dev, name):
+    """The RNA002 step (LLR detect, 15,000-sample preload) on 64 reads:
+    decisions on all but one row, K11 launched."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    spc = get_model_spc_config(name)
+    rows = rna002_minibatch(np.random.default_rng(0), 64)
+    _cuda.reset_launches()
+    gpu = make_demux_step(load_model(name, dev), spc, input_format="adc", outputs="full", device=dev)(*rows)
+    torch.cuda.synchronize()
+    assert _cuda.launches["wdx_rowstats"] > 0 and _cuda.launches["wdx_dtw"] == 1
+    cpu = make_demux_step(load_model(name, "cpu"), spc, input_format="adc", outputs="full", device="cpu")(*rows)
+    same = (gpu.success.cpu() == cpu.success) & (gpu.pred.cpu() == cpu.pred)
+    assert int(same.sum()) >= 63

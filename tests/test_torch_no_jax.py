@@ -41,7 +41,9 @@ def test_package_loads_without_jax():
     """Every module imports with those blocked; the step and a live session
     on the replay client build; the offline run loop writes its CSVs and
     the resume scan reads them back (the card drives the loop from
-    minibatches held in memory, without pyarrow, pandas or zstandard)."""
+    minibatches held in memory, without pyarrow, pandas or zstandard); a
+    DTW-MLP and a Fpt-Boost model classify, and target_accuracy filters
+    their tables."""
     code = (
         "import sys, tempfile\n"
         f"for name in {ABSENT!r}:\n"
@@ -81,6 +83,17 @@ def test_package_loads_without_jax():
         "stats = demux_minibatches(cfg, None, [(adc, off, sc, lens, lens, ids)], device='cpu')\n"
         "assert stats.total == 3, stats\n"
         "assert scan_processed_reads(out)[0] == {'r0', 'r1', 'r2'}\n"
+        "from warpdemux_tpu_torch.models import registry, target_accuracy\n"
+        "rng = np.random.default_rng(1)\n"
+        "fam = [registry.dtw_mlp_from_arrays(dict(X_sv=rng.normal(size=(9, 25)), n_layers=1,\n"
+        "       mlp_w0=rng.normal(size=(9, 3)), mlp_b0=np.zeros(3), label_map=np.array([1, 2, -1]),\n"
+        "       thresholds=np.zeros(3), window=15, penalty=0.1), 'cpu'),\n"
+        "       registry.fpt_boost_from_arrays(dict(feat=rng.integers(0, 25, (4, 2)), thr=rng.normal(size=(4, 2)),\n"
+        "       leaf_values=rng.normal(size=(4, 4, 3)), label_map=np.array([1, 2, -1]),\n"
+        "       thresholds=np.zeros(3), fingerprint_len=25), 'cpu')]\n"
+        "for m in fam:\n"
+        "    table = m.predictions_to_table(ids, *m.predict(rng.normal(size=(3, 25))))\n"
+        "    assert len(target_accuracy.filter_predictions_table(table, 'WDX4_rna004_v1_0', 99.0)) == 3\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -3,9 +3,8 @@ the synthetic pod5 set of tests/test_torch_run_cli.py (`-b 48
 --batch_size_output 40 --no-create_subdir --save_dwell_time`).
 
 - boundaries and failed_reads: the same shard files, columns in the JAX
-  order; every cell equal as text but the region means and stds (and the
-  adapter event mean and std), held to tests/test_torch_step_full.py's
-  rtol 1e-5, atol 1e-4 (the port sums in float64, XLA in float32);
+  order; every cell equal as text, the region means and stds included
+  (summed in XLA's order);
 - fingerprints: the same npz files, `read_ids` and `dwell_times` equal,
   `signals` bit-equal;
 - a port prep directory predicted by the JAX CLI and by the port's: the
@@ -36,8 +35,6 @@ from test_torch_run_cli import (  # noqa: E402
     write_fixture,
 )
 
-RTOL, ATOL = 1e-5, 1e-4
-
 
 @pytest.fixture(scope="module")
 def prep_runs(tmp_path_factory):
@@ -54,10 +51,6 @@ def _table(path):
     return rows[0], rows[1:]
 
 
-def _as_float(cells):
-    return np.array([float(c) if c else np.nan for c in cells])
-
-
 @pytest.mark.parametrize("sub", ["boundaries", "failed_reads"])
 def test_prep_summary_shards_equal_jax(prep_runs, sub):
     port, ref, _ = prep_runs
@@ -68,11 +61,7 @@ def test_prep_summary_shards_equal_jax(prep_runs, sub):
         r_head, r_rows = _table(ref / sub / name)
         assert p_head == r_head and len(p_rows) == len(r_rows)
         for j, col in enumerate(r_head):
-            a, b = [r[j] for r in p_rows], [r[j] for r in r_rows]
-            if col.endswith(("_mean", "_std")):
-                np.testing.assert_allclose(_as_float(a), _as_float(b), rtol=RTOL, atol=ATOL, err_msg=col)
-            else:
-                assert a == b, (name, col)
+            assert [r[j] for r in p_rows] == [r[j] for r in r_rows], (name, col)
     if sub == "boundaries":
         assert "fail_reason" not in r_head and r_head[:3] == ["read_id", "signal_len", "preloaded"]
         assert "cnn_fail_reason" in r_head and "llr_fail_reason" in r_head

@@ -8,12 +8,12 @@ its stated tolerance:
 - int32 columns and dwell times: exact;
 - region medians / MADs, gate values (mvs_*), dwell-time medians: exact
   (order statistics, the same float32 operations);
+- region means / stds: exact (the masked rows summed in XLA's order,
+  ops/rowstats.py);
 - the fingerprint columns (dwell, fpt, adapter_dt_*, adapter_event_*) are
   compared where the fingerprint succeeded (fpt_ok): a read whose adapter
   is empty segments an all-zero t-score row, whose changepoints are
   unspecified in both packages (as in tests/test_torch_segmentation.py);
-- region means / stds: rtol 1e-5, atol 1e-4 (the port sums in float64,
-  XLA in float32 in its own order);
 - fingerprints and adapter event statistics: atol 1e-4 (segment means
   normalized by float32 sums of another association);
 - class probabilities: rtol 1e-5, atol 1e-6 (the decision step's bound).
@@ -111,10 +111,8 @@ def test_vbz_full_step_matches_jax_column_by_column(outputs):
         w = wcols[name]
         if name in FPT_COLS:
             g, w = g[ok], w[ok]
-        if name in EXACT_F:
+        if name in EXACT_F or name in REGION_F:
             np.testing.assert_array_equal(g, w, err_msg=name)
-        elif name in REGION_F:
-            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4, err_msg=name)
         elif name in FPT_F:
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-4, err_msg=name)
         else:

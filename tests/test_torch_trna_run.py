@@ -112,12 +112,7 @@ def test_prep_summary_shards_equal_jax_with_the_consensus_columns(runs, sub):
         head = r_rows[0]
         assert set(CONSENSUS_COLS) <= set(head)
         for j, col in enumerate(head):
-            a, b = [r[j] for r in p_rows[1:]], [r[j] for r in r_rows[1:]]
-            if col.endswith(("_mean", "_std")):
-                np.testing.assert_allclose(np.array(a, float), np.array(b, float), rtol=1e-5, atol=1e-4,
-                                           err_msg=col)
-            else:
-                assert a == b, (name, col)
+            assert [r[j] for r in p_rows[1:]] == [r[j] for r in r_rows[1:]], (name, col)
 
 
 def test_prep_fingerprints_equal_jax(runs):

@@ -200,10 +200,8 @@ def test_full_step_columns_of_rows_88_to_92_within_tolerance(table_host, step_ro
     for name, g in schema.unpack(gf, np.float32).items():
         rows = ok if name in FPT_COLS else slice(None)
         g, w = g[rows], wcols[name][rows]
-        if name in EXACT_F:
+        if name in EXACT_F or name in REGION_F:
             np.testing.assert_array_equal(g, w, err_msg=name)
-        elif name in REGION_F:
-            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4, err_msg=name)
         elif name in FPT_F:
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-4, err_msg=name)
         else:

@@ -54,6 +54,12 @@ def load_chemistry_config(
     return SigProcConfig.from_dict(d)
 
 
+def available_models() -> list[str]:
+    """The registry's model names (models/model_files/config.toml), those
+    without shipped arrays among them."""
+    return list(_read_toml(MODEL_DIR / "config.toml"))
+
+
 def model_config(name: str) -> dict:
     """The registry entry of a model (models/model_files/config.toml)."""
     reg = _read_toml(MODEL_DIR / "config.toml")

@@ -40,15 +40,15 @@ import os
 from dataclasses import replace
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.config.sig_proc import DetectConfig
 from warpdemux_tpu_torch.detect import cnn as cnn_mod
 from warpdemux_tpu_torch.detect.containers import DetectArrays
-from warpdemux_tpu_torch.ops.normalize import masked_mean_std, masked_median
-from warpdemux_tpu_torch.ops.numerics import BLOCK, _sequential_sum, fma, prefix_sums, xla_log
+from warpdemux_tpu_torch.ops.normalize import masked_median
+from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log
+from warpdemux_tpu_torch.ops.rowstats import range_mean_std
 from warpdemux_tpu_torch.ops.select import range_median_mad, range_medians_adc
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
 
@@ -311,16 +311,6 @@ def _llr_split_window(xz, start, W: int, min_split: int, n_valid):
     return torch.minimum(torch.clamp_min(start + split, 0), n_valid)
 
 
-def downscale_mean(xz: torch.Tensor, ds: int) -> torch.Tensor:
-    """Means of consecutive blocks of ds samples, (B, L // ds), rounded as
-    the jitted jnp.mean rounds them on the CPU: a left-to-right sum, then
-    a product with float32(1 / ds)."""
-    B, L = xz.shape
-    Lds = L // ds
-    blocks = xz[:, : Lds * ds].reshape(B, Lds, ds)
-    return _sequential_sum(blocks) * float(np.float32(1.0) / np.float32(ds))
-
-
 def cnn_region_mask(xz, in_lens, cfg: DetectConfig, cnn, L: int) -> torch.Tensor:
     """CNN region prior as a float32 0/1 (B, L) mask. Prefix-causal: input,
     validity and normalization are capped at cnn_input_cap samples."""
@@ -366,26 +356,23 @@ def _range_medians(x, starts, ends, adc=None):
 
 def _region_stats(sig, starts, ends, given_meds=None, given=()):
     """(means, stds, medians, MADs), each (R, B), of R [start, end) ranges;
-    0 for empty ranges. Medians and MADs in one K4 launch; `given` ranges
-    take their median from given_meds and only search the MAD."""
+    0 for empty ranges. Medians and MADs in one K4 launch, means and stds
+    in one K11 launch; `given` ranges take their median from given_meds and
+    only search the MAD."""
     x = sig.x
     meds, mads = range_median_mad(
         x, starts, ends, with_mad=True, given_meds=given_meds, given=given,
         calibration=sig.calibration,
     )
-    pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    means, stds = zip(*[
-        masked_mean_std(x, (pos >= s[:, None]) & (pos < e[:, None]))
-        for s, e in zip(starts, ends)
-    ])
+    means, stds = range_mean_std(x, starts, ends, calibration=sig.calibration)
     empty = ends <= starts
 
     def fix(a):
         return torch.where(empty, torch.zeros_like(a), a)
 
     return (
-        fix(torch.stack(means)),
-        fix(torch.stack(stds)),
+        fix(means),
+        fix(stds),
         fix(torch.nan_to_num(meds)),
         fix(torch.nan_to_num(mads)),
     )
@@ -568,7 +555,7 @@ def _start_peak_boundaries(sig: _Signal, cfg: DetectConfig, rolled: _Rolling) ->
     later). A missing poly(A) is no failure here."""
     in_lens = sig.in_lens
     ds = cfg.downscale_factor
-    xds = downscale_mean(sig.xz, ds)
+    xds = cnn_mod.downscale_mean(sig.xz, ds)
     Lds = xds.shape[1]
     pds = torch.arange(Lds, device=xds.device)[None, :]
     left = torch.cat([xds[:, :1], xds[:, :-1]], 1)
@@ -713,9 +700,9 @@ def _detect_pass(
         min_pa_var = torch.where(
             torch.isfinite(min_pa_var), min_pa_var, torch.zeros_like(min_pa_var)
         )
-        pa_mask = (pos >= polya_start[:, None]) & (pos < polya_end[:, None])
-        pa_sum = torch.where(pa_mask, x, torch.zeros_like(x)).sum(1, dtype=torch.float64)
-        pa_mean_x = pa_sum.to(torch.float32) / torch.clamp_min(pa_mask.sum(1), 1)
+        pa_mean_x = range_mean_std(
+            x, polya_start[None], polya_end[None], with_std=False, calibration=sig.calibration
+        )[0][0]
         mvs_bad = (
             (med_shift < cfg.median_shift_min)
             | (min_pa_var > cfg.polya_var_max)
@@ -727,7 +714,7 @@ def _detect_pass(
     if cfg.real_signal_check:
         # local range plausibility on the downscaled adapter region, and
         # the adapter MAD
-        xds = bnd.xds if bnd.xds is not None else downscale_mean(sig.xz, cfg.downscale_factor)
+        xds = bnd.xds if bnd.xds is not None else cnn_mod.downscale_mean(sig.xz, cfg.downscale_factor)
         med_rng = _local_range_median(xds, adapter_start, adapter_end, cfg)
         ad_mad = mads[0]
         rr_bad = (

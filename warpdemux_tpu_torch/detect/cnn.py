@@ -15,24 +15,13 @@ TF32 on the GPU, and the logits' argmax gates the detector.
 
 from __future__ import annotations
 
-import contextlib
-
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from warpdemux_tpu_torch.ops.normalize import masked_mad, masked_median
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+from warpdemux_tpu_torch.ops.normalize import masked_median
+from warpdemux_tpu_torch.ops.numerics import _sequential_sum, fma, full_float32
 
 
 class BoundaryCNN(nn.Module):
@@ -49,7 +38,7 @@ class BoundaryCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, Lds) normalized signal -> (B, Lds, 3) logits."""
         h = x[:, None, :]
-        with _no_tf32():
+        with full_float32():
             for i in range(self.n_layers):
                 w = getattr(self, f"w{i}")
                 k = w.shape[2]
@@ -63,19 +52,41 @@ class BoundaryCNN(nn.Module):
         return h.transpose(1, 2)
 
 
+def _block_sums(x: torch.Tensor, ds: int) -> torch.Tensor:
+    """Left-to-right float32 sums of consecutive blocks of ds samples."""
+    B, L = x.shape
+    Lds = L // ds
+    return _sequential_sum(x[:, : Lds * ds].reshape(B, Lds, ds))
+
+
+def downscale_mean(x: torch.Tensor, ds: int) -> torch.Tensor:
+    """Means of consecutive blocks of ds samples, (B, L // ds), rounded as
+    the jitted jnp.mean rounds them on the CPU: a left-to-right float32
+    sum, then a product with float32(1 / ds)."""
+    return _block_sums(x, ds) * _inverse(ds)
+
+
+def _inverse(ds: int) -> float:
+    return float(np.float32(1.0) / np.float32(ds))
+
+
 def preprocess(signals: torch.Tensor, in_lens: torch.Tensor, ds: int):
     """Mean-pool by ds and normalize per read (median/MAD over valid lanes).
 
+    Bit for bit the jitted JAX function: the median is taken over the
+    pooled means, but XLA contracts the pool's product with float32(1 / ds)
+    into the deviation from it, fma(block sum, 1 / ds, -median), in the MAD
+    and in the normalized signal alike.
+
     Returns (xds (B, Lds), valid_ds (B, Lds) bool)."""
-    B, L = signals.shape
-    Lds = L // ds
-    pooled = signals[:, : Lds * ds].reshape(B, Lds, ds)
-    xds = pooled.sum(dim=2, dtype=torch.float64).to(torch.float32) / ds
-    pos = torch.arange(Lds, device=signals.device)
+    sums = _block_sums(signals, ds)
+    inv = torch.tensor(_inverse(ds), dtype=torch.float32, device=signals.device)
+    pos = torch.arange(sums.shape[1], device=signals.device)
     valid = pos[None, :] < (in_lens // ds)[:, None]
-    med = masked_median(xds, valid)
-    mad = masked_mad(xds, valid, med)
-    xn = (xds - med[:, None]) / torch.clamp_min(mad[:, None], 1e-3)
+    med = masked_median(sums * inv, valid)
+    dev = fma(sums, inv, -med[:, None])
+    mad = masked_median(dev.abs(), valid)
+    xn = dev / torch.clamp_min(mad[:, None], 1e-3)
     return torch.where(valid, xn, torch.zeros_like(xn)), valid
 
 

@@ -162,9 +162,9 @@ class Session:
             from warpdemux_tpu_torch.models.registry import load_model
 
             model = load_model(config.model_name, self.device)
-        elif model.X_sv.device.type != self.device.type:
+        elif model.device.type != self.device.type:
             raise ValueError(
-                f"the model lies on {model.X_sv.device}, the session runs on {self.device}"
+                f"the model lies on {model.device}, the session runs on {self.device}"
             )
         if spc is None:
             from warpdemux_tpu_torch.config.utils import get_model_spc_config

@@ -9,15 +9,14 @@ whole minibatch at once.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-from torch import nn
 
+from warpdemux_tpu_torch.models.base import Classifier
 from warpdemux_tpu_torch.ops import svm as svm_ops
 from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
 
 
-class DTWSVMModel(nn.Module):
+class DTWSVMModel(Classifier):
     def __init__(
         self,
         X_sv: torch.Tensor,
@@ -34,23 +33,17 @@ class DTWSVMModel(nn.Module):
         pwr_dist: int,
         name: str = "",
     ):
-        super().__init__()
+        super().__init__(label_map, thresholds, name)
         self.register_buffer("X_sv", X_sv)  # (n_sv, m) support vectors
         self.register_buffer("coef", coef)  # (n_sv, P)
         self.register_buffer("intercept", intercept)  # (P,)
         self.register_buffer("probA", probA)
         self.register_buffer("probB", probB)
-        self.register_buffer("label_map", label_map)  # (k,) int32
-        # the labels on the host, read once: a table built on another thread
-        # never waits for the device
-        self.label_values = label_map.cpu().numpy()
-        self.register_buffer("thresholds", thresholds)  # (k,)
         self.n_classes = int(n_classes)
         self.window = int(window)
         self.penalty = float(penalty)
         self.gamma = float(gamma)
         self.pwr_dist = int(pwr_dist)
-        self.name = name
 
     @property
     def params(self) -> svm_ops.SVMParams:
@@ -69,27 +62,3 @@ class DTWSVMModel(nn.Module):
         probs = svm_ops.predict_proba(K, self.params)
         pred, conf = svm_ops.process_probs(probs, self.label_map, self.thresholds)
         return pred, conf, probs
-
-    def predict(self, fpts) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Classify numpy fingerprints on the model's device; returns numpy
-        (pred_labels, confidence, probs), as the JAX model's `predict`."""
-        fpts = torch.as_tensor(np.asarray(fpts, np.float32), device=self.X_sv.device)
-        if fpts.ndim == 1:
-            fpts = fpts[None]
-        pred, conf, probs = self(fpts)
-        return pred.cpu().numpy(), conf.cpu().numpy(), probs.cpu().numpy()
-
-    def predictions_to_table(self, read_ids, pred, conf, probs):
-        """The prediction table of the JAX model's `predictions_to_df`
-        (numpy inputs): #read_id, predicted_barcode, confidence_score
-        rounded to 3 decimals, p{label:02d} rounded to 4, as a Table."""
-        from warpdemux_tpu_torch.io.writers import Table
-
-        cols = {
-            "#read_id": read_ids,
-            "predicted_barcode": pred,
-            "confidence_score": np.round(conf, 3),
-        }
-        for i in range(probs.shape[1]):
-            cols[f"p{self.label_values[i]:02d}"] = np.round(probs[:, i], 4)
-        return Table(cols)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from warpdemux_tpu_torch.ops.numerics import exact_sqrt, xla_sum
+from warpdemux_tpu_torch.ops.numerics import XLA_REDUCE_WINDOW, exact_sqrt, fma, xla_sum
 from warpdemux_tpu_torch.ops.select import range_median_mad
 
 
@@ -34,15 +34,50 @@ def masked_mad(x: torch.Tensor, mask: torch.Tensor, med: torch.Tensor | None = N
     return masked_median((x - med[..., None]).abs(), mask)
 
 
-def masked_mean_std(x: torch.Tensor, mask: torch.Tensor):
-    """(mean, population std) over valid lanes, two-pass like np.mean/np.std.
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid lanes of the last axis (0 where none is valid),
+    with the bits of the jitted JAX step: the masked row summed over every
+    lane in XLA's order (`xla_sum`), then a true float32 division by the
+    count."""
+    return xla_sum(torch.where(mask, x, torch.zeros_like(x))) / _count(mask)
 
-    Sums accumulate in float64 and round to x's dtype, so CPU and CUDA agree."""
-    zero = torch.zeros_like(x)
-    safe_n = torch.clamp_min(mask.sum(-1).to(x.dtype), 1.0)
-    mean = _sum(torch.where(mask, x, zero)) / safe_n
-    d = torch.where(mask, x - mean[..., None], zero)
-    return mean, torch.sqrt(_sum(d * d) / safe_n)
+
+def masked_mean_std(x: torch.Tensor, mask: torch.Tensor, calibration=None):
+    """(mean, population std) over the valid lanes of the last axis, two
+    passes like np.mean / np.std, with the bits of the jitted JAX step.
+
+    The squared deviations are summed in XLA's order (`_sum_of_squares`),
+    divided by the count and square-rooted correctly rounded. Where
+    the step calibrated x = (adc + offset) * scale itself, XLA contracts
+    the calibration into the deviation: pass `calibration` = (adc (B, L),
+    offset (B,), scale (B,)) and the deviation is fma(adc + offset, scale,
+    -mean), as the region MADs take it (ops/select)."""
+    mean = masked_mean(x, mask)
+    if calibration is None:
+        dev = x - mean[..., None]
+    else:
+        adc, offset, scale = calibration
+        dev = fma(adc.to(torch.float32) + offset[:, None], scale[:, None], -mean[..., None])
+    d = torch.where(mask, dev, torch.zeros_like(dev))
+    return mean, exact_sqrt(_sum_of_squares(d) / _count(mask))
+
+
+def _sum_of_squares(d: torch.Tensor) -> torch.Tensor:
+    """The sum of d * d along the last dim, as XLA:CPU computes it: the
+    squares rounded on their own and summed in `xla_sum`'s tree for rows
+    longer than 32; in a row of at most 32, one sequential chain of fused
+    multiply-adds."""
+    if d.shape[-1] > XLA_REDUCE_WINDOW:
+        return xla_sum(d * d)
+    acc = torch.zeros_like(d[..., 0])
+    for j in range(d.shape[-1]):
+        acc = fma(d[..., j], d[..., j], acc)
+    return acc
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """The float32 count of valid lanes, at least 1."""
+    return torch.clamp_min(mask.sum(-1).to(torch.float32), 1.0)
 
 
 def mean_std(x: torch.Tensor):
@@ -56,10 +91,6 @@ def mean_std(x: torch.Tensor):
     mean = xla_sum(x) * inv_n
     d = x - mean[..., None]
     return mean, exact_sqrt(xla_sum(d * d) * inv_n)
-
-
-def _sum(a: torch.Tensor) -> torch.Tensor:
-    return a.sum(-1, dtype=torch.float64).to(a.dtype)
 
 
 def clip_outliers_prefix(

@@ -32,6 +32,7 @@ and call __fmaf_rn at the same places.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
@@ -91,6 +92,20 @@ def _sequential_sum(a: torch.Tensor) -> torch.Tensor:
 def prefix_sums(a: torch.Tensor) -> torch.Tensor:
     """(B, L) -> (B, L+1) prefix sums with a leading zero column."""
     return torch.cat([a.new_zeros((a.shape[0], 1)), blocked_cumsum(a)], dim=1)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Inside, float32 matrix products and convolutions on the GPU run in
+    full float32: cuDNN would otherwise take TF32 for convolutions (its
+    default), and so would matrix products where a caller switched it on."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from warpdemux_tpu_torch.detect.boundaries import (
 )
 from warpdemux_tpu_torch.detect.containers import DetectArrays
 from warpdemux_tpu_torch.models.consensus_data import CONSENSUS
+from warpdemux_tpu_torch.models.dtw_svm import DTWSVMModel
 from warpdemux_tpu_torch.models.registry import load_cnn
 from warpdemux_tpu_torch.ops.fingerprint import (
     FingerprintArrays,
@@ -158,8 +159,9 @@ def make_demux_step(
     (RuntimeError where there is none); `device="cpu"` runs the plain
     PyTorch path on the CPU.
 
-    `model` is a DTWSVMModel (moved to `device`), or None for a run
-    without classification; with_predict=False skips it too. Without it
+    `model` is a DTWSVMModel (moved to `device`; any other family raises
+    ValueError, as the JAX step cannot take one), or None for a run without
+    classification; with_predict=False skips it too. Without it
     pred is -1, conf 0 and probs zeros of shape (B, 1).
 
     input_format:
@@ -191,6 +193,13 @@ def make_demux_step(
             np.asarray(CONSENSUS[sx.consensus_model], np.float32), device=device
         )
     classify = with_predict and model is not None
+    if classify and not isinstance(model, DTWSVMModel):
+        # the JAX step reads the SVM's support vectors and parameters
+        # (warpdemux_tpu/pipeline/step.py:279-281); the other families
+        # classify through `model.predict` (the predict run, the live lane)
+        raise ValueError(
+            f"make_demux_step classifies with a DTWSVMModel only, got {type(model).__name__}"
+        )
     if classify:
         model = model.to(device)
     cnn = load_cnn(spc.cnn_model_name, device) if dcfg.method == "cnn" else None

@@ -89,6 +89,24 @@ def synth_trna_read(
     return sig, truth
 
 
+def synth_batch(rng, B, L=10000, **kw):
+    """(signals (B, L) float32, lengths (B,) int32, truths): B mRNA reads
+    of synth_read with adapters of 2,500-5,499 and poly(A) tails of
+    500-2,999 samples, cut at L and zero-padded."""
+    sigs = np.zeros((B, L), np.float32)
+    lens = np.zeros(B, np.int32)
+    truths = []
+    for b in range(B):
+        adapter_len = int(rng.integers(2500, 5500))
+        polya_len = int(rng.integers(500, 3000))
+        sig, truth = synth_read(rng, adapter_len=adapter_len, polya_len=polya_len, **kw)
+        n = min(L, sig.size)
+        sigs[b, :n] = sig[:n]
+        lens[b] = n
+        truths.append(truth)
+    return sigs, lens, truths
+
+
 def trna_barcode_patterns(n_barcodes=4, n_events=30, seed=77):
     """Fixed per-barcode z-score event patterns for synthetic tRNA reads.
 
