@@ -62,13 +62,18 @@ Phases (each raises on failure; nothing is caught):
    read, which longer queries take), and both are timed in turns at the
    step's shape. K11 (the masked row means and stds of the region
    statistics and the [mvs_polya] gate in XLA's order, new: no Pallas
-   counterpart) is held bit for bit at the step's shapes (three ranges with
-   stds over the calibrated reads, the gate's one range of means, float
-   rows) and on rows of 1, 31, 32, 33, 1024, 1025, 10000, 15000 and 32769
-   samples, empty, inverted and out-of-row ranges, ranges at 0 and at L,
-   rows of length 0, NaN and inf, constant rows, -0.0 and cancellations,
-   with and without the calibration, and timed beside
-   torch.where(mask, x, 0).sum(-1). An empty launch is timed as called
+   counterpart) is held bit for bit, on both of its variants (one block a
+   row, the covered span staged once; one warp a range and row, which rows
+   beyond the block's shared memory take), at the step's shapes (three
+   ranges with stds over the calibrated reads, the gate's one range of
+   means, float rows) and on rows of 1, 31, 32, 33, 1024, 1025, 10000,
+   10001, 10003, 15000 and 32769 samples, empty, inverted, out-of-row,
+   identical and nested ranges, ranges at 0 and at L, a range in the last
+   window alone beside whole rows, one row, rows of length 0, NaN and inf,
+   constant rows, -0.0 and cancellations, with and without the
+   calibration; both variants are timed in turns at each step shape beside
+   its bound, and the wrapper beside torch.where(mask, x, 0).sum(-1). An
+   empty launch is timed as called
    through `_cuda.launch` and through a launch that resolves the entry
    point, the device context and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
@@ -716,6 +721,35 @@ def k11_edge_cases():
         x = ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
         st, en = k11_step_ranges(rng, b, length) if length > 1000 else ranges(b, length)
         cases.append((f"adc L={length}", x, (adc, off, sc), st, en))
+    # the block kernel's seams: odd row lengths (every row after the first
+    # starts off the 16-byte alignment of its loads) on both feeds, one row,
+    # identical and nested ranges, a range in the last window alone beside
+    # whole rows, the float feed at RNA002's length
+    def calibrated(b, length):
+        adc = rng.integers(-2000, 3000, (b, length)).astype(np.int16)
+        off = rng.uniform(-5, 20, b).astype(np.float32)
+        sc = rng.uniform(0.1, 0.3, b).astype(np.float32)
+        return ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32), (adc, off, sc)
+
+    for length in (10001, 10003):
+        x, cal = calibrated(6, length)
+        cases.append((f"adc L={length}, step ranges", x, cal, *k11_step_ranges(rng, 6, length)))
+        cases.append((f"pa L={length}, step ranges", x, None, *k11_step_ranges(rng, 6, length)))
+    x, cal = calibrated(1, 10000)
+    cases.append(("adc B=1 L=10000, step ranges", x, cal, *k11_step_ranges(rng, 1, 10000)))
+    x = rng.normal(80, 15, (4, 10000)).astype(np.float32)
+    s0 = rng.integers(0, 3000, 4)
+    e0 = s0 + rng.integers(2000, 7000, 4)
+    st = np.stack([s0, s0, s0 + 700]).astype(np.int32)  # identical, then nested
+    en = np.stack([e0, e0, e0 - 650]).astype(np.int32)
+    cases.append(("identical and nested ranges", x, None, st, en))
+    x, cal = calibrated(4, 10000)  # the last window holds samples 9976-9999 (8 zeros in front)
+    st = np.array([[9980, 0, 0, 0], [5, 0, 0, 0]], np.int32)
+    en = np.array([[9997, 10000, 10000, 10000], [5, 10000, 10000, 10000]], np.int32)
+    cases.append(("a range in the last window beside whole rows", x, cal, st, en))
+    cases.append(("the same, on the float feed", x, None, st, en))
+    x = rng.normal(80, 15, (6, 15000)).astype(np.float32)
+    cases.append(("pa L=15000, step ranges", x, None, *k11_step_ranges(rng, 6, 15000)))
     return cases
 
 
@@ -731,12 +765,15 @@ def k11_work(st, en, width, with_std, calibrated):
 
 def check_k11(dev, card):
     """Phase 2, K11: the masked row means and stds against their plain
-    version bit for bit, at the step's shapes (the region statistics of
-    full outputs: three ranges with stds over the calibrated reads; the
-    [mvs_polya] gate: the poly(A) mean alone; the pa feed: float rows) and
-    on k11_edge_cases(); timed beside the one PyTorch call of the same sums
-    in another order, torch.where(mask, x, 0).sum(-1). Returns the kernel's
-    entry of the `kernels` line."""
+    version bit for bit, on both variants (the block kernel, the wrapper's
+    choice at the step's shapes; the warp kernel, forced), at the step's
+    shapes (the region statistics of full outputs: three ranges with stds
+    over the calibrated reads; the [mvs_polya] gate: the poly(A) mean
+    alone; the pa feed: float rows) and on k11_edge_cases(); both variants
+    timed in turns at each step shape beside that shape's bound; the
+    wrapper timed beside the one PyTorch call of the same sums in another
+    order, torch.where(mask, x, 0).sum(-1). Returns the kernel's entry of
+    the `kernels` line."""
     import numpy as np
     import torch
 
@@ -749,8 +786,8 @@ def check_k11(dev, card):
         return a is None and b is None or (torch.equal(a.isnan(), b.isnan()) and torch.equal(
             a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32)))
 
-    def run(x, calibration, st, en, with_std):
-        k = rowstats.range_mean_std(x, st, en, with_std, calibration)
+    def run(x, calibration, st, en, with_std, variant=None):
+        k = rowstats.range_mean_std(x, st, en, with_std, calibration, variant=variant)
         p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
         return k, p, all(same(a, b) for a, b in zip(k, p))
 
@@ -763,19 +800,32 @@ def check_k11(dev, card):
     k, p, ok = run(x, cal, st, en, True)
     require(ok, "K11 at the region statistics' shape: differs from the plain version")
     err = max(max_abs(a, b) for a, b in zip(k, p))
-    print(f"K11 region statistics B={B} L={L} R=3 with stds, calibrated: means and stds bit-equal to the plain version")
-    for name, args in (("gate, calibrated R=1", (x, cal, st[1:2], en[1:2], False)),
-                       ("pa feed R=3", (x, None, st, en, True))):
-        require(run(*args)[2], f"K11 {name}: differs from the plain version")
-        print(f"K11 {name} B={B} L={L}: bit-equal to the plain version; "
-              f"kernel_ms={time_ms(lambda: rowstats.range_mean_std(*args[:1], *args[2:], calibration=args[1]))!r}")
+    shapes = {  # name -> (x, calibration, starts, ends, with_std)
+        "region statistics, calibrated R=3 with stds": (x, cal, st, en, True),
+        "gate, calibrated R=1": (x, cal, st[1:2], en[1:2], False),
+        "pa feed R=3 with stds": (x, None, st, en, True),
+    }
+    for name, (xs, cals, sts, ens, with_std) in shapes.items():
+        chosen = rowstats._variant(L, sts.shape[0], cals is not None, None)[0]
+        for variant in rowstats.VARIANTS:
+            require(run(xs, cals, sts, ens, with_std, variant)[2], f"K11 {name} ({variant} kernel): differs from the plain version")
+        n_bytes, n_ops = k11_work(sts, ens, L, with_std, cals is not None)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"K11 {name} B={B} L={L}: both kernels bit-equal to the plain version; the wrapper takes the "
+              f"{chosen} kernel; bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations) on {card}")
+        for variant in ("block", "warp", "warp", "block"):  # in turns
+            fn = lambda: rowstats.range_mean_std(xs, sts, ens, with_std, cals, variant=variant)
+            ms, device_ms = time_ms(fn), time_ms(fn, queued=True)
+            print(f"K11 {name}, {variant} kernel: kernel_ms={ms!r} device_ms={device_ms!r} "
+                  f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r})")
     for name, xe, cale, ste, ene in k11_edge_cases():
         xe_t = t(xe)
         cale_t = None if cale is None else tuple(t(a) for a in cale)
-        for with_std in (True, False):
-            require(run(xe_t, cale_t, t(ste), t(ene), with_std)[2],
-                    f"K11 {name} (with_std={with_std}): differs from the plain version")
-        print(f"K11 {name}: means and stds bit-equal to the plain version")
+        for variant in rowstats.VARIANTS:
+            for with_std in (True, False):
+                require(run(xe_t, cale_t, t(ste), t(ene), with_std, variant)[2],
+                        f"K11 {name} ({variant} kernel, with_std={with_std}): differs from the plain version")
+        print(f"K11 {name}: means and stds bit-equal to the plain version, both kernels")
     pos = torch.arange(L, device=dev)
     masks = (pos >= st[:, :, None]) & (pos < en[:, :, None])
     return time_kernel(

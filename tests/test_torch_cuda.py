@@ -652,15 +652,22 @@ def test_offline_run_loop_gpu_writes_the_cpu_runs_files(dev, tmp_path, wire):
     same_predictions(runs["cuda"], runs["cpu"])
 
 
-def _k11_equal(x, calibration, st, en, with_std):
-    k = _launched("wdx_rowstats", lambda: rowstats.range_mean_std(x, st, en, with_std, calibration))
-    p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
-    for a, b in zip(k, p):
+def _k11_bits_equal(got, want):
+    for a, b in zip(got, want):
         if b is None:
             assert a is None
             continue
         assert torch.equal(a.isnan(), b.isnan())
         assert torch.equal(a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32))
+
+
+def _k11_equal(x, calibration, st, en, with_std):
+    """The wrapper's choice and both variants, each bit-equal to the plain
+    version."""
+    p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
+    _k11_bits_equal(_launched("wdx_rowstats", lambda: rowstats.range_mean_std(x, st, en, with_std, calibration)), p)
+    for variant in rowstats.VARIANTS:
+        _k11_bits_equal(rowstats.range_mean_std(x, st, en, with_std, calibration, variant=variant), p)
 
 
 @pytest.mark.parametrize("with_std", [True, False])
@@ -678,6 +685,19 @@ def test_k11_rowstats_edge_cases(dev, case, with_std):
     _, x, calibration, st, en = case
     t = lambda a: torch.as_tensor(a, device=dev)
     _k11_equal(t(x), None if calibration is None else tuple(map(t, calibration)), t(st), t(en), with_std)
+
+
+def test_k11_variants_agree_at_the_gate_shape(dev):
+    """The [mvs_polya] gate's poly(A) mean (R = 1, calibrated, no stds) of
+    1000 reads of 10,000 samples: the block kernel, the wrapper's choice
+    there, and the warp kernel give the same bits."""
+    x, adc, off, sc = _calibrated(dev, B=1000)
+    st, en = (torch.as_tensor(a[1:2], device=dev) for a in k11_step_ranges(np.random.default_rng(6), 1000, 10000))
+    assert rowstats._variant(10000, 1, True, None)[0] == "block"
+    block = rowstats.range_mean_std(x, st, en, False, (adc, off, sc), variant="block")
+    warp = rowstats.range_mean_std(x, st, en, False, (adc, off, sc), variant="warp")
+    assert block[1] is None and warp[1] is None
+    assert torch.equal(block[0].view(torch.int32), warp[0].view(torch.int32))
 
 
 def test_k11_rows_outside_its_domain_raise(dev):

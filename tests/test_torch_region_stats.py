@@ -155,3 +155,20 @@ def test_range_mean_std_dispatch_and_shape_checks():
         range_mean_std(x, st, st, calibration=(torch.zeros((3, 41), dtype=torch.int16), x[:, 0], x[:, 0]))
     means, stds = range_mean_std(x, st, st + 5)
     assert means.shape == stds.shape == (2, 3) and not means.any() and not stds.any()
+
+
+def test_k11_variant_switch_shapes():
+    """K11's block kernel takes rows up to the stated lengths (calibrated /
+    float, three ranges and one), the warp kernel the rows above to 431,104
+    samples; beyond both, or a forced kernel beyond its own, ValueError."""
+    from warpdemux_tpu_torch.ops.rowstats import _variant
+
+    for R, calibrated, longest in ((3, True, 92480), (3, False, 51456), (1, True, 103072), (1, False, 54624)):
+        assert _variant(longest, R, calibrated, None)[0] == "block"
+        assert _variant(longest + 1, R, calibrated, None)[0] == "warp"
+    assert _variant(10000, 3, True, None) == ("block", 25284)
+    assert _variant(10000, 3, True, "warp")[0] == "warp"
+    assert _variant(431104, 3, True, None)[0] == "warp"
+    for args in ((431105, 3, True, None), (92481, 3, True, "block"), (0, 3, True, None), (100, 3, True, "tile")):
+        with pytest.raises(ValueError):
+            _variant(*args)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tile-size sweep of kernels K1 (csrc/dtw.cu), K6 / K9 and K7
 (csrc/rolling.cu), K4 and K8 (csrc/select.cu), K3 (csrc/peaks.cu), K2
-(csrc/ttest.cu) and K5 (csrc/window_gather.cu) on one CUDA GPU.
+(csrc/ttest.cu), K5 (csrc/window_gather.cu) and K11 (csrc/rowstats.cu) on one
+CUDA GPU.
 
     python3 tune_kernels.py
 
@@ -19,7 +20,12 @@ of the sources' tile macros, six builds at a time:
 - K3: WDX_SUPPRESS_THREADS a row (the block; 32 is a warp a row);
 - K2: WDX_TTEST_THREADS a block, WDX_TTEST_RUN positions a thread,
   WDX_TTEST_TILE positions a block (6272: the whole adapter buffer);
-- K5: WDX_GATHER_THREADS a block, WDX_GATHER_VECTORS 16-byte vectors a thread.
+- K5: WDX_GATHER_THREADS a block, WDX_GATHER_VECTORS 16-byte vectors a thread;
+- K11: WDX_ROWSTATS_BLOCK_WARPS a block (a row) of the block kernel and
+  WDX_ROWSTATS_MIN_BLOCKS blocks an SM its registers are held to,
+  WDX_ROWSTATS_IN_FLIGHT 16-byte loads a thread in flight while staging.
+
+`python3 tune_kernels.py K11` sweeps K11 alone.
 
 For each variant the script prints what ptxas reported for the kernel
 (registers, spills), checks the wrapper's output bit for bit against the
@@ -77,9 +83,59 @@ K2_VARIANTS = [
       for t in (128, 256, 512) for r in (2, 4, 8) for n in (512, 1024, 2048, 6272) if (t, r, n) != (128, 2, 1024)],
 ]
 K5_VARIANTS = [(), *[(f"-DWDX_GATHER_THREADS={t}", f"-DWDX_GATHER_VECTORS={v}") for t in (64, 128, 256) for v in (1, 2, 4) if (t, v) != (128, 2)]]
+K11_VARIANTS = [  # default: 4 warps, registers for 8 blocks an SM, 4 loads in flight
+    (), *[(f"-DWDX_ROWSTATS_BLOCK_WARPS={n}", f"-DWDX_ROWSTATS_MIN_BLOCKS={m}") for n, m in ((2, 16), (6, 8), (8, 8), (8, 4))],
+    *[(f"-DWDX_ROWSTATS_IN_FLIGHT={n}",) for n in (2, 8)],
+]
 
 
-def main() -> int:
+def sweep_k11(dev, ptxas):
+    """K11's block kernel by variant at the three step shapes (the region
+    statistics, calibrated, R = 3 with stds; the gate, calibrated, R = 1;
+    the float feed, R = 3 with stds), bit for bit against the plain version,
+    beside the warp kernel of the default build."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.ops import rowstats
+
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    cal = (t(rng.integers(-1500, 2500, (B, L)).astype(np.int16)), t(rng.uniform(-5, 20, B).astype(np.float32)),
+           t(rng.uniform(0.1, 0.3, B).astype(np.float32)))
+    x = (cal[0].float() + cal[1][:, None]) * cal[2][:, None]
+    st, en = (t(a) for a in chip_smoke.k11_step_ranges(rng, B, L))
+    shapes = {"region statistics": (x, st, en, True, cal), "gate": (x, st[1:2], en[1:2], False, cal),
+              "pa feed": (x, st, en, True, None)}
+    want = {name: rowstats.range_mean_std_plain(*args) for name, args in shapes.items()}
+
+    def exact(got, plain):
+        return all(a is b or torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, plain))
+
+    for defines in K11_VARIANTS:
+        _cuda.defines = defines
+        row = [f"K11 {' '.join(defines) or 'default'}"]
+        for name, args in shapes.items():
+            run = lambda: rowstats.range_mean_std(*args, variant="block")
+            row.append(f"{name}: exact={exact(run(), want[name])} ms={time_ms(run)!r}")
+        print(" | ".join(row), "|", ptxas(defines, "wdx_rowstats_block_kernelILb1"))
+    _cuda.defines = ()
+    row = ["K11 warp kernel, default build"]
+    for name, args in shapes.items():
+        run = lambda: rowstats.range_mean_std(*args, variant="warp")
+        row.append(f"{name}: exact={exact(run(), want[name])} ms={time_ms(run)!r}")
+    print(" | ".join(row), "|", ptxas((), "wdx_rowstats_kernel"))
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def main(argv) -> int:
     import numpy as np
     import torch
 
@@ -94,15 +150,21 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t = lambda a: torch.as_tensor(a, device=dev)
-    variants = list(dict.fromkeys(
+    only_k11 = argv == ["K11"]
+    variants = K11_VARIANTS if only_k11 else list(dict.fromkeys(
         K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:] + K8_VARIANTS[1:] + K3_VARIANTS[1:]
-        + K2_VARIANTS[1:] + K5_VARIANTS[1:]
+        + K2_VARIANTS[1:] + K5_VARIANTS[1:] + K11_VARIANTS[1:]
     ))
     with ThreadPoolExecutor(6) as pool:
         logs = dict(zip(variants, pool.map(lambda d: _cuda.build_log(_cuda.build(d)).read_text(), variants)))
 
     def ptxas(defines, kernel):
         return "; ".join(line for line in _cuda.ptxas_summary(logs[defines]) if kernel in line)
+
+    sweep_k11(dev, ptxas)
+    if only_k11:
+        print(card_line())
+        return 0
 
     X = t(np.random.default_rng(1).normal(0, 1, (B, 25)).astype(np.float32))
     refs = [t(load_model_arrays(m)["X_sv"].astype(np.float32)) for m in ("WDX4_rna004_v1_0", "WDX10_rna004_v1_0")]
@@ -280,12 +342,9 @@ def main() -> int:
         print(f"K4 probe default, {n_rows} rows of normal(80, 12): "
               f"median ms={time_ms(lambda: select.range_median_mad(xr, st, en, False))!r} | "
               f"median + MAD ms={time_ms(lambda: select.range_median_mad(xr, st, en, True))!r}")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip())
+    print(card_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

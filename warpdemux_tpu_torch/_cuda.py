@@ -57,7 +57,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
     "wdx_subseq_dtw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I),
-    "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+    "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
 }
 
 # entry points that launch no kernel of the port and are not counted

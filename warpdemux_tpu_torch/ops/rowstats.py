@@ -11,6 +11,27 @@ some 75 dependent operations. On CUDA tensors `range_mean_std` runs every
 range of a call in one launch of kernel K11 (csrc/rowstats.cu), which
 sums in the same association. K11 has no Pallas counterpart: the JAX
 package leaves these sums to XLA.
+
+K11 is bound by bytes: the span of a row its ranges cover, read once. It
+has two variants:
+
+- the block kernel: one block a row, the span staged once in shared
+  memory (int16 where the step calibrated, else float32), every touched
+  window of every range summed by a thread of its own, the levels above
+  and the top only where a range has entries, then the squares from the
+  same staged span. It answers the warp kernel's four limits: one long
+  dependent chain a warp, the tree's top run over every window sum of the
+  row, too few warps an SM (8 at the gate's one range) to hide that chain,
+  and a second read of device memory for the squares.
+- the warp kernel (the first design): one warp a range and row, 32 windows
+  staged at a time, for rows beyond the block kernel's shared memory.
+
+The wrapper takes the block kernel where `block_shared_bytes(L, R,
+calibrated)` fits a block (`_cuda.MAX_SHARED_BYTES`): rows of up to 92,480
+samples calibrated and 51,456 float at three ranges (103,072 and 54,624 at
+one), and the warp kernel above, to 431,104 samples; a CUDA call beyond
+both raises ValueError. `variant="warp"` or `"block"` forces one (for
+timing both and holding both to the plain version).
 """
 
 from __future__ import annotations
@@ -20,11 +41,16 @@ import torch
 from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops.normalize import masked_mean, masked_mean_std
 
-# warps (one a range and row) a block of K11
+# warps (one a range and row) a block of K11's warp kernel
 WARPS = 4
-# floats of K11's shared memory a warp beyond its window sums: a staged tile
-# of 32 windows of 32 samples, rows padded to 33 against bank conflicts
+# floats of the warp kernel's shared memory a warp beyond its window sums:
+# a staged tile of 32 windows of 32 samples, rows padded to 33 against bank
+# conflicts
 _TILE_FLOATS = 32 * 33
+# ints a range of the block kernel keeps in shared memory (its bounds and
+# the touched entries of three levels), and its mean
+_RANGE_WORDS = 8 + 1
+VARIANTS = {"block": 0, "warp": 1}
 
 
 def _check(x, starts, ends, calibration):
@@ -52,25 +78,61 @@ def range_mean_std_plain(x, starts, ends, with_std: bool = True, calibration=Non
 
 
 def shared_bytes(L: int) -> int:
-    """K11's dynamic shared memory a block at row length L: a warp's window
-    sums and its staged tile."""
+    """The warp kernel's dynamic shared memory a block at row length L: a
+    warp's window sums and its staged tile."""
     return WARPS * 4 * (-(-L // 32) + _TILE_FLOATS)
 
 
-def range_mean_std(x, starts, ends, with_std: bool = True, calibration=None):
-    """`range_mean_std_plain`; K11 on CUDA, one launch for every range.
+def _levels(L: int) -> tuple[int, int, int]:
+    """Entries of the sum tree's levels 1-3 over a row of L (0: no level)."""
+    n1 = -(-L // 32)
+    n2 = -(-n1 // 32) if n1 > 32 else 0
+    n3 = -(-n2 // 32) if n2 > 32 else 0
+    return n1, n2, n3
 
-    A CUDA call outside K11's domain (a row too long for its shared memory)
-    raises ValueError."""
+
+def block_shared_bytes(L: int, R: int, calibrated: bool) -> int:
+    """The block kernel's dynamic shared memory at row length L and R
+    ranges: the ranges' bounds and means, every level's sums and the staged
+    span, a window of 32 samples in 17 words (int16) or 33 (float32); 0
+    where the tree would need a fourth level."""
+    n1, n2, n3 = _levels(L)
+    if n3 > 32:
+        return 0
+    a16 = lambda n: -(-n // 16) * 16
+    return a16(4 * R * _RANGE_WORDS) + a16(4 * R * (n1 + n2 + n3)) + 4 * n1 * (17 if calibrated else 33)
+
+
+def _variant(L: int, R: int, calibrated: bool, variant):
+    """(variant, shared bytes) of K11 for rows of L and R ranges: the block
+    kernel where its shared memory fits, else the warp kernel; `variant`
+    forces one. ValueError outside the domain."""
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"range_mean_std: variant must be one of {tuple(VARIANTS)}, got {variant!r}")
+    if L > 0:
+        block = block_shared_bytes(L, R, calibrated)
+        if variant in (None, "block") and 0 < block <= _cuda.MAX_SHARED_BYTES:
+            return "block", block
+        if variant in (None, "warp") and shared_bytes(L) <= _cuda.MAX_SHARED_BYTES:
+            return "warp", shared_bytes(L)
+    raise ValueError(f"range_mean_std: rows of {L} samples are outside K11's domain"
+                     + (f" ({variant} kernel)" if variant else ""))
+
+
+def range_mean_std(x, starts, ends, with_std: bool = True, calibration=None, *, variant=None):
+    """`range_mean_std_plain`; K11 on CUDA, one launch for every range: the
+    block kernel where its shared memory fits, else the warp kernel
+    (`variant` forces one).
+
+    A CUDA call outside K11's domain (a row too long for the shared memory
+    of either) raises ValueError."""
     tensors = (x, starts, ends) if calibration is None else (x, starts, ends, *calibration)
     if not _cuda.on_cuda(*tensors):
         return range_mean_std_plain(x, starts, ends, with_std, calibration)
     _check(x, starts, ends, calibration)
     R, B = starts.shape
     L = x.shape[1]
-    smem = shared_bytes(L)
-    if smem > _cuda.MAX_SHARED_BYTES or L == 0:
-        raise ValueError(f"range_mean_std: rows of {L} samples are outside K11's domain")
+    kind, smem = _variant(L, R, calibration is not None, variant)
     starts = starts.to(torch.int32).contiguous()
     ends = ends.to(torch.int32).contiguous()
     if calibration is None:
@@ -87,6 +149,7 @@ def range_mean_std(x, starts, ends, with_std: bool = True, calibration=None):
     ptr = lambda t: None if t is None else t.data_ptr()
     _cuda.launch(
         "wdx_rowstats", x.device, ptr(None if calibration is not None else x), ptr(adc), ptr(offset),
-        ptr(scale), starts.data_ptr(), ends.data_ptr(), means.data_ptr(), ptr(stds), R, B, L, smem,
+        ptr(scale), starts.data_ptr(), ends.data_ptr(), means.data_ptr(), ptr(stds), R, B, L,
+        VARIANTS[kind], smem,
     )
     return means, stds
