@@ -162,6 +162,18 @@ Phases (each raises on failure; nothing is caught):
       LAUNCHES["rna002_..."] at B=1000, (success, fail_code, pred) equal to
       the CPU step's on 255 of the first 256 rows or more (vbz full: every
       int, median and MAD column compared as in phase 3b), and reads/s.
+10. One worker process a device, what `-j N` runs (after phase 6, before
+   phase 5's profiler): parallel/multihost.run_workers over every card,
+   or two processes on cuda:0 on a machine of one card, each running the
+   run loop (adc wire, predictions) over its round-robin share of
+   WORKER_MINIBATCHES minibatches of B rows (127,617 reads) with its rank's
+   shard tag; rounds of one process on cuda:0 and of the mesh in turns
+   (one, mesh, mesh, one). Each run's merged predictions and failed_reads
+   rows must equal, as text, those of the first one-process run; each
+   process's `GLOBAL (n hosts)` line its totals and class counts; each
+   process's launches its minibatches x LAUNCHES["adc_decision"]. Reads/s
+   of each round, timed in the processes from one barrier to the next
+   after one warm-up step each, printed beside the card.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -248,6 +260,12 @@ OFFLINE_RUNS = {"offline_vbz_decision": ("vbz", False, "vbz_decision", "adc_deci
                 "offline_adc_decision": ("adc", False, "adc_decision", "adc_decision"),
                 "offline_vbz_prep": ("vbz", True, "vbz_prep", "vbz_full")}
 OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
+# phase 10's run: the data of WORKER_DISTINCT minibatches (each drawn once a
+# process) in WORKER_MINIBATCHES minibatches of read ids of their own, the
+# last cut to OFFLINE_LAST_ROWS rows
+WORKER_MINIBATCHES = 128
+WORKER_DISTINCT = 8
+WORKER_ROUNDS = ("one", "mesh", "mesh", "one")
 
 
 TRNA_MODEL = "WDX4_tRNA_rna004_v1_0"
@@ -2367,6 +2385,149 @@ def run_families_and_rna002(dev, card, mrna_full_step):
     return by_path, first_steps, rows
 
 
+def phase10_worker(device, out, n_batches, batch_size, last_rows):
+    """One process of phase 10's run (parallel/multihost.run_workers): the
+    run loop on `device`, adc wire, predictions, over minibatches rank,
+    rank + world, ... of the run with its rank's shard tag; one step first
+    to warm up, then timed from a barrier of every process to the barrier
+    after the last one's run. Returns (total, passed, failed, predicted,
+    class counts, launches, seconds, the GLOBAL line or None, the seconds
+    of its own run loop)."""
+    import logging
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.parallel.multihost import host_shard_tag, init_distributed
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    rank, world = init_distributed()
+    data = {}
+
+    def distinct(j):
+        if j not in data:
+            data[j] = synth_minibatch(np.random.default_rng(100 + j), batch_size, L)
+        return data[j]
+
+    feed = []
+    for k in range(rank, n_batches, world):
+        arrays = distinct(k % WORKER_DISTINCT)
+        if k == n_batches - 1:
+            arrays = tuple(a[:last_rows] for a in arrays)
+        ids = np.array([f"{k:05d}-{i:05d}" for i in range(len(arrays[0]))], object)
+        feed.append((*arrays, arrays[-1], ids))
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logging.getLogger().addHandler(Keep())
+    logging.getLogger().setLevel(logging.INFO)
+    model = load_model(MODEL, device)
+    config = offline_config(out, "adc", False, batch_size)
+    if world > 1:
+        config.output.shard_tag = host_shard_tag(rank) + "_"
+    warm = make_demux_step(model, config.sig_proc, input_format="adc", outputs="decision", device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda _: None
+    warm(*distinct(rank % WORKER_DISTINCT))
+    sync(device)
+    dist.barrier()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    stats = demux_minibatches(config, model, feed, device=device)
+    sync(device)
+    own = time.perf_counter() - t0
+    dist.barrier()
+    seconds = time.perf_counter() - t0
+    return (stats.total, stats.passed, stats.failed, stats.predicted, stats.class_counts.tolist(),
+            dict(_cuda.launches), seconds, next((x for x in lines if x.startswith("GLOBAL")), None), own)
+
+
+def worker_runs(devices, out, n_batches=WORKER_MINIBATCHES, batch_size=B, last_rows=OFFLINE_LAST_ROWS):
+    """Phase 10's run in one process a device of `devices`; each process's
+    phase10_worker result, in device order."""
+    from warpdemux_tpu_torch.parallel.multihost import run_workers
+
+    return run_workers(phase10_worker, (str(out), n_batches, batch_size, last_rows), devices)
+
+
+def check_worker_runs(name, run, res, one_run, one_res, n_batches=WORKER_MINIBATCHES):
+    """Phase 10's checks of a run of len(res) processes against a run of
+    one: the merged predictions and failed_reads rows equal as text (the
+    shard tags apart), each process's GLOBAL line the one-process totals
+    and class counts, each process's launches its minibatches x the adc
+    decision step's pin. Returns the summed launches."""
+    from warpdemux_tpu_torch.detect.boundaries import fused_rolling_default
+
+    per_step = list(LAUNCHES["adc_decision"])
+    if fused_rolling_default():  # K9 for K6 and both K7
+        per_step[5:9] = [0, 0, per_step[7], 1]
+    world = len(res)
+    for sub in ("predictions", "failed_reads"):
+        require(shard_header(run, sub) == shard_header(one_run, sub), f"{name}: {sub} headers differ")
+        got, want = sorted(shard_rows(run, sub)), sorted(shard_rows(one_run, sub))
+        require(got == want, f"{name}: the merged {sub} rows differ from one process's "
+                             f"({len(set(map(tuple, got)) ^ set(map(tuple, want)))} rows in one of the two)")
+    total, passed, failed, predicted, classes = one_res[0][:5]
+    want = f"{total} reads ({passed} pass / {failed} fail / {predicted} predicted)"
+    want += " class counts " + "/".join(map(str, classes))
+    summed = Counter()
+    for rank, r in enumerate(res):
+        steps = len(range(rank, n_batches, world))
+        require(r[5] == {key: steps * k for key, k in zip(KERNELS, per_step)},
+                f"{name}: process {rank} launched {r[5]}, not {steps} x {per_step}")
+        summed.update(r[5])
+        if world > 1:
+            require(r[7] == f"GLOBAL ({world} hosts): {want}", f"{name}: process {rank}'s line {r[7]!r}, not {want!r}")
+    require(tuple(sum(r[j] for r in res) for j in range(4)) == (total, passed, failed, predicted),
+            f"{name}: the processes' counts do not add up to one process's")
+    print(f"{name}: merged predictions and failed_reads rows equal to one process's; {world} process(es): {want}")
+    return {key: summed[key] for key in KERNELS}
+
+
+def run_worker_processes(card):
+    """Phase 10: rounds of one process on cuda:0 and of one process a
+    device of the mesh (every card; on one card two on cuda:0), in turns.
+    Returns the launch counts of the first mesh round."""
+    import tempfile
+
+    import torch
+
+    from warpdemux_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh() if torch.cuda.device_count() > 1 else [torch.device("cuda", 0)] * 2
+    name = f"offline_adc_decision {len(mesh)} processes"
+    print(f"phase 10: one process a device over {', '.join(map(str, mesh))} on {card}")
+    runs, rates, launches = [], {"one": [], "mesh": []}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, which in enumerate(WORKER_ROUNDS):
+            devices = [torch.device("cuda", 0)] if which == "one" else mesh
+            out = f"{tmp}/{i}_{which}"
+            t0 = time.perf_counter()
+            res = worker_runs(devices, out)
+            wall = time.perf_counter() - t0
+            total, seconds = sum(r[0] for r in res), max(r[6] for r in res)
+            rates[which].append(total / seconds)
+            print(f"phase 10 round {i}: {len(devices)} process(es), {total} reads in {seconds!r} s: "
+                  f"{total / seconds!r} reads/s ({wall!r} s with start-up; each process's run loop "
+                  f"{[r[8] for r in res]!r} s) on {card}")
+            runs.append((out, res))
+        for i, (out, res) in enumerate(runs[1:], 1):
+            counts = check_worker_runs(f"phase 10 round {i}", out, res, *runs[0])
+            if i == 1:
+                launches = counts
+    one, many = sum(rates["one"]) / 2, sum(rates["mesh"]) / 2
+    print(f"phase 10: {len(mesh)} processes {many!r} reads/s against one process {one!r} "
+          f"({many / one!r}x) on {card}")
+    return {name: launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2401,6 +2562,7 @@ def main() -> int:
     family_counts, rna002_steps, rna002_rows = run_families_and_rna002(dev, card, steps["vbz_full"])
     by_path.update(family_counts)
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
+    by_path.update(run_worker_processes(card))
     count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows))
 
     kernels = []

@@ -38,9 +38,12 @@ from chip_smoke import (  # noqa: E402
     RNA002_MODELS,
     live_bucket_batches,
     live_lane_reads,
+    check_worker_runs,
     offline_batches,
     offline_config,
+    shard_texts,
     trna_minibatch,
+    worker_runs,
 )
 from warpdemux_tpu_torch import _cuda  # noqa: E402
 from warpdemux_tpu_torch.detect import boundaries as bd  # noqa: E402
@@ -744,3 +747,40 @@ def test_rna002_step_gpu_matches_cpu(dev, name):
     cpu = make_demux_step(load_model(name, "cpu"), spc, input_format="adc", outputs="full", device="cpu")(*rows)
     same = (gpu.success.cpu() == cpu.success) & (gpu.pred.cpu() == cpu.pred)
     assert int(same.sum()) >= 63
+
+
+def test_workers_on_the_cards_write_the_one_process_rows(dev, tmp_path):
+    """chip_smoke's phase 10 at B=64 (3 minibatches, 160 reads): one worker
+    process a card (two on cuda:0 on a machine of one card) against one
+    process on cuda:0: the merged rows equal as text, each process's
+    GLOBAL line the totals, each process's launches its minibatches x the
+    adc decision step's pin."""
+    from warpdemux_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh() if torch.cuda.device_count() > 1 else [dev, dev]
+    one = worker_runs([dev], tmp_path / "one", 3, 64, 32)
+    many = worker_runs(mesh, tmp_path / "many", 3, 64, 32)
+    assert sum(r[0] for r in many) == 160
+    check_worker_runs(f"{len(mesh)} processes", tmp_path / "many", many, tmp_path / "one", one, 3)
+
+
+def test_run_loop_on_a_card_that_is_not_current(dev, tmp_path):
+    """The run loop on cuda:1 while cuda:0 is the current card (its copy
+    stream, events and fetches made on cuda:1) writes the rows of the loop
+    on cuda:0, as text."""
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), 100, 10000)
+    batches = [(adc[:64], off[:64], sc[:64], lens[:64]), (adc[64:], off[64:], sc[64:], lens[64:])]
+    ids = np.array([f"read{i:03d}" for i in range(100)], object)
+    for name, d in (("current", dev), ("other", torch.device("cuda", 1))):
+        with torch.cuda.device(0):
+            stats = demux_minibatches(
+                offline_config(tmp_path / name, "vbz", False, 64), load_model(MODEL, d),
+                offline_batches(batches, ids, "vbz"), device=d,
+            )
+        assert stats.total == 100
+    assert shard_texts(tmp_path / "other") == shard_texts(tmp_path / "current")

@@ -231,13 +231,3 @@ def test_no_gpu_and_no_device_exits_2(pod5_set, tmp_path, capsys):
     assert main(["demux", "-i", str(d), "-o", str(tmp_path / "out"), *COMMON]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "out").exists()  # nothing ran
-
-
-@pytest.mark.parametrize("flags", [["-j", "2"], ["-j", "0"], ["--coordinator", "localhost:1234"]])
-def test_multi_device_flags_exit_naming_the_roadmap(pod5_set, tmp_path, capsys, flags):
-    from warpdemux_tpu_torch.cli import main
-
-    d, _ = pod5_set
-    argv = ["demux", "-i", str(d), "-o", str(tmp_path / "out"), *COMMON, *flags, "--device", "cpu"]
-    assert main(argv) == 2
-    assert "ROADMAP queue 1 item 8" in capsys.readouterr().err

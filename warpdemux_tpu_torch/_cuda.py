@@ -101,15 +101,23 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the CUDA GPU unless the caller
     names another (`device="cpu"` for the CPU path). With no device given
-    and no CUDA GPU this raises; nothing moves to the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
+    and no CUDA GPU this raises; nothing moves to the CPU unasked.
+
+    A card always comes back with its index (the current card where none
+    was named): the launches, streams and events of the step are made on
+    the device of its tensors, which a device without an index does not
+    say once the current card is another."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: warpdemux_tpu_torch runs on the GPU by default; "
             'pass device="cpu" to run the plain PyTorch path on the CPU'
         )
-    return torch.device("cuda")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _nvcc() -> str:

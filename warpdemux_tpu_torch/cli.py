@@ -6,10 +6,15 @@ continue.
 The command surface of warpdemux_tpu/cli.py (the same flags, run-directory
 layout, command.json manifest and `--export` overrides), on the port's run
 loop. A run goes on the CUDA GPU unless `--device` names another; with no
-GPU and no `--device` the command exits 2 before anything runs. Runs on
-several GPUs (`-j` other than 1, `--coordinator`) are not ported. The
-JAX package's two-stage wire is not ported either: `--stage1_preload` is
-accepted and the one-shot decision step runs.
+GPU and no `--device` the command exits 2 before anything runs.
+
+Runs over several cards or hosts are several processes, one a card, each
+over a disjoint share of the pod5 files, its output shards tagged with its
+rank, the run's counters summed over the processes (parallel/multihost.py):
+`-j N` starts N worker processes on this host (`--device cpu -j N`: N on
+the CPU), and `--coordinator` joins this host's processes to those of the
+other hosts. The JAX package's two-stage wire is not ported:
+`--stage1_preload` is accepted and the one-shot decision step runs.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import datetime
 import logging
 import os
 import sys
+import time
+from dataclasses import replace
 from pathlib import Path
 
 
@@ -83,20 +90,32 @@ def _add_common(p):
                    help="the JAX package's two-stage wire; accepted, not "
                         "ported (the one-shot decision step runs)")
     p.add_argument("-j", "--devices", type=int, default=1,
-                   help="devices to run on; only 1 is ported")
+                   help="devices to run on, one worker process a device, "
+                        "each over its share of the pod5 files (0 = all "
+                        "local devices; the reference's -j "
+                        "reads-parallelism mapped onto the cards)")
     _add_device(p)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run there")
+    # multi-host data parallelism (SURVEY 2.2: the reference scales by
+    # reads-parallelism over cores, file_proc.py:1197-1245; several hosts
+    # scale by disjoint pod5 file shards a process, rank-tagged output
+    # shards and summed counters)
     p.add_argument("--coordinator", default=None,
-                   help="multi-host runs: not ported")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+                   help="torch.distributed rendezvous address (host:port) "
+                        "of host 0; omit on single-host runs. 'env' reads "
+                        "torchrun's environment (one process a card, -j 1)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="host count for --coordinator runs (every host "
+                        "runs the same -j)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this host's index for --coordinator runs")
 
 
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="warpdemux-tpu-torch",
-        description="Raw-signal barcode demultiplexing on one CUDA GPU",
+        description="Raw-signal barcode demultiplexing on CUDA GPUs",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -168,15 +187,28 @@ def _run_batch_command(args, command: str, device, read_ids_excl=None, run_dir=N
         dump_toml, get_model_spc_config, parse_export_overrides,
         resolve_model_chemistry_dict,
     )
+    from warpdemux_tpu_torch.parallel.multihost import host_shard_tag, init_distributed, shard_files
     from warpdemux_tpu_torch.pipeline.run import run_demux
 
     files = _collect_inputs(args.input, ".pod5")
     if not files:
         raise SystemExit(f"no pod5 inputs found under {args.input}")
 
+    # several processes: each takes a disjoint file shard and tags its
+    # output shards (the reference's per-process bidx shards,
+    # file_proc.py:1197-1245)
+    pi, pc = init_distributed()
+    shard_tag, all_files = "", files
+    if pc > 1:
+        files = shard_files(files, pi, pc)
+        shard_tag = host_shard_tag(pi) + "_"
+
     run_dir = run_dir or _make_run_dir(args.output, command, args.create_subdir)
     _setup_logging(run_dir)
-    logging.info("run dir: %s (%d pod5 files, device %s)", run_dir, len(files), device)
+    logging.info(
+        "run dir: %s (%d pod5 files%s, device %s)", run_dir, len(files),
+        f", process {pi}/{pc}" if pc > 1 else "", device,
+    )
 
     overrides = parse_export_overrides(args.export)
     spc = get_model_spc_config(args.model_name, overrides)
@@ -195,6 +227,7 @@ def _run_batch_command(args, command: str, device, read_ids_excl=None, run_dir=N
             save_dwell_time=args.save_dwell_time,
             save_boundaries=args.save_boundaries or command == "prep",
             save_predictions=do_predict,
+            shard_tag=shard_tag,
         ),
         batch=BatchConfig(
             minibatch_size=args.minibatch_size,
@@ -210,18 +243,66 @@ def _run_batch_command(args, command: str, device, read_ids_excl=None, run_dir=N
         classif=ClassifConfig(model_name=args.model_name),
         sig_proc=spc,
     )
-    config.write_command_json(sys.argv[1:])
-    # snapshot the resolved chemistry config into the run dir
-    (Path(run_dir) / "config.toml").write_text(
-        dump_toml(resolve_model_chemistry_dict(args.model_name, overrides))
-    )
+    if pi == 0:  # one manifest a run, with every input file (`continue` reads them)
+        replace(config, input=replace(config.input, files=all_files)).write_command_json(sys.argv[1:])
+        # snapshot the resolved chemistry config into the run dir
+        (Path(run_dir) / "config.toml").write_text(
+            dump_toml(resolve_model_chemistry_dict(args.model_name, overrides))
+        )
     with _profile(args.profile_dir, device):
         stats = run_demux(config, device=device)
+    _print_done(stats.total, stats.passed, stats.failed, stats.predicted, stats.elapsed_s)
+    return stats
+
+
+def _print_done(total, passed, failed, predicted, seconds, what=""):
     print(
-        f"done: {stats.total} reads, {stats.passed} pass, {stats.failed} fail,"
-        f" {stats.predicted} predicted, {stats.elapsed_s:.1f}s"
-        f" ({stats.total / max(stats.elapsed_s, 1e-9):.0f} reads/s)"
+        f"done{what}: {total} reads, {passed} pass, {failed} fail,"
+        f" {predicted} predicted, {seconds:.1f}s"
+        f" ({total / max(seconds, 1e-9):.0f} reads/s)"
     )
+
+
+def _batch_worker(device, args, command, kw):
+    """One worker process of `_run_batch` (in a process group already);
+    its counters."""
+    stats = _run_batch_command(args, command, device, **kw)
+    return stats.total, stats.passed, stats.failed, stats.predicted
+
+
+def _run_batch(args, command: str, device, **kw) -> int:
+    """A demux / prep run: in this process on `device`, or with -j N in N
+    worker processes, one a local device of device's kind
+    (parallel/multihost.run_workers). With --coordinator the processes
+    join those of the other hosts."""
+    import torch.distributed as dist
+
+    from warpdemux_tpu_torch.parallel.mesh import make_mesh
+    from warpdemux_tpu_torch.parallel.multihost import init_distributed, run_workers
+
+    devices = make_mesh(args.devices, device.type)
+    coordinator = args.coordinator
+    if len(devices) == 1:
+        if coordinator is None:
+            _run_batch_command(args, command, device, **kw)
+            return 0
+        init_distributed(coordinator, args.num_processes, args.process_id)
+        try:
+            _run_batch_command(args, command, device, **kw)
+        finally:
+            dist.destroy_process_group()
+        return 0
+    if coordinator == "env":
+        raise SystemExit("--coordinator env: torchrun starts one process a card; run it with -j 1")
+    if device.type == "cuda":  # built once here, not by every worker at once
+        from warpdemux_tpu_torch import _cuda
+
+        _cuda.build(_cuda.defines)
+    kw["run_dir"] = kw.get("run_dir") or _make_run_dir(args.output, command, args.create_subdir)
+    hosts = (args.num_processes, args.process_id) if coordinator else (1, 0)
+    t0 = time.time()
+    done = run_workers(_batch_worker, (args, command, kw), devices, coordinator, *hosts)
+    _print_done(*(sum(col) for col in zip(*done)), time.time() - t0, f" ({len(devices)} processes)")
     return 0
 
 
@@ -291,10 +372,11 @@ def _cmd_continue(args, device):
         wire=manifest["batch"].get("wire", "vbz"),
         stage1_preload=manifest["batch"].get("stage1_preload", 7168),
         profile_dir=None,
+        coordinator=None,
+        num_processes=None,
+        process_id=None,
     )
-    if ns.devices != 1:
-        raise SystemExit(f"{args.input} was a run on several devices: not ported (ROADMAP queue 1 item 8)")
-    return _run_batch_command(
+    return _run_batch(
         ns, manifest["command"], device,
         read_ids_excl=processed, run_dir=args.input, bidx=(bp, bf, bpr),
     )
@@ -306,13 +388,9 @@ def main(argv=None):
         args.input = args.input or args.input_dir
         if not args.input:
             raise SystemExit(f"{args.command} requires a run directory")
-    if getattr(args, "devices", 1) != 1 or getattr(args, "coordinator", None):
-        print(
-            "warpdemux-tpu-torch: runs on several devices or hosts (-j, "
-            "--coordinator) are not ported (ROADMAP queue 1 item 8)",
-            file=sys.stderr,
-        )
-        return 2
+    coordinator = getattr(args, "coordinator", None)
+    if coordinator not in (None, "env") and (args.num_processes is None or args.process_id is None):
+        raise SystemExit("--coordinator host:port needs --num-processes and --process-id")
 
     from warpdemux_tpu_torch._cuda import resolve_device
 
@@ -322,7 +400,9 @@ def main(argv=None):
         print(e, file=sys.stderr)
         return 2
     if args.command in ("demux", "prep"):
-        return _run_batch_command(args, args.command, device)
+        if coordinator == "env" and device.type == "cuda":  # torchrun's process of this card
+            device = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        return _run_batch(args, args.command, device)
     if args.command == "predict":
         return _cmd_predict(args, device)
     return _cmd_continue(args, device)

@@ -64,7 +64,9 @@ class BatchConfig:
     bidx_pass: int = 0
     bidx_fail: int = 0
     bidx_predict: int = 0
-    # devices to shard each minibatch over; the port runs on one (1)
+    # worker processes a host, one a device, each over its share of the pod5
+    # files (cli.py; 0: every card; a request is capped at the cards there
+    # are); the run loop of each runs on one device
     devices: int = 1
     # host->device wire format: "vbz" ships the VBZ inner layout (decoded
     # on the device), "adc" the raw int16 counts

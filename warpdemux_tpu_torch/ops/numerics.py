@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -94,18 +95,46 @@ def prefix_sums(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([a.new_zeros((a.shape[0], 1)), blocked_cumsum(a)], dim=1)
 
 
+class _Float32Scope:
+    """The TF32 switches are the process's, not a thread's: threads that
+    run the CNN or a DTW-MLP at once (the live lane's classifier threads)
+    enter and leave the scope at different times, so the first to enter
+    saves the switches and the last to leave restores them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved = None
+
+    def enter(self):
+        with self.lock:
+            if self.depth == 0:
+                self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self.depth += 1
+
+    def leave(self):
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+_float32_scope = _Float32Scope()
+
+
 @contextlib.contextmanager
 def full_float32():
     """Inside, float32 matrix products and convolutions on the GPU run in
     full float32: cuDNN would otherwise take TF32 for convolutions (its
-    default), and so would matrix products where a caller switched it on."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    default), and so would matrix products where a caller switched it on.
+    Any number of threads may be inside at once."""
+    _float32_scope.enter()
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        _float32_scope.leave()
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,11 @@ for the caching allocator. The main thread starts each result's copy back
 into pinned memory right after the step and records an event, which the
 postprocess thread waits on: no thread synchronises the whole stream.
 
+A run loop runs on one device. Runs over several devices or hosts are
+several processes (parallel/multihost.run_workers, cli.py `-j` and
+`--coordinator`), each over its own pod5 files; in a process group the
+run's counters are summed over the processes at the end.
+
 The tables are io/writers.Table, written with gzip and csv: the run loop,
 the writers and the resume scan need no pandas.
 """
@@ -42,9 +47,8 @@ from warpdemux_tpu_torch.config.config import Config
 from warpdemux_tpu_torch.detect.containers import DetectArrays, fail_code_to_reason
 from warpdemux_tpu_torch.io import writers
 from warpdemux_tpu_torch.io.writers import Table
+from warpdemux_tpu_torch.parallel.multihost import global_class_counts, init_distributed
 from warpdemux_tpu_torch.pipeline.step import PackedStepOutput, make_demux_step
-
-MULTI_GPU_NOT_PORTED = "multi-GPU runs are not ported (ROADMAP queue 1 item 8)"
 
 
 class _ShardAccumulator:
@@ -163,10 +167,11 @@ class _Staged:
     def __init__(self, tensors, event):
         self.tensors, self.event = tensors, event
 
-    def take(self, device: torch.device) -> list[torch.Tensor]:
-        """The tensors, ordered after their copy on the current stream."""
+    def take(self) -> list[torch.Tensor]:
+        """The tensors, ordered after their copy on their device's current
+        stream."""
         if self.event is not None:
-            stream = torch.cuda.current_stream(device)
+            stream = torch.cuda.current_stream(self.tensors[0].device)
             stream.wait_event(self.event)
             for t in self.tensors:
                 t.record_stream(stream)
@@ -185,7 +190,7 @@ class _HostToDevice:
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         if self.stream is None:  # the CPU: the step reads the arrays in place
             return _Staged(host, None)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             tensors = [h.pin_memory().to(self.device, non_blocking=True) for h in host]
             event = torch.cuda.Event()
             event.record(self.stream)
@@ -193,9 +198,9 @@ class _HostToDevice:
 
 
 def _fetch_async(res, device: torch.device):
-    """(host copy of a step output, event): copies into pinned memory
-    started on the current stream, the event recorded after them (None on
-    the CPU, where the output is already on the host)."""
+    """(host copy of a step output on `device`, event): copies into pinned
+    memory started on the device's current stream, the event recorded
+    after them (None on the CPU, where the output is already on the host)."""
     if device.type != "cuda":
         return res, None
 
@@ -206,9 +211,10 @@ def _fetch_async(res, device: torch.device):
         out.copy_(t, non_blocking=True)
         return out
 
-    host = type(res)(*(to_host(t) for t in res))
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
+    with torch.cuda.device(device):
+        host = type(res)(*(to_host(t) for t in res))
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
     return host, event
 
 
@@ -246,8 +252,6 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
     device = resolve_device(device)
     spc = config.sig_proc
     do_predict = config.task.predict
-    if config.batch.devices != 1:
-        raise NotImplementedError(MULTI_GPU_NOT_PORTED)
     if do_predict and model is None:
         from warpdemux_tpu_torch.models.registry import load_model
 
@@ -450,7 +454,7 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
         staged, n, full_lens, read_ids, in_lens = item
         event = None
         try:
-            res, event = _fetch_async(step(*staged.take(device)), device)
+            res, event = _fetch_async(step(*staged.take()), device)
         except Exception:
             logging.exception(
                 "minibatch dispatch failed (%d reads dropped): %s...",
@@ -478,6 +482,20 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
             "class counts (%s): %s",
             "/".join(str(v) for v in label_vals),
             "/".join(str(int(c)) for c in stats.class_counts),
+        )
+    n_proc = init_distributed()[1]
+    if n_proc > 1:
+        # a run over several processes: every process's counters summed
+        # into one end-of-run summary (the reference's Manager-shared
+        # counters, file_proc.py:1055-1071)
+        vec = np.array([stats.total, stats.passed, stats.failed, stats.predicted], np.int64)
+        if stats.class_counts is not None:
+            vec = np.concatenate([vec, stats.class_counts.astype(np.int64)])
+        g = global_class_counts(vec)
+        logging.info(
+            "GLOBAL (%d hosts): %d reads (%d pass / %d fail / %d predicted)%s",
+            n_proc, g[0], g[1], g[2], g[3],
+            " class counts " + "/".join(str(int(c)) for c in g[4:]) if len(g) > 4 else "",
         )
     return stats
 
