@@ -117,19 +117,24 @@ Phases (each raises on failure; nothing is caught):
 7. The offline run loop (pipeline/run.demux_minibatches, the loop behind
    `python -m warpdemux_tpu_torch.cli demux`) on phase 4's four
    minibatches, the last cut to 617 rows (3,617 reads, uuid read ids), in
-   three runs with batch_size_output 1500: a. the vbz wire, predictions
-   only (the CLI's default run); b. the adc wire, predictions only; c. the
-   vbz wire, prep (boundaries and fingerprints). Each run must account
-   for every read once (predictions or boundaries, or failed_reads),
-   count 3,617 reads, write fingerprint rows equal to its boundary rows
-   and launch each kernel its step's count x 4; runs a and b must write
-   equal CSV text, and run a must agree with a CPU run of the loop on the
-   first 256 reads (barcode and fail reason on 255 or more, the confidence
-   within 0.001). Each run's reads/s (host clock, call to return) is
-   printed beside phase 4's step rate, and run a is timed again on eight
+   four runs with batch_size_output 1500: a. the vbz wire, predictions
+   only (the CLI's default run: the two-stage wire, stage1_preload 7168);
+   a'. the same with stage1_preload 0 (the one-shot wire); b. the adc
+   wire, predictions only; c. the vbz wire, prep (boundaries and
+   fingerprints). Each run must account for every read once (predictions
+   or boundaries, or failed_reads), count 3,617 reads, write fingerprint
+   rows equal to its boundary rows and launch each kernel its step's count
+   x 4, run a x (4 + the minibatches whose stage 2 ran, printed; at least
+   one); runs a, a' and b must write equal CSV text, and run a must agree
+   with a CPU run of the loop on the first 256 reads (barcode and fail
+   reason on 255 or more, the confidence within 0.001). Each run's reads/s
+   (host clock, call to return) is printed beside phase 4's step rate;
+   run a with stage 2 on the dispatching thread (the default), run a with
+   it on the postprocess thread and run a' are timed in turns (three
+   rounds, each writing run a's text), and run a again on eight
    minibatches (the loop's cost a minibatch beyond its fixed cost); phase
    5 prints the device's busy time in run a against run a's time. Runs
-   after phase 4, before phase 8.
+   after phase 4, before phase 11.
 8. The tRNA chemistry (WDX4_tRNA_rna004_v1_0, rna004_130bps@v1.0_tRNA:
    start_peak detect, the [real_range] and [med_shift] gates, consensus-
    refined fingerprints with K10) on trna_minibatch(default_rng(0), 1000):
@@ -144,7 +149,7 @@ Phases (each raises on failure; nothing is caught):
    d. one demux_minibatches run (the vbz wire, predictions and boundaries)
       over the four minibatches: every read once, the consensus columns in
       the boundaries rows, launches 4 x the vbz full step's.
-   Runs after phase 7, before phase 9; phase 5 counts the device
+   Runs after phase 11, before phase 9; phase 5 counts the device
    operations of both tRNA steps too.
 9. The model families and RNA002 (runs after phase 8, before phase 6):
    a. DTW-MLP (the WDX4 bundle's 851 reference fingerprints, one hidden
@@ -174,6 +179,20 @@ Phases (each raises on failure; nothing is caught):
    process's launches its minibatches x LAUNCHES["adc_decision"]. Reads/s
    of each round, timed in the processes from one barrier to the next
    after one warm-up step each, printed beside the card.
+11. The two-stage wire (pipeline/step.make_twostage_decision_step) on the
+   card, for WDX4 and WDX10 (rna004_130bps@v1.0, stage1_len 7168), after
+   phase 7, before phase 8: three B=1000 bench minibatches (default_rng(0))
+   packed whole, and 1000 reads of default_rng(11) cut to lengths in
+   [2200, 7168] and packed ragged, as the pod5 feed packs them. Each
+   through stage 1, the host's read of `resolved` and, where a row is
+   unresolved, its tails and stage 2, against the one-shot vbz decision
+   step: pred, conf, fail_code, success and probs equal on every row;
+   stage 1 and a stage 2 that runs each launch LAUNCHES["adc_decision"];
+   the ragged batch resolved in stage 1 alone. The resolved share and the
+   wire bytes a read (stage 1 plus tails, against the whole wire) are
+   printed, and the two-stage minibatch and the one-shot step timed in
+   turns (5 rounds of the 3 staged bench minibatches): median, range and
+   their ratio.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -255,10 +274,21 @@ DEVICE_OPS_BEFORE_K11 = {"adc_decision": 1874, "vbz_full": 1989, "fused_decision
 TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
 # phase 8's run of the offline loop: the vbz wire, predictions and boundaries
 TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
-# phase 7's runs: name -> (wire, prep, step path of LAUNCHES, phase 4's path printed beside it)
-OFFLINE_RUNS = {"offline_vbz_decision": ("vbz", False, "vbz_decision", "adc_decision"),
-                "offline_adc_decision": ("adc", False, "adc_decision", "adc_decision"),
-                "offline_vbz_prep": ("vbz", True, "vbz_prep", "vbz_full")}
+# phase 7's runs: name -> (wire, prep, stage1_preload, step path of LAUNCHES,
+# phase 4's path printed beside it); run a is the CLI's default, the
+# two-stage wire, run a' the one-shot wire
+STAGE1_LEN = 7168  # the CLI's --stage1_preload
+OFFLINE_RUNS = {"offline_vbz_decision": ("vbz", False, STAGE1_LEN, "vbz_decision", "adc_decision"),
+                "offline_vbz_decision_one_shot": ("vbz", False, 0, "vbz_decision", "adc_decision"),
+                "offline_adc_decision": ("adc", False, STAGE1_LEN, "adc_decision", "adc_decision"),
+                "offline_vbz_prep": ("vbz", True, STAGE1_LEN, "vbz_prep", "vbz_full")}
+TWO_STAGE_RUN = "offline_vbz_decision"
+# phase 7's runs timed in turns: name -> stage1_preload
+OFFLINE_TIMED = {"two-stage wire": STAGE1_LEN, "one-shot wire": 0}
+OFFLINE_TIMED_ROUNDS = 3
+# phase 11: the two-stage wire's step against the one-shot vbz step
+TWO_STAGE_MODELS = ("WDX4_rna004_v1_0", "WDX10_rna004_v1_0")
+TWO_STAGE_ROUNDS = 5
 OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
 # phase 10's run: the data of WORKER_DISTINCT minibatches (each drawn once a
 # process) in WORKER_MINIBATCHES minibatches of read ids of their own, the
@@ -1973,7 +2003,7 @@ def time_throughput(steps, card, paths, batches):
     return rates
 
 
-def offline_config(out, wire, prep, batch_size=B, model=MODEL, boundaries=None):
+def offline_config(out, wire, prep, batch_size=B, model=MODEL, boundaries=None, stage1_preload=STAGE1_LEN):
     """The run configuration of phase 7's and 8's runs (the CLI's demux /
     prep; boundaries: a demux that also saves the boundaries)."""
     from warpdemux_tpu_torch.config import config as c
@@ -1983,7 +2013,7 @@ def offline_config(out, wire, prep, batch_size=B, model=MODEL, boundaries=None):
     return c.Config(
         c.InputConfig(),
         c.OutputConfig(output_dir=str(out), save_fpts=prep, save_boundaries=boundaries, save_predictions=not prep),
-        c.BatchConfig(minibatch_size=batch_size, batch_size_output=1500, wire=wire),
+        c.BatchConfig(minibatch_size=batch_size, batch_size_output=1500, wire=wire, stage1_preload=stage1_preload),
         c.TaskConfig(command="prep" if prep else "demux", predict=not prep),
         c.ClassifConfig(model_name=model),
         get_model_spc_config(model),
@@ -2074,10 +2104,23 @@ def check_offline_run(run, stats, read_ids, prep):
         require(fpt_ids == [r[0] for r in passed], f"{run}: fingerprint rows differ from the boundary rows")
 
 
+def step_pin(path):
+    """LAUNCHES[path] of the step as this process runs it: with
+    WDX_FUSED_ROLLING=1, K9 once in place of K6 and both K7."""
+    from warpdemux_tpu_torch.detect.boundaries import fused_rolling_default
+
+    per_step = list(LAUNCHES[path])
+    if fused_rolling_default():
+        per_step[5:9] = [0, 0, per_step[7], 1]
+    return per_step
+
+
 def run_offline_loop(dev, card, step_rates):
-    """Phase 7: the offline run loop on the card, three runs, and run a
-    again on eight minibatches. Returns the launch counts of each run, and
-    (a function that runs run a again, run a's milliseconds) for phase 5."""
+    """Phase 7: the offline run loop on the card, four runs, the two-stage
+    and the one-shot wire timed in turns, and run a again on eight
+    minibatches. Returns the launch counts of each run, and (a function
+    that runs run a again, run a's milliseconds) for phase 5."""
+    import statistics
     import tempfile
     import uuid
 
@@ -2086,7 +2129,6 @@ def run_offline_loop(dev, card, step_rates):
 
     from bench import synth_minibatch
     from warpdemux_tpu_torch import _cuda
-    from warpdemux_tpu_torch.detect.boundaries import fused_rolling_default
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.run import demux_minibatches
 
@@ -2098,29 +2140,52 @@ def run_offline_loop(dev, card, step_rates):
     read_ids = np.array([str(uuid.UUID(int=int.from_bytes(id_rng.bytes(16), "big"))) for _ in range(n)], object)
     feeds = {wire: offline_batches(adc_batches, read_ids, wire) for wire in ("vbz", "adc")}
     model = load_model(MODEL, dev)
-    by_run, dirs, seconds_by = {}, {}, []
+    by_run, dirs, seconds_by = {}, {}, {}
     tmp = tempfile.TemporaryDirectory()
-    for name, (wire, prep, path, beside) in OFFLINE_RUNS.items():
+    for name, (wire, prep, stage1, path, beside) in OFFLINE_RUNS.items():
         dirs[name] = f"{tmp.name}/{name}"
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        stats = demux_minibatches(offline_config(dirs[name], wire, prep), None if prep else model,
-                                  feeds[wire], device=dev)
-        seconds = time.perf_counter() - t0
-        seconds_by.append(seconds)
+        stats = demux_minibatches(offline_config(dirs[name], wire, prep, stage1_preload=stage1),
+                                  None if prep else model, feeds[wire], device=dev)
+        seconds_by[name] = time.perf_counter() - t0
         torch.cuda.synchronize()
         by_run[name] = dict(_cuda.launches)
         check_offline_run(dirs[name], stats, read_ids, prep)
-        per_step = list(LAUNCHES[path])
-        if fused_rolling_default():  # K9 for K6 and both K7
-            per_step[5:9] = [0, 0, per_step[7], 1]
-        want = {key: 4 * k for key, k in zip(KERNELS, per_step)}
+        per_step = step_pin(path)
+        # the two-stage wire: stage 1 on every minibatch, stage 2 (the same
+        # chain at full width) on those with a row stage 1 left unresolved
+        runs_of_step = len(adc_batches) + stats.stage2_minibatches
+        if name == TWO_STAGE_RUN:
+            print(f"{name} run: the two-stage wire, stage 2 ran on {stats.stage2_minibatches} of "
+                  f"{len(adc_batches)} minibatches")
+            require(stats.stage2_minibatches > 0, f"{name}: no stage 2 ran on the bench population")
+        else:
+            require(stats.stage2_minibatches == 0, f"{name}: a stage 2 ran off the two-stage wire")
+        want = {key: runs_of_step * k for key, k in zip(KERNELS, per_step)}
         print(f"launches in the {name} run: {by_run[name]}")
-        require(by_run[name] == want, f"{name}: launches differ from 4 x {per_step}")
+        require(by_run[name] == want, f"{name}: launches differ from {runs_of_step} x {per_step}")
         rate = sum(step_rates[beside]) / len(step_rates[beside])
-        print(f"{name} run: {n / seconds!r} reads/s ({seconds!r} s for {n} reads: {stats.passed} pass, "
-              f"{stats.failed} fail, {stats.predicted} predicted) beside the {beside} step's {rate!r} "
-              f"reads/s (phase 4) on {card}")
+        print(f"{name} run: {n / seconds_by[name]!r} reads/s ({seconds_by[name]!r} s for {n} reads: "
+              f"{stats.passed} pass, {stats.failed} fail, {stats.predicted} predicted) beside the {beside} "
+              f"step's {rate!r} reads/s (phase 4) on {card}")
+
+    # the two-stage and the one-shot wire, in turns
+    timed = {name: [] for name in OFFLINE_TIMED}
+    for i in range(OFFLINE_TIMED_ROUNDS):
+        for name, stage1 in OFFLINE_TIMED.items():
+            out = f"{tmp.name}/timed_{i}_{stage1}"
+            t0 = time.perf_counter()
+            demux_minibatches(offline_config(out, "vbz", False, stage1_preload=stage1), model, feeds["vbz"],
+                              device=dev)
+            timed[name].append(n / (time.perf_counter() - t0))
+            require(shard_texts(out) == shard_texts(dirs[TWO_STAGE_RUN]), f"offline run ({name}) wrote other text")
+    for name, rates in timed.items():
+        print(f"offline run a, {name}: median {statistics.median(rates)!r} reads/s (range {min(rates)!r} to "
+              f"{max(rates)!r}; rounds {rates!r}) on {card}")
+    one = statistics.median(timed["one-shot wire"])
+    print(f"offline run a, the two-stage wire: {statistics.median(timed['two-stage wire']) / one!r} x the "
+          f"one-shot wire's reads/s")
 
     # the loop's own cost a minibatch: run a again on twice the minibatches
     more_ids = np.array([str(uuid.UUID(int=int.from_bytes(id_rng.bytes(16), "big"))) for _ in range(n)], object)
@@ -2134,14 +2199,16 @@ def run_offline_loop(dev, card, step_rates):
     stats, seconds8 = run_a(twice, f"{tmp.name}/twice")
     check_offline_run(f"{tmp.name}/twice", stats, np.concatenate([read_ids, more_ids]), False)
     step_ms = B / (sum(step_rates["adc_decision"]) / 2) * 1e3
+    seconds_a = seconds_by[TWO_STAGE_RUN]
     print(f"offline_vbz_decision run on 8 minibatches: {2 * n / seconds8!r} reads/s ({seconds8!r} s); "
-          f"{(seconds8 - seconds_by[0]) / 4 * 1e3!r} ms a minibatch more than on 4, against {step_ms!r} "
-          f"ms a step (phase 4); {(seconds_by[0] - 4 * step_ms / 1e3) * 1e3!r} ms of run a beyond 4 steps")
+          f"{(seconds8 - seconds_a) / 4 * 1e3!r} ms a minibatch more than on 4, against {step_ms!r} "
+          f"ms a step (phase 4); {(seconds_a - 4 * step_ms / 1e3) * 1e3!r} ms of run a beyond 4 steps")
 
-    a, b = dirs["offline_vbz_decision"], dirs["offline_adc_decision"]
+    a = dirs[TWO_STAGE_RUN]
     texts = shard_texts(a)
-    require(texts == shard_texts(b), "the adc and vbz wires wrote different CSV text")
-    print(f"offline runs a and b: {len(texts)} CSV shards, equal text")
+    for other in ("offline_adc_decision", "offline_vbz_decision_one_shot"):
+        require(texts == shard_texts(dirs[other]), f"{other} wrote other CSV text than run a")
+    print(f"offline runs a, a' and b: {len(texts)} CSV shards, equal text")
 
     # run a against a CPU run of the same loop on the first 256 reads
     cpu_dir = f"{tmp.name}/cpu"
@@ -2156,7 +2223,141 @@ def run_offline_loop(dev, card, step_rates):
           f"{len(same)}/{N_ROWS}, max |confidence gpu - cpu| = {conf!r}")
     require(len(same) >= N_ROWS - 1, "offline run: GPU and CPU calls disagree")
     require(conf <= 0.001 + 1e-9, "offline run: a confidence differs by more than 0.001")
-    return by_run, (lambda: run_a(feeds["vbz"], tempfile.mkdtemp(dir=tmp.name)), seconds_by[0] * 1e3)
+    return by_run, (lambda: run_a(feeds["vbz"], tempfile.mkdtemp(dir=tmp.name)), seconds_a * 1e3)
+
+
+def vbz_ragged(adc, off, sc, in_lens):
+    """Reads packed into the VBZ wire as the pod5 feed packs them: each row
+    the body of exactly in_len samples, key bits and data zero past it."""
+    import numpy as np
+
+    from bench import VBZ_WIDTH
+    from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc
+
+    keys = np.zeros((len(adc), (adc.shape[1] + 7) // 8), np.uint8)
+    data = np.zeros((len(adc), VBZ_WIDTH), np.uint8)
+    for i, m in enumerate(np.asarray(in_lens, int)):
+        body = np.frombuffer(inner_layout_from_adc(adc[i, :m]), np.uint8)
+        klen = (m + 7) // 8
+        keys[i, :klen] = body[:klen]
+        data[i, : body.size - klen] = body[klen:]
+    return keys, data, off, sc, in_lens
+
+
+def run_twostage_wire(dev, card):
+    """Phase 11: the two-stage wire's step (stage 1, the host's read of
+    `resolved` and its tails, stage 2) against the one-shot vbz decision
+    step on the card, for each of TWO_STAGE_MODELS. Returns the launch
+    counts of its two-stage runs."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops.vbz_device import pack_tails_host, split_wire_host
+    from warpdemux_tpu_torch.pipeline.run import _to_device
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step, make_twostage_decision_step, twostage_stage2
+
+    rng = np.random.default_rng(0)
+    batches = {f"bench {i}": vbz_batch(*synth_minibatch(rng, B, L)) for i in range(3)}
+    rng = np.random.default_rng(11)
+    adc, off, sc, _ = synth_minibatch(rng, B, L)
+    batches["ragged"] = vbz_ragged(adc, off, sc, rng.integers(2200, STAGE1_LEN + 1, B).astype(np.int32))
+    per_step = dict(zip(KERNELS, step_pin("adc_decision")))
+    counts = dict.fromkeys(KERNELS, 0)
+    for name in TWO_STAGE_MODELS:
+        model, spc = load_model(name, dev), get_model_spc_config(name)
+        one = make_demux_step(model, spc, input_format="vbz", outputs="decision", device=dev)
+        stage1, stage2 = make_twostage_decision_step(model, spc, STAGE1_LEN, device=dev)
+        staged = {}
+        for label, (keys, data, off, sc, lens) in batches.items():
+            keys1, data1, off1 = split_wire_host(keys, data, lens, STAGE1_LEN)
+            staged[label] = (
+                _to_device((keys1, data1, off, sc, lens), dev), (keys, data, lens, off1),
+                _to_device((keys, data, off, sc, lens), dev),
+            )
+
+        def two_stage(dev1, host_wire, pins=False):
+            """One minibatch through the two-stage wire, by the run loop's
+            own stage-2 protocol (pipeline/step.twostage_stage2):
+            (decisions, resolved, tail bytes, stage 2 ran); with `pins`,
+            each stage's launches held."""
+            if pins:
+                _cuda.reset_launches()
+            h = stage1(*dev1)
+            resolved = h.resolved.cpu().numpy()
+            if pins:
+                got = dict(_cuda.launches)
+                require(got == per_step, f"{name} stage 1: launches {got}, want {per_step}")
+                for key, k in got.items():
+                    counts[key] += k
+                _cuda.reset_launches()
+            out, tails = twostage_stage2(stage2, h, resolved, host_wire, B, L, put=lambda t: _to_device(t, dev))
+            if out is None:
+                return h.out1, resolved, 0, False
+            if pins:
+                torch.cuda.synchronize()
+                got = dict(_cuda.launches)
+                require(got == per_step, f"{name} stage 2: launches {got}, want {per_step}")
+                for key, k in got.items():
+                    counts[key] += k
+            return out, resolved, sum(t.nbytes for t in tails), True
+
+        n_res = n_rows = wire1 = wire_full = 0
+        for label, (keys, data, off, sc, lens) in batches.items():
+            dev1, host_wire, dev_full = staged[label]
+            got, resolved, tail_bytes, ran = two_stage(dev1, host_wire, pins=True)
+            if ran:  # the host's packing of the tails alone, timed
+                t0 = time.perf_counter()
+                pack_tails_host(*host_wire, np.nonzero(~resolved)[0], STAGE1_LEN, L)
+                pack_ms = (time.perf_counter() - t0) * 1e3
+            want = one(*dev_full)
+            for field in want._fields:
+                require(torch.equal(getattr(got, field), getattr(want, field)),
+                        f"{name} {label}: two-stage {field} differs from the one-shot step")
+            s1_bytes = dev1[0].nbytes + dev1[1].nbytes + 12 * B
+            full_bytes = keys.nbytes + data.nbytes + 12 * B
+            print(f"{name} {label}: two-stage decisions equal to the one-shot step's on {B}/{B} rows; "
+                  f"stage 1 resolved {int(resolved.sum())}/{B}, stage 2 {'ran' if ran else 'skipped'}; wire "
+                  f"{(s1_bytes + tail_bytes) / B!r} B a read (stage 1 {s1_bytes / B!r}, tails "
+                  f"{tail_bytes / B!r}) against {full_bytes / B!r} one-shot"
+                  + (f"; the host packed {B - int(resolved.sum())} tails in {pack_ms!r} ms" if ran else ""))
+            if label == "ragged":
+                require(bool(resolved.all()), f"{name}: a read that fits stage 1 was left unresolved")
+                require(not ran, f"{name}: stage 2 ran on the ragged batch")
+            else:
+                n_res += int(resolved.sum())
+                n_rows += B
+                wire1 += s1_bytes + tail_bytes
+                wire_full += full_bytes
+        print(f"{name}, the 3 bench minibatches: stage 1 resolved {n_res / n_rows!r} of the reads; wire "
+              f"{wire1 / n_rows!r} B a read against {wire_full / n_rows!r} one-shot on {card}")
+
+        # reads/s in turns, 3 staged minibatches a round
+        timed = [staged[f"bench {i}"] for i in range(3)]
+        paths = {"two-stage": lambda st: two_stage(st[0], st[1])[0], "one-shot": lambda st: one(*st[2])}
+        for fn in paths.values():
+            fn(timed[0])
+        torch.cuda.synchronize()
+        rates = {path: [] for path in paths}
+        for _ in range(TWO_STAGE_ROUNDS):
+            for path, fn in paths.items():
+                t0 = time.perf_counter()
+                for st in timed:
+                    fn(st)
+                torch.cuda.synchronize()
+                rates[path].append(3 * B / (time.perf_counter() - t0))
+        med = {path: statistics.median(r) for path, r in rates.items()}
+        for path, r in rates.items():
+            print(f"{name} {path} decision step: median {med[path]!r} reads/s (range {min(r)!r} to "
+                  f"{max(r)!r}; rounds {r!r}) on {card}")
+        print(f"{name}: the two-stage step at {med['two-stage'] / med['one-shot']!r} x the one-shot vbz "
+              f"decision step's reads/s on {card}")
+    return {"twostage_decision": counts}
 
 
 def _trna_steps(dev):
@@ -2557,6 +2758,7 @@ def main() -> int:
     step_rates = time_throughput(steps, card, PATHS, [synth_minibatch(rng, B, L) for _ in range(4)])
     offline_counts, offline_run = run_offline_loop(dev, card, step_rates)
     by_path.update(offline_counts)
+    by_path.update(run_twostage_wire(dev, card))
     trna_counts, trna_steps, trna_rows = run_trna_path(dev, card)
     by_path.update(trna_counts)
     family_counts, rna002_steps, rna002_rows = run_families_and_rna002(dev, card, steps["vbz_full"])

@@ -631,7 +631,8 @@ def test_offline_run_loop_gpu_writes_the_cpu_runs_files(dev, tmp_path, wire):
     padded minibatch) on the card against the CPU: the same shard files,
     failed_reads equal as text, predictions row for row with confidence
     and probabilities within one unit of their last decimal; each kernel
-    of the decision step launched twice."""
+    of the decision step launched twice, and on the vbz wire (two-stage)
+    once more for each minibatch whose stage 2 ran."""
     from test_torch_run_cli import same_failed_reads, same_predictions
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.run import demux_minibatches
@@ -650,7 +651,9 @@ def test_offline_run_loop_gpu_writes_the_cpu_runs_files(dev, tmp_path, wire):
         assert stats.total == 100
         if where == "cuda":
             torch.cuda.synchronize()
-            assert tuple(_cuda.launches.values()) == tuple(2 * k for k in LAUNCHES["adc_decision"])
+            runs_of_step = 2 + stats.stage2_minibatches
+            assert (stats.stage2_minibatches > 0) == (wire == "vbz")
+            assert tuple(_cuda.launches.values()) == tuple(runs_of_step * k for k in LAUNCHES["adc_decision"])
     same_failed_reads(runs["cuda"], runs["cpu"])
     same_predictions(runs["cuda"], runs["cpu"])
 

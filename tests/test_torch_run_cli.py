@@ -17,8 +17,9 @@ What is compared, shard by shard:
   apart, which are counted and printed (the port's probabilities agree
   with JAX's within rtol 1e-5, atol 1e-6, so a cell can round the other
   way).
-The JAX side of the default run takes its two-stage wire, whose decisions
-the JAX package pins to the one-shot step's (tests/test_twostage.py).
+The default run takes the two-stage wire in both CLIs, and its log says so
+in the JAX CLI's words; a `--stage1_preload 0` run of the port (the
+one-shot wire) writes the same shards.
 """
 
 import gzip
@@ -140,6 +141,19 @@ def read_ids_of(run: Path, sub: str) -> list[str]:
     return ids
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two CPU threads for the port's torch here: the test workers share the
+    machine's cores, and the runs' small minibatches gain little from
+    more."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pod5_set(tmp_path_factory):
     d = tmp_path_factory.mktemp("pod5_set")
@@ -169,7 +183,28 @@ def test_demux_writes_the_jax_clis_shards(default_runs, pod5_set):
     assert {k: v for k, v in manifest.items() if k not in ("argv", "output_dir")} == {
         k: v for k, v in want.items() if k not in ("argv", "output_dir")
     }
-    assert "two-stage wire not ported" in (port / "warpdemux.log").read_text()
+    assert two_stage_lines(port) == two_stage_lines(ref) == [
+        "INFO two-stage wire: stage-1 preload 7168 of 10000 samples"
+    ]
+
+
+def two_stage_lines(run: Path) -> list[str]:
+    """The run log's lines that name the two-stage wire, their time stamps
+    cut off."""
+    lines = (run / "warpdemux.log").read_text().splitlines()
+    return [line.split(" ", 2)[2] for line in lines if "two-stage" in line]
+
+
+def test_one_shot_wire_writes_the_default_runs_shards(pod5_set, default_runs, tmp_path):
+    d, _ = pod5_set
+    port_cli("demux", "-i", d, "-o", tmp_path / "port", *COMMON, "--stage1_preload", "0")
+    assert two_stage_lines(tmp_path / "port") == []
+    two_stage = default_runs[0]
+    for sub in ("predictions", "failed_reads"):
+        names = shard_names(two_stage, sub)
+        assert names and shard_names(tmp_path / "port", sub) == names
+        for name in names:
+            assert gunzip(tmp_path / "port" / sub / name) == gunzip(two_stage / sub / name)
 
 
 def test_demux_adc_wire_writes_the_jax_clis_shards(pod5_set, default_runs, tmp_path):

@@ -147,12 +147,12 @@ def test_unpack_gives_the_jax_field_set(outputs):
     got, want = outputs
     g, w = got.unpack(), want.unpack()
     assert g._fields == w._fields
-    # `resolved` belongs to the two-stage wire (resolve_limit, not ported);
-    # the JAX step leaves it None
-    assert w.detect.resolved is None
-    assert g.detect._fields == tuple(f for f in w.detect._fields if f != "resolved")
+    # `resolved` belongs to the two-stage wire (resolve_limit, stage 1 of
+    # the decision lane): both full steps leave it None
+    assert g.detect.resolved is None and w.detect.resolved is None
+    assert g.detect._fields == w.detect._fields
     assert g.fpt._fields == w.fpt._fields
-    for name in g.detect._fields:
+    for name in g.detect._fields[:-1]:
         gv, wv = getattr(g.detect, name), np.asarray(getattr(w.detect, name))
         assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
     np.testing.assert_array_equal(g.detect.polya_end, w.detect.polya_end)

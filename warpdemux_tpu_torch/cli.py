@@ -13,8 +13,11 @@ over a disjoint share of the pod5 files, its output shards tagged with its
 rank, the run's counters summed over the processes (parallel/multihost.py):
 `-j N` starts N worker processes on this host (`--device cpu -j N`: N on
 the CPU), and `--coordinator` joins this host's processes to those of the
-other hosts. The JAX package's two-stage wire is not ported:
-`--stage1_preload` is accepted and the one-shot decision step runs.
+other hosts. A predictions-only demux on the vbz wire takes the two-stage
+wire, as the JAX CLI does: each read's first `--stage1_preload` samples
+(7168) cross first, and the tails only of minibatches whose decisions
+need them (pipeline/run.use_twostage); `--stage1_preload 0` ships the
+whole preload at once. Both write the same decisions.
 """
 
 from __future__ import annotations
@@ -87,8 +90,9 @@ def _add_common(p):
                    help="host->device wire: the VBZ inner layout (decoded on "
                         "the device) or raw int16 ADC counts")
     p.add_argument("--stage1_preload", type=int, default=7168,
-                   help="the JAX package's two-stage wire; accepted, not "
-                        "ported (the one-shot decision step runs)")
+                   help="two-stage wire of predictions-only vbz runs: "
+                        "samples a read shipped first, its tail only where "
+                        "the decision needs it (0 = the whole preload at once)")
     p.add_argument("-j", "--devices", type=int, default=1,
                    help="devices to run on, one worker process a device, "
                         "each over its share of the pod5 files (0 = all "

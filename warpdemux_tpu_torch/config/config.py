@@ -71,8 +71,9 @@ class BatchConfig:
     # host->device wire format: "vbz" ships the VBZ inner layout (decoded
     # on the device), "adc" the raw int16 counts
     wire: str = "vbz"
-    # the JAX package's two-stage preload for predictions-only vbz runs;
-    # recorded, not ported (the port runs the one-shot decision step)
+    # two-stage wire of predictions-only vbz runs: samples of each read
+    # shipped in stage 1, the tails only where a decision needs them
+    # (pipeline/run.use_twostage; 0: the whole preload at once)
     stage1_preload: int = 7168
 
 

@@ -31,7 +31,19 @@ The JAX package relies on XLA's common-subexpression elimination to run
 the proxy median and the rolling statistics once for the fallback pair;
 here detect_boundaries_with_fallback computes them once and hands them to
 both passes. First-index semantics (argmax / argmin) are written out
-explicitly. resolve_limit (the two-stage wire) is not ported.
+explicitly.
+
+`resolve_limit` (the two-stage wire, pipeline/step.make_twostage_decision_
+step) adds the (B,) bool `resolved`: True where the row is provably what
+detection over the whole preload returns when the caller shipped only the
+first resolve_limit samples and padded the rest with the last one. The
+predicate is the JAX package's, conservative: a read that fits the prefix
+is the same program input; otherwise an llr / cnn pass must have found the
+poly(A) and its end, with the adapter start, the run's end and every
+rolling, refine and gate window they imply inside the prefix, and have
+passed or failed a gate that reads only those regions (codes 3, 4, 5, 6,
+8). start_peak and [med_shift] read up to in_len: only whole reads
+resolve there.
 """
 
 from __future__ import annotations
@@ -449,6 +461,7 @@ def detect_boundaries_batch(
     adc: torch.Tensor | None = None,
     calibration: tuple | None = None,
     fused_rolling: bool | None = None,
+    resolve_limit: int = 0,
 ) -> DetectArrays:
     """Detect adapter / poly(A) / RNA boundaries for a (B, L) minibatch
     with the cfg.method detector ("llr", "cnn" or "start_peak").
@@ -465,7 +478,9 @@ def detect_boundaries_batch(
     then round their deviations as XLA:CPU does when it fuses the two
     (range_median_mad).
     fused_rolling: run K9 in place of K6 + K7 when a CNN region prior is
-    present (None: fused_rolling_default())."""
+    present (None: fused_rolling_default()).
+    resolve_limit: when nonzero, also set `resolved` (module docstring;
+    ValueError as check_resolve_limit)."""
     check_supported(cfg)
     sig = _signal(signals, in_lens, adc, calibration)
     if cfg.method == "cnn" and cnn_region is None:
@@ -475,7 +490,7 @@ def detect_boundaries_batch(
     if fused_rolling is None:
         fused_rolling = fused_rolling_default()
     rolled = _rolling(sig, cfg, cnn_region, fused_rolling)
-    return _detect_pass(sig, cfg, cnn_region, rolled, with_stats)
+    return _detect_pass(sig, cfg, cnn_region, rolled, with_stats, resolve_limit)
 
 
 class _Boundaries(NamedTuple):
@@ -489,15 +504,19 @@ class _Boundaries(NamedTuple):
     found: torch.Tensor  # poly(A) found (always True for start_peak)
     sp_fail: torch.Tensor | None  # start_peak: no capture spike
     xds: torch.Tensor | None  # the downscaled signal, where computed
+    # llr / cnn: (coarse poly(A) start, first lapse, has_end), what
+    # resolve_limit's predicate reads; None for start_peak
+    horizon: tuple | None = None
 
 
 def _polya_search(sig: _Signal, cfg: DetectConfig, rolled: _Rolling, cand, thr, W: int, var_max: float,
                   runs=None):
-    """(coarse poly(A) start, found, candidate runs, coarse end) from the
-    candidate mask: the first run of W sustained candidates, and the first
-    position W or more past it where the signal stops being elevated and
-    flat (variance at most var_max; plus mean_window / 2). `runs`: the run
-    sums where K9 counted them, else K7 counts them here."""
+    """(coarse poly(A) start, found, candidate runs, coarse end, (first
+    lapse, has_end)) from the candidate mask: the first run of W sustained
+    candidates, and the first position W or more past it where the signal
+    stops being elevated and flat (variance at most var_max; the coarse end
+    is that lapse, or in_len without one, plus mean_window / 2). `runs`:
+    the run sums where K9 counted them, else K7 counts them here."""
     if runs is None:
         runs = run_sum(cand, W)
     sustained = (runs == W) & cand
@@ -509,7 +528,7 @@ def _polya_search(sig: _Signal, cfg: DetectConfig, rolled: _Rolling, cand, thr, 
     pe_first, has_end = _first_true(lapse, 0)
     coarse_pe = torch.where(has_end, pe_first, sig.in_lens)
     coarse_pe = torch.minimum(coarse_pe + cfg.mean_window // 2, sig.in_lens)
-    return coarse_ps, found, polya_candidates, coarse_pe
+    return coarse_ps, found, polya_candidates, coarse_pe, (pe_first, has_end)
 
 
 def _refine_polya(sig: _Signal, cfg: DetectConfig, coarse_ps, coarse_pe):
@@ -532,7 +551,7 @@ def _llr_boundaries(sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rollin
     if cfg.method == "cnn":
         cand = cand & (cnn_region > 0)
     runs = rolled.rs_masked if cfg.method == "cnn" else rolled.rs_plain
-    coarse_ps, found, polya_candidates, coarse_pe = _polya_search(
+    coarse_ps, found, polya_candidates, coarse_pe, (pe_first, has_end) = _polya_search(
         sig, cfg, rolled, cand, thr, W, cfg.search_var_max, runs
     )
     polya_start, polya_end = _refine_polya(sig, cfg, coarse_ps, coarse_pe)
@@ -542,7 +561,8 @@ def _llr_boundaries(sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rollin
     # adapter start: first sub-open-pore sample (usually 0)
     adapter_start, _ = _first_true((rolled.mean_f < cfg.open_pore_pa) & sig.valid, 0)
     return _Boundaries(
-        adapter_start, polya_start, polya_start, polya_end, polya_candidates, found, None, None
+        adapter_start, polya_start, polya_start, polya_end, polya_candidates, found, None, None,
+        (coarse_ps, pe_first, has_end),
     )
 
 
@@ -588,7 +608,7 @@ def _start_peak_boundaries(sig: _Signal, cfg: DetectConfig, rolled: _Rolling) ->
         & win_ok
         & (sig.pos >= search_from[:, None])
     )
-    coarse_ps, found, polya_candidates, coarse_pe = _polya_search(
+    coarse_ps, found, polya_candidates, coarse_pe, _ = _polya_search(
         sig, cfg, rolled, cand, thr, Wp, cfg.polya_var_max
     )
     polya_start, polya_end = _refine_polya(sig, cfg, coarse_ps, coarse_pe)
@@ -627,8 +647,52 @@ def _local_range_median(xds, adapter_start, adapter_end, cfg: DetectConfig):
     return masked_median(local, ok)
 
 
+def check_resolve_limit(cfg: DetectConfig, limit: int) -> None:
+    """Raise ValueError where an llr / cnn pass cannot bound its windows by
+    `limit` samples: a CNN that reads past it (cnn_input_cap not in
+    (0, limit]) or a limit shorter than the adapter-level proxy window plus
+    the rolling variance window. start_peak and [med_shift] resolve whole
+    reads only and take any limit."""
+    if cfg.method == "start_peak" or cfg.detect_med_shift:
+        return
+    if cfg.method == "cnn" and not (0 < cfg.cnn_input_cap <= limit):
+        raise ValueError(
+            "resolve_limit with method='cnn' requires a prefix-causal CNN: "
+            f"cnn_input_cap in (0, {limit}], got {cfg.cnn_input_cap}"
+        )
+    if limit < cfg.min_obs_adapter + cfg.var_window:
+        raise ValueError(
+            "resolve_limit must cover the adapter-level proxy window plus the rolling margin"
+        )
+
+
+def _resolved(cfg: DetectConfig, bnd: _Boundaries, fail, in_lens, limit: int):
+    """The pass's rows provably unchanged by the samples past `limit`."""
+    whole = in_lens <= limit
+    if bnd.horizon is None or cfg.detect_med_shift:
+        return whole
+    check_resolve_limit(cfg, limit)
+    # the rolling statistics at q are the whole preload's where
+    # q + var_window <= limit; the poly(A) end's refinement reads up to
+    # its lapse + mean_window / 2 + llr_refine_window: one margin for both
+    margin = max(cfg.var_window, cfg.mean_window // 2 + cfg.llr_refine_window)
+    coarse_ps, pe_first, has_end = bnd.horizon
+    bound_ok = (
+        bnd.found
+        & has_end
+        & (coarse_ps + cfg.min_obs_polya + margin <= limit)
+        & (pe_first + margin <= limit)
+        & (bnd.adapter_start + margin <= limit)
+    )
+    # a pass, or a fail of a gate that read only the adapter and poly(A):
+    # "no polyA found" (2) could change with more signal
+    gate_fail = (fail == 3) | (fail == 4) | (fail == 5) | (fail == 6) | (fail == 8)
+    return whole | (bound_ok & ((fail == 0) | gate_fail))
+
+
 def _detect_pass(
-    sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling, with_stats: bool
+    sig: _Signal, cfg: DetectConfig, cnn_region, rolled: _Rolling, with_stats: bool,
+    resolve_limit: int = 0,
 ) -> DetectArrays:
     x, in_lens, pos = sig.x, sig.in_lens, sig.pos
     B = x.shape[0]
@@ -769,6 +833,7 @@ def _detect_pass(
         llr_polya_start=polya_start,
         llr_polya_end=polya_end,
         llr_fail=fail,
+        resolved=_resolved(cfg, bnd, fail, in_lens, resolve_limit) if resolve_limit else None,
     )
 
 
@@ -782,6 +847,7 @@ def detect_boundaries_with_fallback(
     adc: torch.Tensor | None = None,
     calibration: tuple | None = None,
     fused_rolling: bool | None = None,
+    resolve_limit: int = 0,
 ) -> DetectArrays:
     """Primary detect + per-read LLR fallback.
 
@@ -790,12 +856,15 @@ def detect_boundaries_with_fallback(
     the adapter-level proxy and the rolling statistics (K9's run sums when
     fused) are computed once and handed to both passes, which skip the
     region statistics; with_stats computes them once on the merged
-    boundaries, reusing the passes' gate medians. `adc`, `calibration` and
-    fused_rolling as in detect_boundaries_batch."""
+    boundaries, reusing the passes' gate medians. `adc`, `calibration`,
+    fused_rolling and resolve_limit as in detect_boundaries_batch; a merged
+    row is resolved where the primary pass is and either it passed or the
+    LLR row that replaces it is resolved too."""
     if cfg.method == "llr" or not cfg.fallback_to_llr:
         return detect_boundaries_batch(
             signals, in_lens, cfg, cnn, with_stats=with_stats, adc=adc,
             calibration=calibration, fused_rolling=fused_rolling,
+            resolve_limit=resolve_limit,
         )
     check_supported(cfg)
     sig = _signal(signals, in_lens, adc, calibration)
@@ -808,12 +877,14 @@ def detect_boundaries_with_fallback(
         fused_rolling = fused_rolling_default()
     rolled = _rolling(sig, cfg, cnn_region, fused_rolling)
     llr_cfg = replace(cfg, method="llr", fallback_to_llr=False)
-    primary = _detect_pass(sig, cfg, cnn_region, rolled, with_stats=False)
-    llr = _detect_pass(sig, llr_cfg, cnn_region, rolled, with_stats=False)
+    primary = _detect_pass(sig, cfg, cnn_region, rolled, False, resolve_limit)
+    llr = _detect_pass(sig, llr_cfg, cnn_region, rolled, False, resolve_limit)
     use_llr = ~primary.success
     merged = DetectArrays(
-        *[torch.where(use_llr, l, p) for p, l in zip(primary, llr)]
+        *[None if p is None else torch.where(use_llr, l, p) for p, l in zip(primary, llr)]
     )
+    if resolve_limit:
+        merged = merged._replace(resolved=primary.resolved & (primary.success | llr.resolved))
     merged = merged._replace(
         used_llr_fallback=use_llr,
         prim_adapter_start=primary.adapter_start,

@@ -40,7 +40,8 @@ def fail_code_to_reason(codes: np.ndarray) -> list[str]:
 
 
 class DetectArrays(NamedTuple):
-    """Batched detection results; every field is a (B,) tensor."""
+    """Batched detection results; every field is a (B,) tensor (`resolved`
+    None unless asked for)."""
 
     success: torch.Tensor  # bool
     fail_code: torch.Tensor  # int32 into FAIL_REASONS
@@ -80,6 +81,11 @@ class DetectArrays(NamedTuple):
     llr_polya_start: torch.Tensor
     llr_polya_end: torch.Tensor
     llr_fail: torch.Tensor
+    # two-stage wire (detect resolve_limit): True where this row is what
+    # detection over the whole preload returns, because the read fit the
+    # stage-1 prefix or every window the decision read lies inside it;
+    # None unless a resolve_limit was given
+    resolved: torch.Tensor | None = None
 
     def to_summary_frame(self, read_ids, full_lengths, in_lengths, primary_method: str = "llr"):
         """Rows for the detected_boundaries / failed_reads CSVs from host

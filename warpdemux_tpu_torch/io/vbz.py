@@ -1,11 +1,15 @@
 """VBZ signal codec (the pod5 signal compression): zstd over
 streamvbyte-16 with zig-zag delta encoding.
 
-A numpy copy of warpdemux_tpu/io/vbz.py without its native decoder.
-`zstandard` is imported inside the functions, so the package imports where
-it is not installed. A zstd decompressor is not safe for concurrent use,
-so each thread takes its own (`zstd_decompressor`): the run loop's
-producer and the live pod5 watcher decode at the same time.
+Port of warpdemux_tpu/io/vbz.py: `decode` prefers the native C++ decoder
+(warpdemux_tpu_torch/native, one pass, no temporaries) and falls back to
+the vectorized numpy path below where that library does not build (a
+WARNING, logged once, says so). Both run on the host; the device decodes
+only the inner layout (ops/vbz_device). `zstandard` is imported inside the
+functions, so the package imports where it is not installed. A zstd
+decompressor is not safe for concurrent use, so each thread takes its own
+(`zstd_decompressor`): the run loop's producer and the live pod5 watcher
+decode at the same time.
 
 Decode layout (n = sample count):
   raw = zstd_decompress(payload)
@@ -17,11 +21,15 @@ Decode layout (n = sample count):
 
 from __future__ import annotations
 
+import logging
 import threading
 
 import numpy as np
 
+from warpdemux_tpu_torch import native
+
 _ZSTD_TLS = threading.local()
+_warned = False
 
 
 def zstd_decompressor():
@@ -36,8 +44,15 @@ def zstd_decompressor():
 
 def decode(payload: bytes, n: int) -> np.ndarray:
     """Decode a VBZ-compressed signal chunk into int16 ADC counts."""
+    global _warned
     if n == 0:
         return np.zeros(0, np.int16)
+    out = native.vbz_decode(payload, n)
+    if out is not None:
+        return out
+    if not _warned:
+        _warned = True
+        logging.warning("native VBZ decoder unavailable (no g++ or zstd.h): decoding with numpy")
     raw = zstd_decompressor().decompress(payload, max_output_size=4 * n + 16)
     keylen = (n + 7) // 8
     keys = np.frombuffer(raw, np.uint8, count=keylen)

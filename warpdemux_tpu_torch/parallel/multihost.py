@@ -24,6 +24,7 @@ one-card host share it.
 from __future__ import annotations
 
 import socket
+import traceback
 
 import numpy as np
 import torch
@@ -106,7 +107,8 @@ def run_workers(fn, args, devices, coordinator=None, num_hosts=1, host_id=0) -> 
     current device; on the CPU it takes this process's thread count, as a
     product's last bits follow the thread count. The workers are spawned:
     fn and args are pickled, and fn's result should be small. A worker
-    that fails stops the others and raises here."""
+    that fails stops the others and raises here, with the error of the
+    worker that failed first (its peers' collectives fail after it)."""
     n = len(devices)
     results = mp.get_context("spawn").SimpleQueue()
     context = mp.start_processes(
@@ -115,9 +117,23 @@ def run_workers(fn, args, devices, coordinator=None, num_hosts=1, host_id=0) -> 
               torch.get_num_threads(), results),
         nprocs=n, join=False, start_method="spawn",
     )
-    while not context.join():
-        pass
-    got = dict(results.get() for _ in range(n))
+    try:
+        while not context.join():
+            pass
+    except mp.ProcessRaisedException:
+        # the first process found dead may be a peer whose collective the
+        # failing worker reset; each worker puts its error before it leaves
+        # the group, so the first error put is the cause
+        errors = []
+        while not results.empty():
+            i, ok, value = results.get()
+            if not ok:
+                errors.append((i, value))
+        if not errors:
+            raise
+        i, trace = errors[0]
+        raise RuntimeError(f"worker {i} failed:\n{trace}") from None
+    got = {i: value for i, _, value in (results.get() for _ in range(n))}
     return [got[i] for i in range(n)]
 
 
@@ -130,6 +146,9 @@ def _worker(i, fn, args, devices, coordinator, world, rank0, threads, results):
         torch.set_num_threads(threads)
     init_distributed(coordinator, world, rank0 + i)
     try:
-        results.put((i, fn(device, *args)))
+        results.put((i, True, fn(device, *args)))
+    except BaseException:
+        results.put((i, False, traceback.format_exc()))
+        raise
     finally:
         dist.destroy_process_group()

@@ -9,6 +9,19 @@ Port of warpdemux_tpu/pipeline/run.py, with the JAX design:
   writes `batch_size_output`-row shards; it alone updates RunStats;
 - a minibatch whose step fails is logged and its reads counted as failed.
 
+Predictions-only runs on the vbz wire take the JAX package's two-stage
+wire where its rule allows (`use_twostage`): the producer cuts each
+minibatch's wire on the host and stages only the first stage1_preload
+samples of each read; stage 1 runs the decision chain on them with the
+detect `resolved` bit; where a row of the minibatch is unresolved, its
+tail is packed on the host, copied, and stage 2 runs the full-width chain
+and merges row-wise. Stage 2 runs on the main thread, one minibatch
+behind its stage 1, so the device has the next stage 1 queued while the
+host reads `resolved` and packs the tails. (The JAX run launches stage 2
+on its postprocess thread; on the H100 that placement ran at 0.71x this
+one, two threads launching contending for the interpreter lock: PERF.md
+section 6.)
+
 `run_demux` builds the pod5 feed (`yield_vbz_batches` or
 `yield_adc_batches` by `config.batch.wire`) and hands it to
 `demux_minibatches`, which runs the loop over any iterable of the tuples
@@ -38,6 +51,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,7 +62,13 @@ from warpdemux_tpu_torch.detect.containers import DetectArrays, fail_code_to_rea
 from warpdemux_tpu_torch.io import writers
 from warpdemux_tpu_torch.io.writers import Table
 from warpdemux_tpu_torch.parallel.multihost import global_class_counts, init_distributed
-from warpdemux_tpu_torch.pipeline.step import PackedStepOutput, make_demux_step
+from warpdemux_tpu_torch.ops.vbz_device import split_wire_host
+from warpdemux_tpu_torch.pipeline.step import (
+    PackedStepOutput,
+    make_demux_step,
+    make_twostage_decision_step,
+    twostage_stage2,
+)
 
 
 class _ShardAccumulator:
@@ -91,6 +111,8 @@ class RunStats:
     # per-class prediction counts aligned with the model's label_map
     # (noise/-1 last); None for prep-only runs
     class_counts: np.ndarray | None = None
+    # two-stage wire: minibatches whose stage 2 ran
+    stage2_minibatches: int = 0
 
 
 class _Progress:
@@ -200,22 +222,67 @@ class _HostToDevice:
 def _fetch_async(res, device: torch.device):
     """(host copy of a step output on `device`, event): copies into pinned
     memory started on the device's current stream, the event recorded
-    after them (None on the CPU, where the output is already on the host)."""
+    after them (None on the CPU, where the output is already on the host).
+    `res` is a tuple of tensors (None kept) or of such tuples."""
     if device.type != "cuda":
         return res, None
 
     def to_host(t):
         if t is None:
             return None
+        if isinstance(t, tuple):
+            vals = [to_host(a) for a in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
         out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         out.copy_(t, non_blocking=True)
         return out
 
     with torch.cuda.device(device):
-        host = type(res)(*(to_host(t) for t in res))
+        host = to_host(res)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
     return host, event
+
+
+def use_twostage(config: Config, outputs_mode: str) -> bool:
+    """The JAX run's rule for the two-stage wire, term for term (less its
+    mesh: a process runs one card): a predictions-only run on the vbz
+    wire, stage1_preload in (0, preload) and 8-aligned, an llr or cnn
+    detect without [med_shift] (start_peak and that gate resolve whole
+    reads only), and a CNN that reads no further than stage 1."""
+    s1 = int(config.batch.stage1_preload or 0)
+    dcfg = config.sig_proc.detect
+    return bool(
+        s1
+        and 0 < s1 < config.sig_proc.sig_preload_size
+        and s1 % 8 == 0
+        and outputs_mode == "decision"
+        and config.batch.wire == "vbz"
+        and config.task.predict
+        and dcfg.method in ("cnn", "llr")
+        and not dcfg.detect_med_shift
+        and (dcfg.method != "cnn" or 0 < dcfg.cnn_input_cap <= s1)
+    )
+
+
+def _to_device(arrays, device: torch.device) -> list[torch.Tensor]:
+    """numpy arrays on `device`: from pinned memory, non-blocking, on the
+    device's current stream (the CPU: the arrays in place)."""
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if device.type != "cuda":
+        return host
+    with torch.cuda.device(device):
+        return [h.pin_memory().to(device, non_blocking=True) for h in host]
+
+
+class _Stage1(NamedTuple):
+    """A two-stage minibatch after stage 1."""
+
+    handle: object  # pipeline/step.TwoStageHandle
+    host1: tuple  # (out1, resolved), stage 1's outputs copied to the host
+    event1: object  # the event of that copy (None on the CPU)
+    host_wire: tuple  # (keys, data, lens, off1) of the whole wire
+    n: int  # rows of the minibatch (the rest is padding)
 
 
 def _pad_rows(a: np.ndarray, pad: int) -> np.ndarray:
@@ -261,15 +328,17 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
     # predictions-only runs take the decision lane: only pred / conf / probs
     # / fail come back to the host, and no region statistics are computed
     outputs_mode = select_outputs_mode(config)
-    if config.batch.stage1_preload and outputs_mode == "decision" and wire == "vbz":
-        logging.info(
-            "two-stage wire not ported (ROADMAP queue 1 item 9): "
-            "the one-shot decision step runs on the whole preload"
+    L = spc.sig_preload_size
+    two_stage = use_twostage(config, outputs_mode)
+    S1 = int(config.batch.stage1_preload or 0)
+    if two_stage:
+        stage1, stage2 = make_twostage_decision_step(model, spc, S1, device=device)
+        logging.info("two-stage wire: stage-1 preload %d of %d samples", S1, L)
+    else:
+        step = make_demux_step(
+            model, spc, with_predict=do_predict, input_format=wire,
+            outputs=outputs_mode, device=device,
         )
-    step = make_demux_step(
-        model, spc, with_predict=do_predict, input_format=wire,
-        outputs=outputs_mode, device=device,
-    )
     B = config.batch.minibatch_size
 
     feed: queue.Queue = queue.Queue(maxsize=4)
@@ -285,7 +354,14 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
                 in_lens = np.asarray(arrays[-1])[:n]
                 if n < B:
                     arrays = [_pad_rows(np.asarray(a), B - n) for a in arrays]
-                feed.put((copier.put(arrays), n, full_lens, read_ids, in_lens))
+                host_wire = None
+                if two_stage:
+                    # stage 1's wire crosses now; the tails only if needed
+                    keys, data, offset, scale, lens = arrays
+                    keys1, data1, off1 = split_wire_host(keys, data, lens, S1)
+                    arrays = (keys1, data1, offset, scale, lens)
+                    host_wire = (keys, data, lens, off1)
+                feed.put((copier.put(arrays), host_wire, n, full_lens, read_ids, in_lens))
         except Exception:
             logging.exception("pod5 producer failed; stopping feed")
         finally:
@@ -418,9 +494,29 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
 
     results: queue.Queue = queue.Queue(maxsize=3)
 
+    stage2_runs = 0  # the main thread's count, into stats after the loop
+
+    def run_stage2(s1: _Stage1):
+        """A stage-1 minibatch's decisions, (outputs on the host, their
+        fetch event): stage 1's where every row resolved, else stage 2's,
+        launched on the unresolved rows' tails."""
+        nonlocal stage2_runs
+        if s1.event1 is not None:
+            s1.event1.synchronize()
+        out1, resolved = s1.host1
+        out2, _ = twostage_stage2(
+            stage2, s1.handle, resolved.numpy(), s1.host_wire, s1.n, L,
+            put=lambda tails: _to_device(tails, device),
+        )
+        if out2 is None:
+            return out1, None
+        stage2_runs += 1
+        return _fetch_async(out2, device)
+
     def postproc_worker():
-        # ALL RunStats mutation happens on this thread (dispatch failures
-        # arrive as res=None), so the counters need no lock
+        # ALL RunStats mutation in the loop happens on this thread (dispatch
+        # failures arrive as res=None), so the counters need no lock; the
+        # main thread's count of stage-2 runs is added after the join
         while True:
             item = results.get()
             if item is None:
@@ -445,25 +541,61 @@ def demux_minibatches(config: Config, model, batches, *, device=None, total_fn=N
                 stats.total += n
                 stats.failed += n
 
+    def dispatch(staged, host_wire, n):
+        """The minibatch's step launched: (output, fetch event), or on the
+        two-stage wire (its _Stage1, None)."""
+        if not two_stage:
+            return _fetch_async(step(*staged.take()), device)
+        handle = stage1(*staged.take())
+        host1, event1 = _fetch_async((handle.out1, handle.resolved), device)
+        return _Stage1(handle, host1, event1, host_wire, n), None
+
+    def finish_stage2(item):
+        """A queued stage-1 item with its stage 2 run: the postprocess
+        thread's (outputs, fetch event, ...)."""
+        res, event, n, *rest = item
+        if res is not None:
+            try:
+                res, event = run_stage2(res)
+            except Exception:
+                logging.exception(
+                    "minibatch stage 2 failed (%d reads dropped): %s...",
+                    n, rest[1][0] if len(rest[1]) else "-",
+                )
+                res = None
+        return (res, event, n, *rest)
+
     pp_thread = threading.Thread(target=postproc_worker, daemon=True)
     pp_thread.start()
+    behind = None  # the two-stage wire: the minibatch whose stage 2 is next
     while True:
         item = feed.get()
         if item is None:
             break
-        staged, n, full_lens, read_ids, in_lens = item
+        staged, host_wire, n, full_lens, read_ids, in_lens = item
         event = None
         try:
-            res, event = _fetch_async(step(*staged.take()), device)
+            res, event = dispatch(staged, host_wire, n)
         except Exception:
             logging.exception(
                 "minibatch dispatch failed (%d reads dropped): %s...",
                 n, read_ids[0] if len(read_ids) else "-",
             )
             res = None  # accounted on the postprocess thread
-        results.put((res, event, n, full_lens, read_ids, in_lens))
+        item = (res, event, n, full_lens, read_ids, in_lens)
+        if two_stage:
+            # stage 1 of this minibatch is queued before stage 2 of the last
+            # one reads its `resolved`: the device has work while it does
+            if behind is not None:
+                results.put(finish_stage2(behind))
+            behind = item
+        else:
+            results.put(item)
+    if behind is not None:
+        results.put(finish_stage2(behind))
     results.put(None)
     pp_thread.join()
+    stats.stage2_minibatches = stage2_runs
 
     progress.close()
     pred_acc.close()

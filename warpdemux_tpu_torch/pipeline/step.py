@@ -1,7 +1,8 @@
 """The per-minibatch demux step: raw signal -> barcode calls.
 
-Port of warpdemux_tpu/pipeline/step.py `make_demux_step` with the "pa",
-"adc" and "vbz" feeds and both output modes:
+Port of warpdemux_tpu/pipeline/step.py: `make_demux_step` with the "pa",
+"adc" and "vbz" feeds and both output modes, and the two-stage wire of the
+decision lane (`make_twostage_decision_step`):
 
     [vbz decode] -> calibrate (adc, vbz) -> detect_boundaries_with_fallback
         -> fingerprints_from_boundaries (fingerprints_consensus_refined
@@ -12,6 +13,11 @@ Port of warpdemux_tpu/pipeline/step.py `make_demux_step` with the "pa",
 On CUDA tensors every kernel of the chain is a hand-written kernel from
 csrc/ (K1-K8, K9 in place of K6 + K7 with fused_rolling, K10 on the tRNA
 path); on CPU tensors each takes its plain PyTorch version.
+
+The two-stage wire ships each read's first stage1_len samples, runs the
+decision chain on them with the detect `resolved` bit, and ships and runs
+again only the tails of a minibatch whose rows are not all resolved; the
+merged decisions equal the one-shot step's bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from warpdemux_tpu_torch._cuda import resolve_device
 from warpdemux_tpu_torch.config.sig_proc import SigProcConfig
 from warpdemux_tpu_torch.detect.boundaries import (
+    check_resolve_limit,
     check_supported,
     detect_boundaries_with_fallback,
     fused_rolling_default,
@@ -37,7 +44,7 @@ from warpdemux_tpu_torch.ops.fingerprint import (
     fingerprints_consensus_refined,
     fingerprints_from_boundaries,
 )
-from warpdemux_tpu_torch.ops.vbz_device import vbz_decode_batch
+from warpdemux_tpu_torch.ops.vbz_device import pack_tails_host, vbz_decode_batch
 from warpdemux_tpu_torch.pipeline.schema import PackSchema
 
 INPUT_FORMATS = ("pa", "adc", "vbz")
@@ -154,6 +161,7 @@ def make_demux_step(
     outputs: str = "full",
     fused_rolling: bool | None = None,
     device=None,
+    resolve_limit: int = 0,
 ):
     """Build the demux step on `device`: by default the CUDA GPU
     (RuntimeError where there is none); `device="cpu"` runs the plain
@@ -178,6 +186,12 @@ def make_demux_step(
       "decision": a DecisionStepOutput (no region statistics computed).
     fused_rolling: detect with kernel K9 in place of K6 + K7 (None: the
       WDX_FUSED_ROLLING environment variable).
+    resolve_limit (stage 1 of the two-stage wire; "adc" feed and "decision"
+      outputs only): the step returns (DecisionStepOutput, resolved), the
+      detect `resolved` bit of each row (detect/boundaries.py). The adc may
+      then be narrower than max_obs_trace: each row is padded with its
+      last sample, which is what the VBZ decode of the whole wire gives a
+      read that fits the prefix (its trailing deltas are zero).
     Inputs may be numpy arrays or tensors; outputs are tensors on `device`.
     """
     if input_format not in INPUT_FORMATS:
@@ -185,6 +199,10 @@ def make_demux_step(
     if outputs not in OUTPUTS:
         raise ValueError(f"outputs must be one of {OUTPUTS}, got {outputs!r}")
     check_supported(spc.detect)
+    if resolve_limit:
+        if input_format != "adc" or outputs != "decision":
+            raise ValueError("resolve_limit requires input_format='adc', outputs='decision'")
+        check_resolve_limit(spc.detect, resolve_limit)
     device = resolve_device(device)
     dcfg, fcfg, sx = spc.detect, spc.fingerprint, spc.seg_extra
     query = None
@@ -221,6 +239,9 @@ def make_demux_step(
         elif input_format == "adc":
             adc, offset, scale, in_lens = args
             adc = as_t(adc, torch.int16)
+            width = dcfg.max_obs_trace
+            if resolve_limit and adc.shape[1] < width:
+                adc = torch.cat([adc, adc[:, -1:].expand(-1, width - adc.shape[1])], 1)
         else:
             signals, in_lens = args
             signals = as_t(signals, torch.float32)
@@ -233,7 +254,7 @@ def make_demux_step(
 
         det = detect_boundaries_with_fallback(
             signals, in_lens, dcfg, cnn, with_stats=full, adc=adc,
-            calibration=calibration, fused_rolling=fused_rolling,
+            calibration=calibration, fused_rolling=fused_rolling, resolve_limit=resolve_limit,
         )
         cons = None
         if query is not None:
@@ -262,6 +283,114 @@ def make_demux_step(
             probs = torch.zeros((B, 1), dtype=torch.float32, device=device)
         if full:
             return _pack(det, fpt, cons, fail, success, pred, conf, probs)
-        return DecisionStepOutput(pred, conf, fail, success, probs)
+        out = DecisionStepOutput(pred, conf, fail, success, probs)
+        return (out, det.resolved) if resolve_limit else out
 
     return step
+
+
+def assemble_preload(adc1, rows, keys_t, data_t, n_samples: int) -> torch.Tensor:
+    """(B, n_samples) int16: the stage-1 prefix adc1 (B, L1) of every row
+    held at its last sample, and in the rows `rows` (int64, the sentinel B
+    dropped) their tails (keys_t, data_t from ops/vbz_device.
+    pack_tails_host), which decode to deltas from the row's last stage-1
+    sample. The sentinel rows write into an extra row B, cut off after."""
+    B, L1 = adc1.shape
+    last = adc1[:, -1]
+    base = torch.cat([last, last.new_zeros(1)])[rows].to(torch.int32)
+    tail = vbz_decode_batch(keys_t, data_t, n_samples - L1)
+    full = torch.cat([adc1, last[:, None].expand(B, n_samples - L1)], 1)
+    full = torch.cat([full, full.new_zeros((1, n_samples))])
+    full[rows, L1:] = (tail + base[:, None]).to(torch.int16)
+    return full[:B]
+
+
+class TwoStageHandle(NamedTuple):
+    """A minibatch on the device after stage 1 of the two-stage wire."""
+
+    adc1: torch.Tensor  # (B, stage1_len) int16, the decoded prefix
+    offset: torch.Tensor  # (B,) float32
+    scale: torch.Tensor  # (B,) float32
+    in_lens: torch.Tensor  # (B,) int32
+    out1: DecisionStepOutput
+    resolved: torch.Tensor  # (B,) bool
+
+
+def make_twostage_decision_step(model, spc: SigProcConfig, stage1_len: int = 7168, *, device=None):
+    """The decision lane's two-stage wire on `device` (default: the CUDA
+    GPU; `device="cpu"` the plain path).
+
+    Stage 1 decodes the first `stage1_len` samples of each read (the VBZ
+    wire cut by ops/vbz_device.split_wire_host) and runs the adc decision
+    chain on them, each row padded with its last sample, with the read's
+    true length; each row's `resolved` bit says its decision provably
+    equals the whole preload's. Stage 2 takes the tails of the unresolved
+    rows (ops/vbz_device.pack_tails_host), rebuilds the whole preload,
+    runs the full-width adc decision chain and merges row-wise: resolved
+    rows keep stage 1's outputs. Returns (stage1, stage2):
+
+      stage1(keys1, data1, offset, scale, in_lens) -> TwoStageHandle
+      stage2(handle, rows, keys_t, data_t) -> DecisionStepOutput
+
+    Rows with the sentinel index B (the row ladder's padding) are dropped.
+    Skip stage 2 where every row is resolved: handle.out1 is the answer.
+    ValueError for a stage1_len outside (0, max_obs_trace) or not a
+    multiple of 8, and for a CNN that reads past it (cnn_input_cap)."""
+    dcfg = spc.detect
+    L = dcfg.max_obs_trace
+    L1 = int(stage1_len)
+    if not (0 < L1 < L) or L1 % 8:
+        raise ValueError(f"stage1_len must be in (0, {L}) and 8-aligned")
+    if dcfg.method == "cnn" and not (0 < dcfg.cnn_input_cap <= L1):
+        raise ValueError(
+            "two-stage needs a prefix-causal CNN: set "
+            f"cnn_boundaries.input_cap <= {L1} (got {dcfg.cnn_input_cap})"
+        )
+    device = resolve_device(device)
+    kw = dict(input_format="adc", outputs="decision", device=device)
+    chain1 = make_demux_step(model, spc, resolve_limit=L1, **kw)
+    chain2 = make_demux_step(model, spc, **kw)
+
+    def as_t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    @torch.inference_mode()
+    def stage1(keys1, data1, offset, scale, in_lens) -> TwoStageHandle:
+        adc1 = vbz_decode_batch(as_t(keys1, torch.uint8), as_t(data1, torch.uint8), L1).to(torch.int16)
+        offset, scale = as_t(offset, torch.float32), as_t(scale, torch.float32)
+        in_lens = as_t(in_lens, torch.int32)
+        out1, resolved = chain1(adc1, offset, scale, in_lens)
+        return TwoStageHandle(adc1, offset, scale, in_lens, out1, resolved)
+
+    @torch.inference_mode()
+    def stage2(handle: TwoStageHandle, rows, keys_t, data_t) -> DecisionStepOutput:
+        full = assemble_preload(
+            handle.adc1, as_t(rows, torch.int64), as_t(keys_t, torch.uint8), as_t(data_t, torch.uint8), L
+        )
+        out2 = chain2(full, handle.offset, handle.scale, handle.in_lens)
+
+        def sel(a, b):
+            cond = handle.resolved.reshape((-1,) + (1,) * (a.dim() - 1))
+            return torch.where(cond, a, b)
+
+        return DecisionStepOutput(*(sel(a, b) for a, b in zip(handle.out1, out2)))
+
+    return stage1, stage2
+
+
+def twostage_stage2(stage2, handle: TwoStageHandle, resolved, host_wire, n: int, n_samples: int, put=None):
+    """Stage 2 of a two-stage minibatch, given stage 1's `resolved` read back
+    to the host ((B,) bool) and the whole wire kept there (keys, data,
+    in_lens and split_wire_host's off1): the tails of the unresolved rows
+    among the first n (the rest is padding) packed on the host
+    (ops/vbz_device.pack_tails_host), handed through `put` (the copy to the
+    device; None: as they are) and stage 2 launched on them. Returns
+    (stage 2's DecisionStepOutput, the packed tails), or (None, None) where
+    every row resolved: handle.out1 is then the answer. The run loop, its
+    tests and chip_smoke.py take each minibatch through this one protocol."""
+    rows = np.nonzero(~np.asarray(resolved)[:n])[0]
+    if not rows.size:
+        return None, None
+    keys, data, in_lens, off1 = host_wire
+    tails = pack_tails_host(keys, data, in_lens, off1, rows, handle.adc1.shape[1], n_samples)
+    return stage2(handle, *(tails if put is None else put(tails))), tails
