@@ -193,6 +193,32 @@ Phases (each raises on failure; nothing is caught):
    printed, and the two-stage minibatch and the one-shot step timed in
    turns (5 rounds of the 3 staged bench minibatches): median, range and
    their ratio.
+12. The trainers (warpdemux_tpu_torch/tools/) on the card, after phase 9,
+   before phase 6:
+   a. the boundary-CNN trainer at full width (ARCH, 48 reads of 10,000
+      samples a step, input cap 7168, seed 0) for CNN_TRAIN_STEPS steps,
+      twice on the card and once on the CPU: the two card runs' weights
+      and losses equal bit for bit, every loss within CNN_LOSS_RTOL of
+      the CPU's and every weight within CNN_WEIGHT_ATOL, no kernel of
+      csrc/ launched, the cuDNN and TF32 switches as before; steps/s of
+      each run (the host's make_batch share printed). A control run on
+      the card with TF32 in the backward convolutions (the forward in
+      full float32, as when only the forward is scoped) must break both
+      limits, so that they are shown to catch it; The trained weights
+      then serve the adc decision step on the seed-0 bench batch
+      (LAUNCHES["trained_cnn_adc_decision"]; GPU against CPU on 255 of
+      the first 256 rows or more);
+   b. the tRNA trainer's device half at its default arguments
+      (WDX4_tRNA, 720 reads in prep steps of 128 on the pa feed, seed
+      11): its prep step at B = 128, 80 and 22 on trna_minibatch rows,
+      every column against the CPU step's as in phase 3b (all rows); the
+      713 fingerprints and classes equal to the CPU's, the shipped
+      bundle's 495 support vectors among them, each prep step launching
+      LAUNCHES["trna_prep"]; the Gram matrix, K1 at 713 x 713, bit for bit
+      its plain version, timed beside its bound; both holdout families
+      (150 reads each) through the shipped bundle, fingerprints and pred
+      equal to the CPU's.
+   (The SVC fit is sklearn's, which the card's machine lacks.)
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -264,7 +290,12 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2), "vbz_full": (1, 1
             "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
             "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
             "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1),
-            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2)}
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2),
+            # phase 12: the tRNA trainer's prep step (the pa feed, full
+            # outputs, no model: K4 for the proxy median where the adc feeds
+            # take K8, no K1); the mRNA step served by the trained CNN
+            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1),
+            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -296,6 +327,22 @@ OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one sh
 WORKER_MINIBATCHES = 128
 WORKER_DISTINCT = 8
 WORKER_ROUNDS = ("one", "mesh", "mesh", "one")
+# phase 12: the CNN trainer at full width (ARCH, the trainer's batch of 48
+# reads of 10,000 samples, its input cap 7168), CNN_TRAIN_STEPS steps from
+# seed 0 on the card twice and on the CPU once. Tolerances, card against
+# CPU: cuDNN and oneDNN sum the convolutions and their gradients in other
+# orders; the gradients differ by ~5e-7 of their largest at step 0 and the
+# weights by ~3e-7 after 3 steps (the port against the JAX trainer on the
+# CPU, tests/test_torch_train_cnn.py), and the difference grows with the
+# steps. Each limit lies between the sound card run's reading after 50
+# steps (losses 1.85e-5 relative, weights 1.83e-4) and the control's, TF32
+# in the backward convolutions (6.80e-5, 1.17e-3), which must break both
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+CNN_TRAIN_STEPS = 50
+CNN_LOSS_RTOL = 3.5e-5
+CNN_WEIGHT_ATOL = 5e-4
+TRAINED_CNN = "chip_smoke_cnn"  # the trained bundle's name in a temporary weights directory
+TRNA_TRAIN_FPTS = 713  # training fingerprints of the tRNA trainer's defaults (WDX4_tRNA)
 
 
 TRNA_MODEL = "WDX4_tRNA_rna004_v1_0"
@@ -2729,6 +2776,220 @@ def run_worker_processes(card):
     return {name: launches}
 
 
+def run_trainers(dev, card):
+    """Phase 12: the trainers of warpdemux_tpu_torch/tools/ on the card.
+    Returns the launch counts by path. Writes nothing under the repository
+    (the trained CNN goes to a temporary weights directory)."""
+    import io
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bench import synth_minibatch
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config import utils as config_utils
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models import registry
+    from warpdemux_tpu_torch.ops import dtw
+    from warpdemux_tpu_torch.ops.numerics import full_float32
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+    from warpdemux_tpu_torch.tools import train_cnn, train_trna_model
+
+    by_path = {}
+    zeros = dict.fromkeys(KERNELS, 0)
+
+    # a. the CNN trainer's command line (python -m warpdemux_tpu_torch.tools.
+    # train_cnn --steps CNN_TRAIN_STEPS): two runs on the card, one on the
+    # CPU, each writing its bundle into a temporary weights directory
+    def switches():
+        return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    @contextlib.contextmanager
+    def tf32_backward():
+        # the control: the step's cuDNN switches, but TF32 left on outside
+        # a forward scoped to full float32
+        saved = switches()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
+
+    def forward_in_float32(*a):
+        with full_float32():
+            return sound[1](*a)
+
+    def cnn_run(device, out):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            params, history = train_cnn.main(["--steps", str(CNN_TRAIN_STEPS), "--out", out, "--device", device])
+        lines = printed.getvalue().splitlines()
+        print("\n".join(f"CNN trainer on {device} ({out}): {line}" for line in lines))
+        require(lines[-1].startswith("eval: polyA reads ") and f"saved {weights / out}.npz" in lines,
+                f"CNN trainer on {device}: no bundle or eval line")
+        return params, history
+
+    before = switches()
+    saved_dir = config_utils.CNN_DIR
+    tmp = tempfile.TemporaryDirectory()
+    weights = Path(tmp.name)
+    config_utils.CNN_DIR = weights
+    try:
+        _cuda.reset_launches()
+        gpu_params, gpu_hist = cnn_run(dev.type, TRAINED_CNN)
+        by_path["cnn_trainer"] = dict(_cuda.launches)
+        require(switches() == before, f"the CNN trainer left the cuDNN / TF32 switches at {switches()}, not {before}")
+        require(by_path["cnn_trainer"] == zeros, f"cnn_trainer: launches {by_path['cnn_trainer']}, no kernel expected")
+        gpu2_params, gpu2_hist = cnn_run(dev.type, "run2")
+        cpu_params, cpu_hist = cnn_run("cpu", "cpu")
+        sound = train_cnn.training_numerics, train_cnn.loss_fn
+        train_cnn.training_numerics, train_cnn.loss_fn = tf32_backward, forward_in_float32
+        try:
+            tf32_params, tf32_hist = cnn_run(dev.type, "tf32_control")
+        finally:
+            train_cnn.training_numerics, train_cnn.loss_fn = sound
+        # the trained bundle serves the mRNA step on the seed-0 bench batch
+        spc = replace(get_model_spc_config(MODEL), cnn_model_name=TRAINED_CNN)
+        steps = {d: make_demux_step(registry.load_model(MODEL, d), spc, input_format="adc", outputs="decision",
+                                    fused_rolling=False, device=d) for d in (dev, "cpu")}
+    finally:
+        config_utils.CNN_DIR = saved_dir
+        tmp.cleanup()
+    differing = sum(int((gpu_params[k] != gpu2_params[k]).sum()) for k in gpu_params)
+
+    def off_cpu(params, hist):
+        """(max relative loss difference, its step, max weight difference) against the CPU run."""
+        rel = np.abs(hist.losses.astype(np.float64) - cpu_hist.losses) / cpu_hist.losses
+        return rel.max(), int(rel.argmax()), max(float((params[k].cpu() - cpu_params[k]).abs().max()) for k in cpu_params)
+
+    loss_rel, loss_step, w_diff = off_cpu(gpu_params, gpu_hist)
+    ctl_loss_rel, ctl_loss_step, ctl_w_diff = off_cpu(tf32_params, tf32_hist)
+    print(f"CNN trainer, two runs on the card: {differing} weights differ; losses equal: "
+          f"{np.array_equal(gpu_hist.losses, gpu2_hist.losses)}")
+    print(f"CNN trainer, card against CPU over {CNN_TRAIN_STEPS} steps: max relative loss difference {loss_rel!r} "
+          f"(step {loss_step}; limit {CNN_LOSS_RTOL}), max weight difference {w_diff!r} (limit "
+          f"{CNN_WEIGHT_ATOL}); last loss {float(gpu_hist.losses[-1])!r} card, {float(cpu_hist.losses[-1])!r} CPU")
+    require(differing == 0 and np.array_equal(gpu_hist.losses, gpu2_hist.losses),
+            "two CNN training runs on the card gave different weights")
+    print(f"CNN trainer control, TF32 in the backward convolutions, against the CPU: max relative loss difference "
+          f"{ctl_loss_rel!r} (step {ctl_loss_step}), max weight difference {ctl_w_diff!r} on {card}")
+    require(loss_rel <= CNN_LOSS_RTOL, "CNN trainer: the card's losses are off the CPU's")
+    require(w_diff <= CNN_WEIGHT_ATOL, "CNN trainer: the card's weights are off the CPU's")
+    require(ctl_loss_rel > CNN_LOSS_RTOL and ctl_w_diff > CNN_WEIGHT_ATOL,
+            "CNN trainer: the limits do not catch TF32 in the backward convolutions")
+    for name, h in (("card, run 1", gpu_hist), ("card, run 2", gpu2_hist)):
+        print(f"CNN trainer ({name}): {CNN_TRAIN_STEPS / h.seconds!r} steps/s ({h.seconds!r} s for {CNN_TRAIN_STEPS} "
+              f"steps of 48 reads, {h.batch_seconds!r} s of it the host's make_batch) on {card}")
+    print(f"CNN trainer (the card's host CPU, for comparison): {CNN_TRAIN_STEPS / cpu_hist.seconds!r} steps/s")
+
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
+    out, by_path["trained_cnn_adc_decision"] = _drive("trained_cnn_adc_decision", steps[dev], (adc, off, sc, lens))
+    succ, _fail, _pred = _decisions(out)
+    rows = tuple(a[:N_ROWS] for a in (adc, off, sc, lens))
+    gpu_d, cpu_d = _decisions(steps[dev](*rows)), _decisions(steps["cpu"](*rows))
+    same = int(np.logical_and.reduce([a == b for a, b in zip(gpu_d, cpu_d)]).sum())
+    print(f"the trained CNN's adc decision step: {int(succ.sum())}/{B} pass; rows agreeing GPU vs CPU on "
+          f"(success, fail_code, pred): {same}/{N_ROWS}")
+    require(same >= N_ROWS - 1, "trained CNN: GPU and CPU decisions disagree")
+
+    # b. the tRNA trainer's device half at its default arguments
+    args = train_trna_model.build_parser().parse_args([])
+    name = args.out
+    barcodes, pats = train_trna_model.MODEL_BARCODES[name], train_trna_model.patterns(name)
+    preps = {d: train_trna_model.prep_step(name, d) for d in (dev, "cpu")}
+    n_reads = len(barcodes) * args.per_bc + args.noise_n
+    prep = dict(zip(KERNELS, LAUNCHES["trna_prep"]))
+
+    def fingerprints(device, *sizes, family="real", seed=args.seed):
+        t0 = time.perf_counter()
+        X, y = train_trna_model.make_fingerprints(np.random.default_rng(seed), *sizes, preps[device], pats,
+                                                  barcodes, family)
+        return X, y, time.perf_counter() - t0
+
+    # the prep step at the trainer's chunk shapes (128 reads, the ragged 80
+    # of its training set and 22 of each holdout) on tRNA minibatch rows:
+    # every column against the CPU step's, as in phase 3b
+    for n in (train_trna_model.CHUNK, n_reads % train_trna_model.CHUNK,
+              (len(barcodes) + 1) * args.holdout_per_bc % train_trna_model.CHUNK):
+        adc, off, sc, lens, _kind, _bc = trna_minibatch(np.random.default_rng(n), n)
+        pa = ((adc.astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
+        out, _ = _drive("trna_prep", preps[dev], (pa, lens))
+        ref = preps["cpu"](pa, lens)
+        same_rows = _compare_full(out, ref, exact_rows=(out.cons_i.cpu() == ref.cons_i).all(1).numpy())
+        print(f"tRNA trainer prep step, B={n}: rows agreeing GPU vs CPU on every int, median, MAD and consensus "
+              f"column: {same_rows}/{n}")
+        require(same_rows == n, f"tRNA trainer prep step, B={n}: GPU and CPU full outputs disagree")
+
+    _cuda.reset_launches()
+    X, y, seconds = fingerprints(dev, args.per_bc, args.noise_n)
+    by_path["trna_trainer_prep"] = dict(_cuda.launches)
+    Xc, yc, cpu_seconds = fingerprints("cpu", args.per_bc, args.noise_n)
+    n_steps = -(-n_reads // train_trna_model.CHUNK)
+    off_rows = int((X != Xc).any(1).sum()) if X.shape == Xc.shape else -1
+    print(f"tRNA trainer prep: {len(X)} fingerprints of {n_reads} reads in {n_steps} steps, "
+          f"{n_reads / seconds!r} reads/s on {card} ({n_reads / cpu_seconds!r} on the host CPU); rows off the CPU's: "
+          f"{off_rows}; launches {by_path['trna_trainer_prep']}")
+    require(len(X) == TRNA_TRAIN_FPTS and np.array_equal(X, Xc) and np.array_equal(y, yc),
+            "tRNA trainer: the card's fingerprints differ from the CPU's")
+    require(by_path["trna_trainer_prep"] == {k: n_steps * n for k, n in prep.items()},
+            f"trna_trainer_prep: launches differ from {n_steps} x {LAUNCHES['trna_prep']}")
+    mine = {r.tobytes() for r in X}
+    shipped = registry.load_model_arrays(name)["X_sv_f64"]
+    found = sum(r.tobytes() in mine for r in shipped)
+    print(f"tRNA trainer: {found}/{len(shipped)} support vectors of the shipped {name} among the card's fingerprints")
+    require(found == len(shipped), "tRNA trainer: the shipped support vectors are not among the fingerprints")
+
+    # the Gram matrix: K1 at n x n against its plain version
+    Xf = torch.as_tensor(X.astype(np.float32), device=dev)
+    _cuda.reset_launches()
+    D = train_trna_model.gram_distances(X, dev)
+    by_path["trna_trainer_gram"] = dict(_cuda.launches)
+    plain = dtw.dtw_distance_matrix_plain(Xf, Xf, 15, 0.1)
+    err = max_abs(torch.as_tensor(D, device=dev), plain)
+    require(by_path["trna_trainer_gram"] == {**zeros, "wdx_dtw": 1}, "trna_trainer_gram: K1 not launched once")
+    require(np.array_equal(D, plain.cpu().numpy().astype(np.float64)), "K1 at the Gram shape differs from its plain version")
+    n = len(X)
+    kernel = lambda: dtw.dtw_distance_matrix(Xf, Xf, 15, 0.1)
+    ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
+    plain_ms = time_ms(lambda: dtw.dtw_distance_matrix_plain(Xf, Xf, 15, 0.1), reps=2)
+    n_bytes, n_ops = k1_work(n, n)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"K1 dtw at the Gram shape {n} x {n}: max_abs_err={err!r} kernel_ms={ms!r} device_ms={device_ms!r} "
+          f"plain_ms={plain_ms!r}")
+    print(f"K1 dtw at the Gram shape: bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
+          f"share of bound reached={bound_ms / ms!r} (of the device's time alone {bound_ms / device_ms!r}) on {card}")
+
+    # the holdout families through the shipped bundle
+    models = {d: registry.load_model(name, d) for d in (dev, "cpu")}
+    _cuda.reset_launches()
+    for family in ("real", "legacy"):
+        sizes = (args.holdout_per_bc, args.holdout_per_bc)
+        Xh, yh, _ = fingerprints(dev, *sizes, family=family, seed=args.seed + 1)
+        pred = models[dev].predict(Xh.astype(np.float32))[0]
+        Xhc, _yhc, _ = fingerprints("cpu", *sizes, family=family, seed=args.seed + 1)
+        pred_cpu = models["cpu"].predict(Xhc.astype(np.float32))[0]
+        want = np.array([barcodes[c] if c < len(barcodes) else -1 for c in yh])
+        print(f"tRNA trainer holdout[{family}]: n={len(yh)}, pred equal to the CPU's on "
+              f"{int((pred == pred_cpu).sum()) if pred.shape == pred_cpu.shape else -1}/{len(yh)}, "
+              f"accuracy {float((pred == want).mean())!r}")
+        require(np.array_equal(Xh, Xhc) and np.array_equal(pred, pred_cpu),
+                f"tRNA trainer holdout[{family}]: the card's fingerprints or pred differ from the CPU's")
+    by_path["trna_trainer_holdout"] = dict(_cuda.launches)
+    hold_steps = 2 * -(-(len(barcodes) + 1) * args.holdout_per_bc // train_trna_model.CHUNK)
+    want_hold = {k: hold_steps * n for k, n in prep.items()}
+    want_hold["wdx_dtw"] += 2
+    print(f"launches in the trna_trainer_holdout run: {by_path['trna_trainer_holdout']}")
+    require(by_path["trna_trainer_holdout"] == want_hold,
+            f"trna_trainer_holdout: launches differ from {hold_steps} prep steps and two predicts")
+    return by_path
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2763,6 +3024,7 @@ def main() -> int:
     by_path.update(trna_counts)
     family_counts, rna002_steps, rna002_rows = run_families_and_rna002(dev, card, steps["vbz_full"])
     by_path.update(family_counts)
+    by_path.update(run_trainers(dev, card))
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
     by_path.update(run_worker_processes(card))
     count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows))

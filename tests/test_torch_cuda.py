@@ -787,3 +787,48 @@ def test_run_loop_on_a_card_that_is_not_current(dev, tmp_path):
             )
         assert stats.total == 100
     assert shard_texts(tmp_path / "other") == shard_texts(tmp_path / "current")
+
+
+def test_cnn_trainer_on_the_card_is_deterministic_and_near_the_cpu(dev):
+    """Five steps of 8 reads (ARCH, cap 7168) twice on the card: equal
+    weights and losses bit for bit (cuDNN's deterministic algorithms);
+    against the CPU within chip_smoke's tolerances; the cuDNN and TF32
+    switches restored; no csrc/ kernel launched."""
+    from chip_smoke import CNN_LOSS_RTOL, CNN_WEIGHT_ATOL
+    from warpdemux_tpu_torch.detect import cnn
+    from warpdemux_tpu_torch.tools import train_cnn
+
+    def run(device):
+        rng = np.random.default_rng(0)
+        params = cnn.init_params(rng, cnn.ARCH, device)
+        return params, train_cnn.train(params, rng, 5, 8, log=lambda line: None)
+
+    switches = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    _cuda.reset_launches()
+    a, ha = run(dev)
+    assert not any(_cuda.launches.values())
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32) == switches
+    b, hb = run(dev)
+    c, hc = run("cpu")
+    np.testing.assert_array_equal(ha.losses, hb.losses)
+    np.testing.assert_allclose(ha.losses, hc.losses, rtol=CNN_LOSS_RTOL)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert float((a[k].cpu() - c[k]).abs().max()) <= CNN_WEIGHT_ATOL, k
+
+
+def test_trna_trainer_device_half_equals_the_cpu(dev):
+    """WDX4b's prep at 10 reads a barcode and 10 noise reads (50 rows, one
+    step): fingerprints and classes equal to the CPU's; their Gram matrix
+    by K1 bit for bit the CPU's plain version."""
+    from warpdemux_tpu_torch.tools import train_trna_model as tt
+
+    name = "WDX4b_tRNA_rna004_v1_0"
+    pats, barcodes = tt.patterns(name), tt.MODEL_BARCODES[name]
+    got = tt.make_fingerprints(np.random.default_rng(11), 10, 10, tt.prep_step(name, dev), pats, barcodes)
+    want = tt.make_fingerprints(np.random.default_rng(11), 10, 10, tt.prep_step(name, "cpu"), pats, barcodes)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    _cuda.reset_launches()
+    np.testing.assert_array_equal(tt.gram_distances(got[0], dev), tt.gram_distances(want[0], torch.device("cpu")))
+    assert _cuda.launches["wdx_dtw"] == 1

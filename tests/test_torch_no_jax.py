@@ -32,9 +32,10 @@ def test_module_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-# what the GPU host lacks: jax and the JAX package, and the optional
-# dependencies of the pod5 reader, the CSV writers and the MinKNOW client
-ABSENT = ("jax", "warpdemux_tpu", "pyarrow", "pandas", "zstandard", "minknow_api")
+# what the GPU host lacks: jax and the JAX package, the optional
+# dependencies of the pod5 reader, the CSV writers and the MinKNOW client,
+# and the tRNA trainer's SVC fit and the joblib importer's unpickler
+ABSENT = ("jax", "warpdemux_tpu", "pyarrow", "pandas", "zstandard", "minknow_api", "sklearn", "joblib")
 
 
 def test_package_loads_without_jax():
@@ -43,7 +44,9 @@ def test_package_loads_without_jax():
     the resume scan reads them back (the card drives the loop from
     minibatches held in memory, without pyarrow, pandas or zstandard); a
     DTW-MLP and a Fpt-Boost model classify, and target_accuracy filters
-    their tables."""
+    their tables; the CNN trainer takes a step and writes its bundle, the
+    tRNA trainer's device half (prep step, Gram matrix) runs, and its fit
+    and the joblib importer say that they need sklearn / joblib."""
     code = (
         "import sys, tempfile\n"
         f"for name in {ABSENT!r}:\n"
@@ -94,6 +97,24 @@ def test_package_loads_without_jax():
         "for m in fam:\n"
         "    table = m.predictions_to_table(ids, *m.predict(rng.normal(size=(3, 25))))\n"
         "    assert len(target_accuracy.filter_predictions_table(table, 'WDX4_rna004_v1_0', 99.0)) == 3\n"
+        "import contextlib, io, pathlib\n"
+        "from warpdemux_tpu_torch.config import utils as cu\n"
+        "from warpdemux_tpu_torch.tools import train_cnn, train_trna_model as tt\n"
+        "cu.CNN_DIR = pathlib.Path(tempfile.mkdtemp())\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    train_cnn.main(['--steps', '1', '--batch', '2', '--out', 'w', '--device', 'cpu'])\n"
+        "assert (cu.CNN_DIR / 'w.npz').exists()\n"
+        "name = 'WDX4_tRNA_rna004_v1_0'\n"
+        "X, y = tt.make_fingerprints(rng, 2, 2, tt.prep_step(name, 'cpu'), tt.patterns(name), tt.MODEL_BARCODES[name])\n"
+        "assert tt.gram_distances(X, 'cpu').shape == (len(X), len(X))\n"
+        "from warpdemux_tpu_torch.models.importer import convert_joblib\n"
+        "for call in (lambda: tt.main(['--device', 'cpu']), lambda: convert_joblib('absent.joblib')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        assert e.name in ('sklearn.svm', 'sklearn', 'joblib'), e\n"
+        "    else:\n"
+        "        raise AssertionError('ran without sklearn / joblib')\n"
         "print('ok')\n"
     )
     out = subprocess.run(

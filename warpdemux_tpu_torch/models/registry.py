@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from warpdemux_tpu_torch._cuda import resolve_device
-from warpdemux_tpu_torch.config.utils import CNN_DIR, MODEL_DIR, available_models, model_config  # noqa: F401
-from warpdemux_tpu_torch.detect.cnn import BoundaryCNN
+from warpdemux_tpu_torch.config.utils import MODEL_DIR, available_models, model_config  # noqa: F401
+from warpdemux_tpu_torch.detect.cnn import BoundaryCNN, load_arrays
 from warpdemux_tpu_torch.models.dtw_mlp import DTWMLPModel
 from warpdemux_tpu_torch.models.dtw_svm import DTWSVMModel
 from warpdemux_tpu_torch.models.fpt_boost import FptBoostModel
@@ -37,7 +37,7 @@ def load_model_arrays(name: str) -> dict[str, np.ndarray]:
 
 
 def load_cnn_arrays(name: str) -> dict[str, np.ndarray]:
-    return _load_npz(CNN_DIR / f"{name}.npz")
+    return load_arrays(name)
 
 
 def _tensors(device):

@@ -26,14 +26,31 @@ from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma
 
 
+# bytes of one block of query rows' (rows, N, m) float64 intermediates in
+# the plain version on the CPU: a block's ~15 passes a diagonal then run
+# from cache rather than from memory (the tRNA trainer's Gram matrix is
+# 713 x 713); each cell is computed as without blocks. On the GPU the passes
+# stream through device memory either way, and every block would add its
+# launches: one block there.
+PLAIN_BLOCK_BYTES = 8 << 20
+
+
 def dtw_distance_matrix_plain(
     X: torch.Tensor, Y: torch.Tensor, window: int = 15, penalty: float = 0.1
 ) -> torch.Tensor:
-    """(B, m) x (N, m) -> (B, N) distances, anti-diagonal wavefront."""
-    B, m = X.shape
-    N, m2 = Y.shape
-    if m != m2:
+    """(B, m) x (N, m) -> (B, N) distances, anti-diagonal wavefront (on the
+    CPU in blocks of query rows)."""
+    if X.shape[1] != Y.shape[1]:
         raise ValueError("query and reference fingerprints must have equal length")
+    rows = max(1, PLAIN_BLOCK_BYTES // (8 * max(1, Y.shape[0] * Y.shape[1])))
+    if X.shape[0] <= rows or X.device.type != "cpu":
+        return _wavefront(X, Y, window, penalty)
+    return torch.cat([_wavefront(X[i : i + rows], Y, window, penalty) for i in range(0, X.shape[0], rows)])
+
+
+def _wavefront(X: torch.Tensor, Y: torch.Tensor, window: int, penalty: float) -> torch.Tensor:
+    B, m = X.shape
+    N = Y.shape[0]
     dev, dtype = X.device, X.dtype
     p = torch.tensor(penalty * penalty, dtype=dtype, device=dev)
     inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
