@@ -10,7 +10,7 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels of csrc/ from source and print what ptxas reported for each
    (registers, spills).
-2. For each kernel K1-K11, on numpy-seeded inputs at the step's shapes
+2. For each kernel K1-K13, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
    the card and time both (the kernel twice: as a caller sees it, and with
@@ -72,7 +72,16 @@ Phases (each raises on failure; nothing is caught):
    window alone beside whole rows, one row, rows of length 0, NaN and inf,
    constant rows, -0.0 and cancellations, with and without the
    calibration; both variants are timed in turns at each step shape beside
-   its bound, and the wrapper beside torch.where(mask, x, 0).sum(-1). An
+   its bound, and the wrapper beside torch.where(mask, x, 0).sum(-1). K12
+   (the SVM's decision values in XLA:CPU's summation order, new: no Pallas
+   counterpart) is held bit for bit at the shapes of the models that take
+   it (WDX4 at B = 1000, 32, 16 and 2, the tRNA model, WDX6 at B = 16 and
+   1000, WDX10 at B = 64 and 1000), and K13 (the SVM's probabilities: the
+   Platt sigmoid and the Wu-Lin coupling in the jitted JAX operations, one
+   thread a row, new) on K12's decision values there and on rows of NaN,
+   inf and 0; both are timed beside their bounds at B = 1000 and the
+   lane's 16 / 32 (K13's operations counted from the coupling passes each
+   row takes), K12 beside torch.addmm. An
    empty launch is timed as called
    through `_cuda.launch` and through a launch that resolves the entry
    point, the device context and the stream object every time.
@@ -105,14 +114,19 @@ Phases (each raises on failure; nothing is caught):
       padding, each held in every signal-length bucket, at max_batch 32 and
       16, against the CPU lane: (ok, pred) must agree on all but one row of
       each, and every micro-batch must launch K1-K5 once and K6-K9 never;
-   b. each of the five kernels at the lane's shapes (B = 16 and 32; K5 at
+   b. each of the seven kernels at the lane's shapes (B = 16 and 32; K5 at
       L = 2048 and 12288) against its plain version, timed beside its
       bound, and the lane program a micro-batch as called;
-   c. a whole session on the replay client (126 channels, 100 ms chunks,
-      400 reads, max_batch 16, an adapter_count balancer), with four
-      classifier threads and with one: every delivered read decided, 30%
-      or more classified, no classifier thread raised; the decision
-      latency's percentiles are printed.
+   c. a whole session on the replay client through the port's
+      tools/live_latency.measure (126 channels, 100 ms chunks, 400 reads,
+      max_batch 16, a read_count balancer), with four classifier threads
+      and with one: every delivered read decided, 30% or more classified,
+      no classifier thread raised, the lane's kernels launched once a
+      micro-batch; the decision latency's percentiles are printed;
+   d. the port's tools/live_soak in a process of its own on the card
+      (SOAK_READS reads, no pacing): every read decided and written once;
+      the report, with the RSS and the device memory at a third of the
+      decisions and at the end, is printed.
 
 7. The offline run loop (pipeline/run.demux_minibatches, the loop behind
    `python -m warpdemux_tpu_torch.cli demux`) on phase 4's four
@@ -261,41 +275,47 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "wdx_rowstats": ("K11 masked row mean/std", "rowstats.cu",
                      "new, no Pallas counterpart (XLA's row sums: warpdemux_tpu/ops/normalize.py:55, "
                      "warpdemux_tpu/detect/boundaries.py:695)"),
+    "wdx_svm_dot": ("K12 SVM decision values in XLA's order", "svmdot.cu",
+                    "new, no Pallas counterpart (XLA:CPU's dot: warpdemux_tpu/ops/svm.py:74)"),
+    "wdx_svm_probs": ("K13 SVM probabilities (Platt, Wu-Lin coupling)", "svmprob.cu",
+                      "new, no Pallas counterpart (warpdemux_tpu/ops/svm.py:94, a lax.while_loop)"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 # device operations a step of each path before K5's callers stopped copying
 # for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
-# launches a step of each path, in KERNELS' order (K1 .. K11); K11 once for
+# launches a step of each path, in KERNELS' order (K1 .. K13); K11 once for
 # the [mvs_polya] gate's poly(A) mean of each detect pass (the CNN's and
-# the LLR fallback's) and once for the region statistics of full outputs
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0),  # one micro-batch of the lane program
+# the LLR fallback's) and once for the region statistics of full outputs;
+# K12 and K13 once a classified batch (the SVM's decision values, then its
+# probabilities)
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3),
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0),
             # the tRNA paths (phase 8): K3 twice (the adapter's events, then
             # the barcode's from its start), K4 for the clip and the gates
             # (with the adapter MAD) or the four region statistics, K5 for the
             # refine windows, the split window and the adapter, K8 for the
             # adapter-level proxy, K10 for the consensus match, K11 for the
             # region statistics of full outputs (no [mvs_polya] gate)
-            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0),
-            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1),
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1),
             # phase 9: the model families' predict (K1 for DTW-MLP's
             # distances; the forest has no kernel) and the predict run over
             # one fingerprint file; the RNA002 steps (LLR detect, no CNN: one
             # detect pass, one gate)
-            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
-            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
-            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1),
-            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2),
+            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1),
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1),
             # phase 12: the tRNA trainer's prep step (the pa feed, full
             # outputs, no model: K4 for the proxy median where the adc feeds
             # take K8, no K1); the mRNA step served by the trained CNN
-            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1),
-            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2)}
+            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0),
+            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -320,6 +340,7 @@ OFFLINE_TIMED_ROUNDS = 3
 # phase 11: the two-stage wire's step against the one-shot vbz step
 TWO_STAGE_MODELS = ("WDX4_rna004_v1_0", "WDX10_rna004_v1_0")
 TWO_STAGE_ROUNDS = 5
+SOAK_READS = 4000  # phase 6d's soak
 OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
 # phase 10's run: the data of WORKER_DISTINCT minibatches (each drawn once a
 # process) in WORKER_MINIBATCHES minibatches of read ids of their own, the
@@ -937,6 +958,107 @@ def check_k11(dev, card):
 # bundle's 851 reference fingerprints with sklearn MLPClassifier's default
 # hidden layer of 100; Fpt-Boost at catboost's defaults, 1,000 trees of
 # depth 6; both with 5 classes, the last the noise class
+# K12 at the shapes of the models that take it: (model, batch rows); the
+# step's B, the live lane's max_batch 16 / 32, two reads, and seven and
+# eleven classes on each side of their orders' switch at 51 rows
+K12_SHAPES = (("WDX4_rna004_v1_0", 1000), ("WDX4_rna004_v1_0", 16), ("WDX4_rna004_v1_0", 32),
+              ("WDX4_rna004_v1_0", 2), ("WDX4_tRNA_rna004_v1_0", 1000), ("WDX6_rna004_v1_0", 16),
+              ("WDX6_rna004_v1_0", 1000), ("WDX10_rna004_v1_0", 64), ("WDX10_rna004_v1_0", 1000))
+SVM_SIGMOID_OPS = 25  # the Platt sigmoid of one decision value: fma, abs, XLA's exp (~20), add, div
+
+
+def k12_work(B, N, P):
+    """K12's bytes (kernel rows, coefficients and intercepts read once,
+    decision values written once) and operations (a multiply and an add a
+    term, the intercept's add)."""
+    return (B * N + N * P + P + B * P) * 4, 2 * B * N * P + B * P
+
+
+def k13_work(dec, params):
+    """K13's bytes (decision values and Platt parameters read once,
+    probabilities written once) and the operations these decision values
+    need: each row's Platt sigmoids and matrix, and the coupling's passes
+    that row takes, counted as the plain version runs them (on the CPU).
+    A head (Q p, p Q p, the largest error) costs 2k^2 + 5k, a pass
+    k (4k + 10)."""
+    import torch
+
+    from warpdemux_tpu_torch.ops import svm
+
+    B, P = dec.shape
+    k = params.n_classes
+    eps = torch.tensor(0.005 / k, dtype=torch.float32)
+    passes = torch.zeros(B, dtype=torch.int64)
+    real = svm._p_dot
+
+    def counted(p, Qp):
+        pQp = real(p, Qp)
+        passes.add_(((Qp - pQp[:, None]).abs().amax(1) >= eps).long())
+        return pQp
+
+    svm._p_dot = counted
+    try:
+        svm.probabilities_plain(dec.cpu(), svm.SVMParams(*(a.cpu() for a in params[:4]), k))
+    finally:
+        svm._p_dot = real
+    heads = passes + (passes < max(100, k)).long()
+    ops = int((heads * (2 * k * k + 5 * k) + passes * k * (4 * k + 10)).sum()) + B * P * SVM_SIGMOID_OPS + B * 3 * k * k
+    return (B * P + 2 * P + B * k) * 4, ops, int(passes.max()), float(passes.float().mean())
+
+
+def check_svm(dev, card):
+    """Phase 2's K12 and K13: each at the shapes of the models that take
+    it, bit for bit against its plain version on the same inputs (kernel
+    rows exp(-U(0, 8)) from a seed against the shipped models'
+    coefficients; K13 on K12's decision values, plus rows of NaN, inf and
+    zero); timed beside its bound at the step's B = 1000 and the lane's
+    B = 16 / 32, K12 also beside torch.addmm (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops import numerics, svm
+
+    results = {}
+    models = {name: load_model(name, dev) for name in dict(K12_SHAPES)}
+    for name, b in K12_SHAPES:
+        m = models[name]
+        n, p = m.coef.shape
+        K = torch.as_tensor(np.exp(-np.random.default_rng(b).uniform(0, 8, (b, n))).astype(np.float32), device=dev)
+        order = numerics.xla_dot_order(b, n, p)
+        require(order is not None, f"K12 {name} B={b}: no known order")
+        dec, want = svm.decision_values(K, m.params), svm.decision_values_plain(K, m.params)
+        require(torch.equal(dec, want), f"K12 {name} B={b}: differs from the plain version")
+        dec[: min(b, 3)] = torch.tensor([float("nan"), float("inf"), 0.0], device=dev)[: min(b, 3), None]
+        probs, probs_plain = svm.probabilities(dec, m.params), svm.probabilities_plain(dec, m.params)
+        require(probs.isnan().equal(probs_plain.isnan()) and probs.nan_to_num().equal(probs_plain.nan_to_num()),
+                f"K13 {name} B={b}: differs from the plain version")
+        dec = svm.decision_values(K, m.params)
+        print(f"K12 {name} B={b} N={n} P={p} (order {'lanes' if order[0] == numerics.LANES else 'chain'}, kc={order[1]}): "
+              f"max_abs_err=0.0; K13 k={m.n_classes} on its decision values and rows of NaN, inf, 0: max_abs_err=0.0")
+        if name != MODEL or b == 2:
+            continue
+        k13_bytes, k13_ops, most, mean = k13_work(dec, m.params)
+        print(f"K13 {name} B={b}: coupling passes a row: largest {most}, mean {mean!r}")
+        if b == B:
+            with numerics.full_float32():
+                results["wdx_svm_dot"] = time_kernel(
+                    "wdx_svm_dot", card, 0.0, lambda: svm.decision_values(K, m.params),
+                    lambda: svm.decision_values_plain(K, m.params), *k12_work(b, n, p),
+                    library=lambda: torch.addmm(m.intercept, K, m.coef), plain_reps=3)
+            results["wdx_svm_probs"] = time_kernel(
+                "wdx_svm_probs", card, 0.0, lambda: svm.probabilities(dec, m.params),
+                lambda: svm.probabilities_plain(dec, m.params), k13_bytes, k13_ops, plain_reps=3)
+            continue
+        for key, fn, work in (("wdx_svm_dot", lambda: svm.decision_values(K, m.params), k12_work(b, n, p)),
+                              ("wdx_svm_probs", lambda: svm.probabilities(dec, m.params), (k13_bytes, k13_ops))):
+            ms, device_ms = time_ms(fn), time_ms(fn, queued=True)
+            bound_ms, bound_by = bound(*work)
+            print(f"live lane {KERNELS[key][0]} B={b}: max_abs_err=0.0 kernel_ms={ms!r} device_ms={device_ms!r} "
+                  f"bound_ms={bound_ms!r} by {bound_by} share={bound_ms / device_ms!r} on {card}")
+    return results
+
+
 FAMILY_LABELS = (3, 4, 5, 7, -1)
 MLP_HIDDEN = 100
 FOREST_TREES, FOREST_DEPTH = 1000, 6
@@ -1583,6 +1705,7 @@ def check_kernels(dev, card):
         *k10_work(q.shape[0], slens, series.shape[1]), plain_reps=3,
     )
     results["wdx_rowstats"] = check_k11(dev, card)
+    results.update(check_svm(dev, card))
     return results
 
 
@@ -1708,11 +1831,11 @@ def count_device_ops(step, args):
 
 @contextlib.contextmanager
 def captured_kernel_calls():
-    """Inside, every call of the live lane's five kernel wrappers is
+    """Inside, every call of the live lane's seven kernel wrappers is
     recorded as {launch-count key: (wrapper, args, plain version)}: the
     arguments the lane program gives each kernel."""
     from warpdemux_tpu_torch.models import dtw_svm
-    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, window_gather
+    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, svm, window_gather
 
     sites = (  # (module that calls it, name there, key, plain version)
         (fingerprint, "shift_rows", "wdx_shift_rows", window_gather.shift_rows_plain),
@@ -1720,6 +1843,8 @@ def captured_kernel_calls():
         (segmentation, "windowed_t_test", "wdx_ttest", segmentation.windowed_t_test_plain),
         (peaks, "suppress_by_distance", "wdx_suppress", peaks.suppress_by_distance_plain),
         (dtw_svm, "dtw_distance_matrix", "wdx_dtw", dtw.dtw_distance_matrix_plain),
+        (svm, "decision_values", "wdx_svm_dot", svm.decision_values_plain),
+        (svm, "probabilities", "wdx_svm_probs", svm.probabilities_plain),
     )
     calls = {}
 
@@ -1752,6 +1877,11 @@ def lane_kernel_work(key, args):
         return k2_work(n_valid, w, x.shape[1])
     if key == "wdx_suppress":
         return k3_work(args[1], args[2])
+    if key == "wdx_svm_dot":
+        K, params = args
+        return k12_work(K.shape[0], *params.coef.shape)
+    if key == "wdx_svm_probs":
+        return k13_work(*args[:2])[:2]
     X, Y = args[:2]
     return k1_work(X.shape[0], Y.shape[0], X.shape[1], args[2])
 
@@ -1761,14 +1891,12 @@ def run_live_lane(dev, card):
     counts of one micro-batch of the lane program, and that program (B=16,
     the reads' own bucket) as a function of no argument."""
     import tempfile
-    import threading
 
     import numpy as np
     import torch
 
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.live.balancer import BalancerConfig, BarcodeBalancers
-    from warpdemux_tpu_torch.live.dummy import DummyClient, synth_barcoded_read
     from warpdemux_tpu_torch.live.session import Session, SessionConfig
     from warpdemux_tpu_torch.models.registry import load_model
 
@@ -1779,12 +1907,12 @@ def run_live_lane(dev, card):
     timed = (Session._LEN_BUCKETS[0], natural, Session._LEN_BUCKETS[-1])
     save = tempfile.TemporaryDirectory()
 
-    def session(where, max_batch, client=None, **kw):
+    def session(where, max_batch):
         cfg = SessionConfig(model_name=MODEL, save_path=save.name, run_id=f"{where}{max_batch}",
-                            max_batch=max_batch, **kw)
+                            max_batch=max_batch)
         balancers = BarcodeBalancers.from_configs(
             4, [BalancerConfig(balance_type="adapter_count")], [1.0], n_channels=126)
-        return Session(client, cfg, balancers, model=models[where], device=dev if where == "gpu" else "cpu")
+        return Session(None, cfg, balancers, model=models[where], device=dev if where == "gpu" else "cpu")
 
     def by_read(lane):  # each read's (kept, prediction), the packed rows mapped back
         pred = np.full(lane.ok.shape, -2, np.int32)
@@ -1827,7 +1955,7 @@ def run_live_lane(dev, card):
         cpu.reporter.close()
     print(f"launches of one micro-batch of the live lane: {one_batch}")
 
-    # 6b. the five kernels at the lane's shapes, held against their plain
+    # 6b. the seven kernels at the lane's shapes, held against their plain
     # versions; then the lane program as a whole
     for (max_batch, bucket), captured in sorted(calls.items()):
         require(set(captured) == {k for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n},
@@ -1858,50 +1986,52 @@ def run_live_lane(dev, card):
                   f"decisions); on the stream: fingerprint {fp!r} ms, pack and classify {cls!r} ms on {card}")
         gpu.reporter.close()
 
-    # 6c. a whole session on the replay client, as tools/live_latency.py
-    # runs one (four classifier threads), and again with one classifier
-    # thread: the decision latency, and no classifier thread may raise
-    rng = np.random.default_rng(5)
-    X_sv = models["cpu"].X_sv.numpy()
-    signals = [synth_barcoded_read(rng, X_sv[rng.integers(0, len(X_sv))]) for _ in range(48)]
+    # 6c. a whole session on the replay client through the port's
+    # tools/live_latency (four classifier threads, the configured count,
+    # then one): the decision latency, and no classifier thread may raise
+    from warpdemux_tpu_torch.tools import live_latency
+
     for threads in (4, 1):
-        client = DummyClient(n_reads=400, chunk_size=1500, seed=7, signals=signals, n_channels=126,
-                             chunk_period_s=0.1, stagger_s=4.0)
-        live = session("gpu", 16, client, check_real_range=False, batch_wait_s=0.005,
-                       nproc_classification=threads)
-        raised = []
-        hook, threading.excepthook = threading.excepthook, raised.append
-        try:
-            _cuda.reset_launches()
-            t0 = time.perf_counter()
-            live.run(batch_size=64)
-            wall = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            launches = dict(_cuda.launches)
-        finally:
-            threading.excepthook = hook
+        run = live_latency.measure(reads=400, channels=126, max_batch=16, batch_wait=0.005,
+                                   nproc_classification=threads, device=dev, save=save.name)
         name = f"live session, {threads} classifier thread{'s' if threads > 1 else ''}"
-        require(not raised, f"{name}: a classifier thread raised: {[(a.thread.name, a.exc_value) for a in raised]}")
-        print(f"launches in the {name}: {launches}")
-        counts = [launches[k] for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n]
-        require(min(counts) > 0 and len(set(counts)) == 1, f"{name}: K1-K5 not launched once a micro-batch")
-        require(all(launches[k] == 0 for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if not n), f"{name}: K6-K9 ran")
-        delivered = {r.read_id for r in client._reads if r.delivered}
-        decided = set(client.stopped) | set(client.unblocked)
-        require(delivered <= decided, f"{name}: {len(delivered - decided)} delivered reads got no decision")
-        summary = live.reporter.counters.summary()
-        reported = sum(summary["accept"].values()) + sum(summary["reject"].values())
-        classified = summary["accept"]["classified"] + summary["reject"]["classified"]
-        print(f"{name}: {len(delivered)} reads delivered, {reported} reported, {classified} classified, "
-              f"{counts[0]} micro-batches (6 of them the warm-up), wall {wall!r} s; counters {summary}")
+        require(not run.errors, f"{name}: a classifier thread raised: {run.errors}")
+        print(f"launches in the {name}: {run.launches}")
+        counts = [run.launches[k] for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n]
+        require(min(counts) > 0 and len(set(counts)) == 1, f"{name}: the lane's kernels not launched once a micro-batch")
+        require(all(run.launches[k] == 0 for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if not n), f"{name}: K6-K11 ran")
+        require(run.undecided == 0, f"{name}: {run.undecided} delivered reads got no decision")
+        reported = sum(run.counters["accept"].values()) + sum(run.counters["reject"].values())
+        classified = run.counters["accept"]["classified"] + run.counters["reject"]["classified"]
+        print(f"{name}: {run.delivered} reads delivered, {reported} reported, {classified} classified, "
+              f"{counts[0]} micro-batches (6 of them the warm-up), wall {run.wall_s!r} s; counters {run.counters}")
         require(classified >= 0.3 * reported, f"{name}: fewer than 30% of reads classified")
-        pct = live.reporter.latency_percentiles()
-        for stage, v in pct.items():
+        print("\n".join(f"{name} {line}" for line in live_latency.table(run.percentiles)))
+        for stage, v in run.percentiles.items():
             print(f"{name} {stage}: n={v['n']} p50={v['p50'] * 1e3!r} p90={v['p90'] * 1e3!r} "
                   f"p99={v['p99'] * 1e3!r} max={v['max'] * 1e3!r} ms on {card}")
-        p99 = pct["total"]["p99"]
+        p99 = run.percentiles["total"]["p99"]
         print(f"{name}: p99 decision latency {p99 * 1e3!r} ms {'within' if p99 <= 0.1 else 'over'} "
               f"one 100 ms chunk period on {card}")
+
+    # 6d. the port's tools/live_soak on the card, in a process of its own
+    # (its RSS is the lane's alone): every read decided and written once,
+    # the report's RSS and device memory at a third of the decisions and at
+    # the end
+    out = subprocess.run([sys.executable, "-m", "warpdemux_tpu_torch.tools.live_soak", "--reads", str(SOAK_READS)],
+                         capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"live soak: exit {out.returncode}: {out.stderr[-3000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"live soak report: {json.dumps(rep)}")
+    require(rep["reads"] == rep["decided"] == rep["csv_rows"] == SOAK_READS,
+            f"live soak: {rep['decided']} decided, {rep['csv_rows']} CSV rows of {rep['reads']} reads")
+    require(rep["device"] == torch.cuda.get_device_name(0), f"live soak ran on {rep['device']}")
+    growth = rep["rss_mb_final"] / rep["rss_mb_third"] - 1.0
+    print(f"live soak, {SOAK_READS} reads, {rep['reads_per_s']!r} reads/s: RSS {rep['rss_mb_third']!r} MB at a third "
+          f"of the decisions, {rep['rss_mb_final']!r} MB at the end (growth {growth!r}, the tests' limit 0.15); "
+          f"device memory allocated {rep['device_mb_third']!r} / {rep['device_mb_final']!r} MB, its peak "
+          f"{rep['device_max_mb_third']!r} / {rep['device_max_mb_final']!r} MB; latency p99 "
+          f"{rep['latency_p99_ms']} ms on {card}")
     lane = session("gpu", 16)
     lane.reporter.close()
     save.cleanup()
@@ -2900,7 +3030,7 @@ def run_trainers(dev, card):
 
     # b. the tRNA trainer's device half at its default arguments
     args = train_trna_model.build_parser().parse_args([])
-    name = args.out
+    name = train_trna_model.trained_model(args)
     barcodes, pats = train_trna_model.MODEL_BARCODES[name], train_trna_model.patterns(name)
     preps = {d: train_trna_model.prep_step(name, d) for d in (dev, "cpu")}
     n_reads = len(barcodes) * args.per_bc + args.noise_n
@@ -2983,7 +3113,8 @@ def run_trainers(dev, card):
     by_path["trna_trainer_holdout"] = dict(_cuda.launches)
     hold_steps = 2 * -(-(len(barcodes) + 1) * args.holdout_per_bc // train_trna_model.CHUNK)
     want_hold = {k: hold_steps * n for k, n in prep.items()}
-    want_hold["wdx_dtw"] += 2
+    for key in ("wdx_dtw", "wdx_svm_dot", "wdx_svm_probs"):  # each predict: K1, then the SVM's K12 and K13
+        want_hold[key] += 2
     print(f"launches in the trna_trainer_holdout run: {by_path['trna_trainer_holdout']}")
     require(by_path["trna_trainer_holdout"] == want_hold,
             f"trna_trainer_holdout: launches differ from {hold_steps} prep steps and two predicts")

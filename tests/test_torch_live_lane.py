@@ -5,10 +5,10 @@ to the front of a zero (max_batch, 25) array), on the CPU.
 
 Input: the first 16 of the 64 replay reads of chip_smoke.py's live phase,
 cut at poly(A) plus padding as the session cuts them, in each of the six
-signal-length buckets, at max_batch 8 and 32. `ok` and `pred` exactly, `fpt` within
-1e-4 (it is equal: the fingerprint's sums take XLA's order), `conf` and
-`probs` within rtol 1e-5, atol 1e-6 (the DTW's float32 sums in another
-order).
+signal-length buckets, at max_batch 8 and 32. `ok`, `pred`, `fpt` (the
+fingerprint's sums take XLA's order), `conf` and `probs` (the SVM's
+product, exp, sigmoid and coupling in the jitted JAX operations,
+ops/numerics.xla_dot / xla_exp, ops/svm.py) exactly.
 
 The JAX side is jitted, so its t-scores carry this host's rsqrt estimate:
 the tests skip where that is not the table the port carries (as
@@ -88,11 +88,10 @@ def test_lane_program_equals_the_jax_lane(table_host, lane, bucket, max_batch):
         fpt, ok, pred, conf, probs = jax_lane(jax_session, signals)
         got = session._classify_on_device(signals)
         np.testing.assert_array_equal(got.ok, ok)
-        np.testing.assert_allclose(got.fpt[ok], fpt[ok], rtol=0, atol=1e-4)
         np.testing.assert_array_equal(got.fpt[ok], fpt[ok])
         np.testing.assert_array_equal(got.pred, pred)
-        np.testing.assert_allclose(got.conf, conf, rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(got.probs, probs, rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(got.conf, conf)
+        np.testing.assert_array_equal(got.probs, probs)
         kept += int(ok.sum())
     assert kept >= len(reads) - 1
 
@@ -134,7 +133,10 @@ def test_lane_program_launches_each_kernel_of_its_path_once(monkeypatch, tmp_pat
 
 def test_model_predict_takes_and_gives_numpy_as_the_jax_model():
     """The port model's numpy API beside its forward: `predict` on (n, 25)
-    and (25,) fingerprints, `fingerprint_len`."""
+    and (25,) fingerprints, `fingerprint_len`. Nine rows exactly; one row
+    `pred` exactly, `conf` and `probs` within rtol 1e-5, atol 1e-6: the
+    jitted JAX product of one row by the model's constant coefficients
+    sums in an order not found (ROADMAP queue 3, item C)."""
     jax_model, model = jax_load_model(MODEL), load_model(MODEL, "cpu")
     assert model.fingerprint_len == jax_model.fingerprint_len == 25
     fpts = np.random.default_rng(3).normal(0, 1, (9, 25)).astype(np.float32)
@@ -144,4 +146,7 @@ def test_model_predict_takes_and_gives_numpy_as_the_jax_model():
         assert all(isinstance(a, np.ndarray) for a in got)
         np.testing.assert_array_equal(got[0], want[0])
         for g, w in zip(got[1:], want[1:]):
-            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+            if x.ndim == 2:
+                np.testing.assert_array_equal(g, w)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)

@@ -2,8 +2,8 @@
 
 Inputs: the first 64 reads of the seed-0 bench batch and its row 795 (the
 near-tie of the LLR refinement), packed into the VBZ wire by the port's
-numpy helpers. Every packed column is compared by name, each group with
-its stated tolerance:
+numpy helpers. Every packed column is compared by name, and every one is
+exact:
 
 - int32 columns and dwell times: exact;
 - region medians / MADs, gate values (mvs_*), dwell-time medians: exact
@@ -14,9 +14,11 @@ its stated tolerance:
   compared where the fingerprint succeeded (fpt_ok): a read whose adapter
   is empty segments an all-zero t-score row, whose changepoints are
   unspecified in both packages (as in tests/test_torch_segmentation.py);
-- fingerprints and adapter event statistics: atol 1e-4 (segment means
-  normalized by float32 sums of another association);
-- class probabilities: rtol 1e-5, atol 1e-6 (the decision step's bound).
+- fingerprints and adapter event statistics: exact (the fingerprint's
+  sums in XLA's order, ops/numerics.xla_sum, ops/normalize.mean_std);
+- class probabilities and the confidence: exact (the SVM's product, exp,
+  sigmoid and coupling in the jitted JAX step's float32 operations,
+  ops/numerics.xla_dot / xla_exp, ops/svm.py).
 """
 
 import sys
@@ -111,16 +113,10 @@ def test_vbz_full_step_matches_jax_column_by_column(outputs):
         w = wcols[name]
         if name in FPT_COLS:
             g, w = g[ok], w[ok]
-        if name in EXACT_F or name in REGION_F:
-            np.testing.assert_array_equal(g, w, err_msg=name)
-        elif name in FPT_F:
-            np.testing.assert_allclose(g, w, rtol=0, atol=1e-4, err_msg=name)
-        else:
-            assert name == "probs"
-            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
-    for name in ("success", "pred"):
+        assert name in EXACT_F | REGION_F | FPT_F | {"probs"}, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    for name in ("success", "pred", "conf"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
-    np.testing.assert_allclose(got.conf.numpy(), np.asarray(want.conf), rtol=1e-5, atol=1e-6)
     # row 795 (the last row): JAX fails it at the [mvs_polya] gate
     assert int(gi[-1, schema.int_slices["det_fail"]][0]) == 5
     # the region statistics are real values, not the decision lane's zeros
@@ -128,8 +124,8 @@ def test_vbz_full_step_matches_jax_column_by_column(outputs):
 
 
 def test_fingerprint_columns_equal_jax_bit_for_bit(outputs):
-    """Within the atol above, and in fact equal: the fingerprint's sums take
-    XLA:CPU's order (ops/numerics.xla_sum, ops/normalize.mean_std)."""
+    """The fingerprint's sums take XLA:CPU's order (ops/numerics.xla_sum,
+    ops/normalize.mean_std)."""
     from warpdemux_tpu.pipeline.schema import PackSchema as JaxSchema
     from warpdemux_tpu_torch.pipeline.schema import PackSchema
 

@@ -6,7 +6,7 @@ Rows: the first 60 of chip_smoke.trna_minibatch(default_rng(5), 60), which
 cycles through barcoded tRNA reads with and without a poly(A), reads
 without a capture spike, reads whose body sits at the adapter's level and
 mRNA rows. One module-scoped JAX step a feed (full outputs; its decision
-columns are the decision lane's). Tolerances as in
+columns are the decision lane's). Exact, as in
 tests/test_torch_step_full.py:
 
 - (success, fail_code, pred), every int32 column, dwell times and cons_i
@@ -14,7 +14,8 @@ tests/test_torch_step_full.py:
 - region means / stds and medians / MADs, dwell-time medians, the
   fingerprint and the adapter event statistics: exact (the sums take
   XLA's order);
-- class probabilities and confidences: rtol 1e-5, atol 1e-6.
+- class probabilities and confidences: exact (the SVM in the jitted JAX
+  step's float32 operations).
 """
 
 import sys
@@ -94,8 +95,8 @@ def test_decision_lane_equals_jax(batch, jax_outputs, port_model_spc, feed):
     np.testing.assert_array_equal(got.success.numpy(), np.asarray(want.success))
     np.testing.assert_array_equal(got.fail_code.numpy(), wints["merged_fail"])
     np.testing.assert_array_equal(got.pred.numpy(), np.asarray(want.pred))
-    np.testing.assert_allclose(got.conf.numpy(), np.asarray(want.conf), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.probs.numpy(), wfloats["probs"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.conf.numpy(), np.asarray(want.conf))
+    np.testing.assert_array_equal(got.probs.numpy(), wfloats["probs"])
     fails = set(got.fail_code.numpy().tolist())
     assert {0, 6, 7, 9, 13} <= fails, fails
 
@@ -113,10 +114,7 @@ def test_full_outputs_equal_jax_column_by_column(batch, jax_outputs, port_model_
     for name, g in schema.unpack(gi, np.int32).items():
         np.testing.assert_array_equal(g, wints[name], err_msg=name)
     for name, g in schema.unpack(gf, np.float32).items():
-        if name == "probs":
-            np.testing.assert_allclose(g, wfloats[name], rtol=1e-5, atol=1e-6, err_msg=name)
-        else:
-            np.testing.assert_array_equal(g, wfloats[name], err_msg=name)
+        np.testing.assert_array_equal(g, wfloats[name], err_msg=name)
     np.testing.assert_array_equal(got.cons_i.numpy(), np.asarray(want.cons_i))
     np.testing.assert_array_equal(got.pred.numpy(), np.asarray(want.pred))
     np.testing.assert_array_equal(got.success.numpy(), np.asarray(want.success))
@@ -155,4 +153,4 @@ def test_wdx4b_trna_step_equals_jax(batch):
                          outputs="decision")(*args)
     for field in ("success", "fail_code", "pred"):
         np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
-    np.testing.assert_allclose(got.probs.numpy(), np.asarray(want.probs), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.probs.numpy(), np.asarray(want.probs))

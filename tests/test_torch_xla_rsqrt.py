@@ -200,13 +200,7 @@ def test_full_step_columns_of_rows_88_to_92_within_tolerance(table_host, step_ro
     for name, g in schema.unpack(gf, np.float32).items():
         rows = ok if name in FPT_COLS else slice(None)
         g, w = g[rows], wcols[name][rows]
-        if name in EXACT_F or name in REGION_F:
-            np.testing.assert_array_equal(g, w, err_msg=name)
-        elif name in FPT_F:
-            np.testing.assert_allclose(g, w, rtol=0, atol=1e-4, err_msg=name)
-        else:
-            assert name == "probs"
-            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
-    for name in ("success", "pred"):
+        assert name in EXACT_F | REGION_F | FPT_F | {"probs"}, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    for name in ("success", "pred", "conf"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
-    np.testing.assert_allclose(got.conf.numpy(), np.asarray(want.conf), rtol=1e-5, atol=1e-6)

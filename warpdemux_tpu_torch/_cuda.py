@@ -58,6 +58,8 @@ SIGNATURES = {
     ),
     "wdx_subseq_dtw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I),
     "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    "wdx_svm_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
+    "wdx_svm_probs": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I),
 }
 
 # entry points that launch no kernel of the port and are not counted

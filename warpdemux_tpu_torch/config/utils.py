@@ -4,6 +4,11 @@ Reads the reference package's chemistry TOMLs and model registry by path
 (warpdemux_tpu/config/config_files/, warpdemux_tpu/models/model_files/),
 with the same layered overrides as warpdemux_tpu/config/utils.py, its
 `--export` parsing and its `config.toml` snapshot writer.
+
+Array bundles (models, CNN weights) are looked up by name in the port's own
+directories first (MODEL_DIR, CNN_DIR: what its trainers and importer
+write, generated and not tracked), then in the reference package's
+(SHARED_MODEL_DIR, SHARED_CNN_DIR), which the port only reads.
 """
 
 from __future__ import annotations
@@ -14,11 +19,22 @@ from pathlib import Path
 
 from warpdemux_tpu_torch.config.sig_proc import SigProcConfig
 
-# data files shared with the reference package, read by path
+# data files shared with the reference package, read by path, never written
 DATA_ROOT = Path(__file__).resolve().parents[2] / "warpdemux_tpu"
 CONFIG_DIR = DATA_ROOT / "config" / "config_files"
-MODEL_DIR = DATA_ROOT / "models" / "model_files"
-CNN_DIR = DATA_ROOT / "detect" / "cnn_files"
+SHARED_MODEL_DIR = DATA_ROOT / "models" / "model_files"
+SHARED_CNN_DIR = DATA_ROOT / "detect" / "cnn_files"
+# the port's writable bundle directories, looked up before the shared ones
+PORT_ROOT = Path(__file__).resolve().parents[1]
+MODEL_DIR = PORT_ROOT / "models" / "model_files"
+CNN_DIR = PORT_ROOT / "detect" / "cnn_files"
+
+
+def find_bundle(name: str, own: Path, shared: Path) -> Path:
+    """<name>.npz in the port's directory `own` if it is there, else in the
+    shared directory (whether or not it exists there)."""
+    path = Path(own) / f"{name}.npz"
+    return path if path.exists() else Path(shared) / f"{name}.npz"
 
 
 def _deep_merge(base: dict, overlay: dict) -> dict:
@@ -57,12 +73,12 @@ def load_chemistry_config(
 def available_models() -> list[str]:
     """The registry's model names (models/model_files/config.toml), those
     without shipped arrays among them."""
-    return list(_read_toml(MODEL_DIR / "config.toml"))
+    return list(_read_toml(SHARED_MODEL_DIR / "config.toml"))
 
 
 def model_config(name: str) -> dict:
     """The registry entry of a model (models/model_files/config.toml)."""
-    reg = _read_toml(MODEL_DIR / "config.toml")
+    reg = _read_toml(SHARED_MODEL_DIR / "config.toml")
     if name not in reg:
         raise KeyError(f"Unknown model {name!r}; available: {sorted(reg)}")
     return reg[name]

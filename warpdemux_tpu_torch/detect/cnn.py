@@ -113,9 +113,10 @@ def save_params(params: dict[str, torch.Tensor], path: str | Path) -> None:
 
 
 def load_arrays(name: str) -> dict[str, np.ndarray]:
-    """A weights bundle of the weights directory by name (no extension), as
-    the numpy arrays it holds."""
-    path = config_utils.CNN_DIR / f"{name}.npz"
+    """A weights bundle by name (no extension), as the numpy arrays it
+    holds: the port's weights directory (config/utils.CNN_DIR, read when
+    called) before the JAX package's (SHARED_CNN_DIR)."""
+    path = config_utils.find_bundle(name, config_utils.CNN_DIR, config_utils.SHARED_CNN_DIR)
     if not path.exists():
         raise FileNotFoundError(
             f"CNN weights {name!r} not found at {path}; train with "

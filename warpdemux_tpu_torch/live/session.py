@@ -465,13 +465,19 @@ class Session:
         self.fpt_queue.put(ro)
 
     def shutdown(self):
-        # drain the classification queue, then stop the workers cleanly
-        deadline = time.time() + 30.0
+        # drain the classification queue, then stop the workers cleanly;
+        # give up only after 30 s in which the classifier threads took
+        # nothing off the queue (a backlog longer than 30 s is still
+        # decided, where a fixed deadline would drop it unreported)
+        deadline, seen = time.time() + 30.0, None
         while time.time() < deadline:
             with self._busy_lock:
                 busy = self._busy
-            if self.fpt_queue.empty() and busy == 0:
+            left = self.fpt_queue.qsize()
+            if left == 0 and busy == 0:
                 break
+            if (left, busy) != seen:
+                deadline, seen = time.time() + 30.0, (left, busy)
             time.sleep(0.05)
         self._stop.set()
         for th in self._classifier_threads:

@@ -27,7 +27,8 @@ Run as a module to convert every joblib of a reference checkout:
     python -m warpdemux_tpu_torch.models.importer --reference <WarpDemuX checkout> [--out DIR]
 
 (`--src DIR` names the joblib directory itself; `--out` defaults to the
-registry's model directory, config/utils.MODEL_DIR.)
+port's model directory, config/utils.MODEL_DIR, which the registry reads
+before the JAX package's.)
 """
 
 from __future__ import annotations
@@ -133,14 +134,24 @@ def convert_joblib(joblib_path: str | Path) -> dict[str, np.ndarray]:
     )
 
 
-def main(argv=None) -> int:
+def build_parser():
     ap = argparse.ArgumentParser(description="Convert reference WarpDemuX model joblibs into npz bundles.")
     ap.add_argument("--reference", default=None,
                     help="a reference WarpDemuX checkout (its warpdemux/models/model_files/)")
     ap.add_argument("--src", default=None,
                     help="explicit joblib dir (e.g. a DEPRECATED/model_files)")
     ap.add_argument("--out", default=None,
-                    help="output directory (default: the registry's model directory)")
+                    help="output directory (default: the port's model directory)")
+    return ap
+
+
+def output_dir(args) -> Path:
+    """The directory the bundles go to (MODEL_DIR read when called)."""
+    return Path(args.out) if args.out else config_utils.MODEL_DIR
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.src is None and args.reference is None:
         ap.error("give --reference or --src")
@@ -149,7 +160,7 @@ def main(argv=None) -> int:
         if args.src
         else Path(args.reference) / "warpdemux" / "models" / "model_files"
     )
-    out = Path(args.out) if args.out else config_utils.MODEL_DIR
+    out = output_dir(args)
     out.mkdir(parents=True, exist_ok=True)
     for jl in sorted(src.glob("*.joblib")):
         arrays = convert_joblib(jl)

@@ -1,8 +1,11 @@
 """Model registry: model and CNN npz bundles -> the port's modules.
 
-Reads the JAX package's registry and array bundles by path (warpdemux_tpu/
-models/model_files/config.toml and <name>.npz, warpdemux_tpu/detect/
-cnn_files/<name>.npz) as numpy arrays. The bundle's `model_type` selects
+Reads the JAX package's registry by path (warpdemux_tpu/models/
+model_files/config.toml) and array bundles as numpy arrays: <name>.npz of
+the port's model directory (MODEL_DIR, warpdemux_tpu_torch/models/
+model_files/, where its trainers and importer write) if it is there, else
+the JAX package's (warpdemux_tpu/models/model_files/); CNN weights the
+same way (detect/cnn.load_arrays). The bundle's `model_type` selects
 the family (absent: dtw_svm, as every shipped model is), and
 `dtw_svm_from_arrays`, `dtw_mlp_from_arrays`, `fpt_boost_from_arrays` and
 `cnn_from_arrays` carry the arrays into the port's nn.Modules, so the port
@@ -17,7 +20,13 @@ import numpy as np
 import torch
 
 from warpdemux_tpu_torch._cuda import resolve_device
-from warpdemux_tpu_torch.config.utils import MODEL_DIR, available_models, model_config  # noqa: F401
+from warpdemux_tpu_torch.config.utils import (  # noqa: F401
+    MODEL_DIR,
+    SHARED_MODEL_DIR,
+    available_models,
+    find_bundle,
+    model_config,
+)
 from warpdemux_tpu_torch.detect.cnn import BoundaryCNN, load_arrays
 from warpdemux_tpu_torch.models.dtw_mlp import DTWMLPModel
 from warpdemux_tpu_torch.models.dtw_svm import DTWSVMModel
@@ -33,7 +42,9 @@ def _load_npz(path) -> dict[str, np.ndarray]:
 
 
 def load_model_arrays(name: str) -> dict[str, np.ndarray]:
-    return _load_npz(MODEL_DIR / f"{name}.npz")
+    """The bundle <name>.npz: the port's own (MODEL_DIR, read when called)
+    before the JAX package's."""
+    return _load_npz(find_bundle(name, MODEL_DIR, SHARED_MODEL_DIR))
 
 
 def load_cnn_arrays(name: str) -> dict[str, np.ndarray]:

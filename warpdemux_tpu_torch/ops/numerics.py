@@ -25,6 +25,10 @@ device's summation order and contraction choices:
   entries of 12 bits) refined by two Newton steps with fused
   multiply-adds: neither 1 / sqrt(b) nor the correctly rounded rsqrt. The
   port carries the table as data (`ops/_rsqrt_table.py`).
+- `xla_dot`: a jitted float32 `jnp.dot` of a (B, N) by an (N, P) matrix
+  sums each output in one of a few fixed orders, chosen by the shape
+  (`xla_dot_order`): four interleaved FMA chains, or one FMA chain over
+  blocks of k.
 
 All give the same bits on CPU and CUDA; the kernels run the same trees
 and call __fmaf_rn at the same places.
@@ -138,10 +142,85 @@ def full_float32():
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with one rounding. The product of two float32 values
-    is exact in float64; the float64 sum rounds once more, which changes
-    the float32 result only if it lands exactly on a float32 rounding tie."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    """float32 a*b + c with one rounding, as a fused multiply-add (the
+    CUDA kernels' __fmaf_rn). The product of two float32 values is exact in
+    float64; the float64 sum is rounded to odd (where it is inexact, the
+    neighbour with an odd last bit on the side of the exact sum, which its
+    rounding error gives), and rounding that to float32 is the correctly
+    rounded result. (The float64 sum alone rounds twice, which moves the
+    result where it lands on a float32 tie.)"""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)  # p + c = s + err exactly; NaN where s is not finite
+    bits = s.view(torch.int64)
+    away = torch.where((err > 0) == (s > 0), 1, -1)  # toward the exact sum: the magnitude up, or down
+    inexact_even = (err != 0) & ~torch.isnan(err) & ((bits & 1) == 0)
+    return (bits + torch.where(inexact_even, away, 0)).view(torch.float64).to(torch.float32)
+
+
+LANES, CHAIN = 0, 1  # the two summation orders of xla_dot (K12's `mode`)
+
+
+def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
+    """(order, kc) of XLA:CPU's jitted float32 (B, N) x (N, P) dot, or None
+    where the order is not known (the caller then takes torch.matmul).
+
+    Read off jax 0.9.0's XLA:CPU on an AVX-512 Xeon by comparing candidate
+    orders with the jitted dot bit for bit (tests/test_torch_svm_dot.py):
+    - LANES: four FMA chains over the k of each residue mod 4, combined
+      (l0 + l1) + (l2 + l3), then the last N mod 4 terms as rounded
+      products added one by one from 0, added last. B >= 2 and P <= 16
+      (every five-class model); P = 21 (seven classes) from B = 51 on.
+    - CHAIN: one FMA chain from 0 over each block of kc terms, the block
+      sums added in order to 0. P = 21 below B = 51 (kc = N); P = 55
+      (eleven classes) from B = 51 on (kc = 512).
+    Not found: B = 1 with the coefficients constant, as a model's are (with
+    them as arguments it is one chain); P = 36, 78 and 55 below B = 51; the
+    DTW-MLP's hidden width 100 below B = 64 (ROADMAP queue 3, item C)."""
+    if B < 2:
+        return None
+    if P <= 16:
+        return LANES, N
+    if P == 21:
+        return (CHAIN, N) if B <= 50 else (LANES, N)
+    if P == 55 and B >= 51:
+        return CHAIN, 512
+    return None
+
+
+def xla_dot(K: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """float32 (B, N) x (N, P) product with the bits of a jitted `jnp.dot`
+    at the shapes `xla_dot_order` knows (ValueError elsewhere); the plain
+    version of kernel K12 (csrc/svmdot.cu), its FMAs `fma`'s."""
+    B, N = K.shape
+    P = C.shape[1]
+    order = xla_dot_order(B, N, P)
+    if order is None:
+        raise ValueError(f"xla_dot: XLA:CPU's order at B={B}, P={P} is not known")
+    mode, kc = order
+    K = K.to(torch.float32)
+    C = C.to(torch.float32)
+    if mode == CHAIN:
+        out = K.new_zeros((B, P))
+        for lo in range(0, N, kc):
+            acc = K.new_zeros((B, P))
+            for k in range(lo, min(N, lo + kc)):
+                acc = fma(K[:, k, None].expand(B, P), C[k].expand(B, P), acc)
+            out = out + acc
+        return out
+    m = 4 * (N // 4)
+    Kg = K[:, :m].reshape(B, m // 4, 4, 1).expand(B, m // 4, 4, P)
+    Cg = C[:m].reshape(m // 4, 4, P).expand(B, m // 4, 4, P)
+    lanes = K.new_zeros((B, 4, P))
+    for g in range(m // 4):
+        lanes = fma(Kg[:, g], Cg[:, g], lanes)
+    out = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+    tail = K.new_zeros((B, P))
+    for k in range(m, N):
+        tail = tail + K[:, k, None] * C[k]
+    return out + tail
 
 
 def exact_sqrt(a: torch.Tensor) -> torch.Tensor:
@@ -209,6 +288,38 @@ def xla_log(a: torch.Tensor) -> torch.Tensor:
     r = torch.where((x < 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
     # zero and subnormal inputs (read as zero) give -inf, of either sign
     return torch.where(x.abs() < _TINY, torch.full_like(r, float("-inf")), r)
+
+
+_EXP_P = tuple(_f32(p) for p in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1,
+))
+_LOG2E = _f32(1.44269504088896341)
+
+
+def xla_exp(a: torch.Tensor) -> torch.Tensor:
+    """float32 exp with the bits of XLA:CPU's jitted `jnp.exp`.
+
+    The Cephes algorithm XLA compiles for exp, with the multiply-adds it
+    contracts into FMAs (each emulated as `fma` does): the input clamped to
+    [-87.8, 88.8], n = floor(fma(x, log2(e), 0.5)) clamped to [-126, 127],
+    r = x - n * ln(2) in two FMAs, a degree-5 polynomial in r by Horner's
+    FMAs, z = 1 + fma(poly, r * r, r), the result z * 2**n with subnormal
+    results flushed to zero (XLA:CPU runs with flush-to-zero). NaN gives
+    NaN, +inf +inf and -inf 0."""
+    x = a.to(torch.float32)
+    xc = x.clamp(-87.8, 88.8)
+    n = torch.floor(fma(xc, torch.full_like(xc, _LOG2E), torch.full_like(xc, 0.5))).clamp(-126.0, 127.0)
+    r = fma(n, torch.full_like(n, -0.693359375), xc)
+    r = fma(n, torch.full_like(n, _f32(2.12194440e-4)), r)
+    z = fma(r, torch.full_like(r, _EXP_P[0]), torch.full_like(r, _EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = fma(z, r, torch.full_like(r, p))
+    z = 1.0 + fma(z, r * r, r)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    y = z * pow2
+    y = torch.where(y < _TINY, torch.zeros_like(y), y)
+    return torch.where(torch.isnan(x), x, y)
 
 
 _rsqrt_tables: dict[torch.device, torch.Tensor] = {}

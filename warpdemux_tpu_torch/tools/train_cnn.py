@@ -12,10 +12,11 @@ same weights bit for bit.
 Usage:
     python -m warpdemux_tpu_torch.tools.train_cnn [--steps 400] [--out NAME] [--device cpu]
 
-Writes <weights directory>/<NAME>.npz (config/utils.CNN_DIR, the JAX
-package's detect/cnn_files/), which models/registry.load_cnn serves. The
-run goes on the CUDA GPU unless `--device` names another, and raises
-without one.
+Writes <weights directory>/<NAME>.npz (config/utils.CNN_DIR, the port's
+warpdemux_tpu_torch/detect/cnn_files/; an absolute NAME is a path), which
+models/registry.load_cnn serves before the JAX package's bundle of the
+same name. The run goes on the CUDA GPU unless `--device` names another,
+and raises without one.
 """
 
 from __future__ import annotations
@@ -322,6 +323,11 @@ def build_parser():
     return ap
 
 
+def output_path(args) -> Path:
+    """The bundle the run writes (CNN_DIR read when called)."""
+    return config_utils.CNN_DIR / f"{args.out}.npz"
+
+
 def main(argv=None):
     """Train, write the bundle, print the eval line; returns (params, History)."""
     ap = build_parser()
@@ -338,7 +344,7 @@ def main(argv=None):
         print(f"loaded {len(real[0])} LLR-labeled real reads")
     params = cnn.init_params(rng, cnn.ARCH_WIDE if args.wide else cnn.ARCH, device)
     history = train(params, rng, args.steps, args.batch, args.lr, args.input_cap, real, args.real_frac)
-    out = config_utils.CNN_DIR / f"{args.out}.npz"
+    out = output_path(args)
     out.parent.mkdir(parents=True, exist_ok=True)
     cnn.save_params(params, out)
     print(f"saved {out}")

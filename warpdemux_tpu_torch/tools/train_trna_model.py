@@ -16,11 +16,16 @@ sklearn's, on the host. At its default arguments the trainer writes the
 shipped WDX4_tRNA_rna004_v1_0.npz array for array, bit for bit.
 
 Usage:
-    python -m warpdemux_tpu_torch.tools.train_trna_model [--per-bc 150] [--out WDX4_tRNA_rna004_v1_0] [--device cpu]
+    python -m warpdemux_tpu_torch.tools.train_trna_model [--per-bc 150] [--model WDX4_tRNA_rna004_v1_0] [--out NAME] [--device cpu]
 
-Writes <model directory>/<out>.npz (models/registry.MODEL_DIR, read when
-the trainer is called), then predicts two holdout families through
-registry.load_model. The run goes on the CUDA GPU unless `--device` names
+`--model` names the registered model whose barcodes, chemistry and seed
+the run takes (default: --out where it is one of the two, as the JAX
+trainer's `--out` picks the model; else WDX4_tRNA_rna004_v1_0); writes
+<model directory>/<NAME>.npz (models/registry.
+MODEL_DIR, the port's warpdemux_tpu_torch/models/model_files/, read when
+the trainer is called; NAME defaults to the model's), which
+registry.load_model reads before the JAX package's bundle of that name,
+then predicts two holdout families through registry.load_model. The run goes on the CUDA GPU unless `--device` names
 another, and raises without one. Needs sklearn.
 """
 
@@ -141,10 +146,25 @@ def build_parser():
     ap.add_argument("--noise-n", type=int, default=120)
     ap.add_argument("--holdout-per-bc", type=int, default=30)
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--out", default="WDX4_tRNA_rna004_v1_0", choices=tuple(MODEL_BARCODES))
+    ap.add_argument("--model", default=None, choices=tuple(MODEL_BARCODES))
+    ap.add_argument("--out", default=None, help="name of the written bundle (default: the model's)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="torch device of the run (default: the CUDA GPU)")
     return ap
+
+
+def trained_model(args) -> str:
+    """The registered model the run trains."""
+    if args.model:
+        return args.model
+    return args.out if args.out in MODEL_BARCODES else "WDX4_tRNA_rna004_v1_0"
+
+
+def output_path(args):
+    """The bundle the run writes (registry.MODEL_DIR read when called)."""
+    from warpdemux_tpu_torch.models import registry
+
+    return registry.MODEL_DIR / f"{args.out or trained_model(args)}.npz"
 
 
 def main(argv=None):
@@ -157,10 +177,11 @@ def main(argv=None):
     from warpdemux_tpu_torch.models import registry
     from warpdemux_tpu_torch.models.importer import arrays_from_svc
 
-    barcodes = MODEL_BARCODES[args.out]
+    name = trained_model(args)
+    barcodes = MODEL_BARCODES[name]
     rng = np.random.default_rng(args.seed)
-    pats = patterns(args.out)
-    step = prep_step(args.out, device)
+    pats = patterns(name)
+    step = prep_step(name, device)
 
     X, y = make_fingerprints(rng, args.per_bc, args.noise_n, step, pats, barcodes)
     print(f"training fingerprints: {X.shape}, labels {np.bincount(y)}")
@@ -182,14 +203,15 @@ def main(argv=None):
     # synthetic-trained replacement for a missing upstream blob: mark it so
     # load_model warns and users can't mistake it for published weights
     arrays["stand_in"] = np.array(True)
-    out_path = registry.MODEL_DIR / f"{args.out}.npz"
+    out_path = output_path(args)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out_path, **arrays)
     print(f"saved {out_path} (X_sv {arrays['X_sv'].shape})")
 
     # holdout through the full predict path, on both generator families:
     # "real" = the trained (measured) family, a fresh seed; "legacy" = the
     # hand-tuned family the model was not trained on
-    model = registry.load_model(args.out, device)
+    model = registry.load_model(args.out or name, device)
     for family in ("real", "legacy"):
         Xh, yh = make_fingerprints(
             np.random.default_rng(args.seed + 1),
