@@ -18,7 +18,8 @@ Phases (each raises on failure; nothing is caught):
    time alone); print its bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 rate, from
    this run's inputs) and the share of it reached. K1 is also held at its
-   generic instance, at edge tiles and on non-finite fingerprints; K6 at
+   generic instance, at edge tiles, on non-finite fingerprints and at a
+   cell whose sum lands on a float32 tie (`k1_tie_case`); K6 at
    lengths off the scan's block size, with windows longer than the row and
    at a row too long for shared memory (its device-scratch variant, K9's
    too), and it must allocate nothing beside its outputs at L=10000. K4 is
@@ -76,7 +77,9 @@ Phases (each raises on failure; nothing is caught):
    (the SVM's decision values in XLA:CPU's summation order, new: no Pallas
    counterpart) is held bit for bit at the shapes of the models that take
    it (WDX4 at B = 1000, 32, 16 and 2, the tRNA model, WDX6 at B = 16 and
-   1000, WDX10 at B = 64 and 1000), and K13 (the SVM's probabilities: the
+   1000, WDX10 at B = 64 and 1000) and, in its fixed lanes order, at shapes
+   whose XLA order is not known (WDX4 at B = 1, WDX10 at B = 16, WDX8 and
+   WDX12 of RNA002), and K13 (the SVM's probabilities: the
    Platt sigmoid and the Wu-Lin coupling in the jitted JAX operations, one
    thread a row, new) on K12's decision values there and on rows of NaN,
    inf and 0; both are timed beside their bounds at B = 1000 and the
@@ -483,6 +486,26 @@ def bound(n_bytes, n_ops):
     float32 rate."""
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# K1's float32 tie: x and d as float32 bits (numerics.fma, K1's cell)
+K1_TIE_BITS = (0x37C501F4, 0x3FDC920A)
+
+
+def k1_tie_case():
+    """(X (256, 25), Y (1, 25), window, penalty): DTW inputs whose cell
+    (1, 1), fma(d, d, x * x rounded), has a float64 sum that lands exactly
+    on a float32 half-way point a quarter of a float64 ulp from the exact
+    sum: a fused multiply-add rounds it to one neighbour, the float64 sum
+    rounded again to float32 to the other. X's rows are [x, d, e, 0, ...]
+    against a reference of zeros with penalty 0, e from a seed; the third
+    sample carries the tie into the distance on 77 of the 256 rows."""
+    import numpy as np
+
+    X = np.zeros((256, 25), np.float32)
+    X[:, :2] = np.array(K1_TIE_BITS, np.uint32).view(np.float32)
+    X[:, 2] = np.random.default_rng(0).uniform(0.5, 3, 256).astype(np.float32)
+    return X, np.zeros((1, 25), np.float32), 15, 0.0
 
 
 def k7_edge_cases():
@@ -960,10 +983,14 @@ def check_k11(dev, card):
 # depth 6; both with 5 classes, the last the noise class
 # K12 at the shapes of the models that take it: (model, batch rows); the
 # step's B, the live lane's max_batch 16 / 32, two reads, and seven and
-# eleven classes on each side of their orders' switch at 51 rows
+# eleven classes on each side of their orders' switch at 51 rows; then
+# shapes whose XLA order is not known (K12 sums them in the lanes order):
+# one read, eleven classes at the lane's 16 rows, nine and thirteen classes
 K12_SHAPES = (("WDX4_rna004_v1_0", 1000), ("WDX4_rna004_v1_0", 16), ("WDX4_rna004_v1_0", 32),
               ("WDX4_rna004_v1_0", 2), ("WDX4_tRNA_rna004_v1_0", 1000), ("WDX6_rna004_v1_0", 16),
-              ("WDX6_rna004_v1_0", 1000), ("WDX10_rna004_v1_0", 64), ("WDX10_rna004_v1_0", 1000))
+              ("WDX6_rna004_v1_0", 1000), ("WDX10_rna004_v1_0", 64), ("WDX10_rna004_v1_0", 1000),
+              ("WDX4_rna004_v1_0", 1), ("WDX10_rna004_v1_0", 16), ("WDX8_rna002_v0_4_4", 16),
+              ("WDX12_rna002_v0_4_4", 32))
 SVM_SIGMOID_OPS = 25  # the Platt sigmoid of one decision value: fma, abs, XLA's exp (~20), add, div
 
 
@@ -1016,6 +1043,7 @@ def check_svm(dev, card):
     import numpy as np
     import torch
 
+    from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.ops import numerics, svm
 
@@ -1025,18 +1053,22 @@ def check_svm(dev, card):
         m = models[name]
         n, p = m.coef.shape
         K = torch.as_tensor(np.exp(-np.random.default_rng(b).uniform(0, 8, (b, n))).astype(np.float32), device=dev)
-        order = numerics.xla_dot_order(b, n, p)
-        require(order is not None, f"K12 {name} B={b}: no known order")
-        dec, want = svm.decision_values(K, m.params), svm.decision_values_plain(K, m.params)
+        order = numerics.dot_order(b, n, p)
+        known = numerics.xla_dot_order(b, n, p) is not None
+        before = _cuda.launches["wdx_svm_dot"]
+        dec = svm.decision_values(K, m.params)
+        require(_cuda.launches["wdx_svm_dot"] == before + 1, f"K12 {name} B={b}: not launched")
+        want = svm.decision_values_plain(K, m.params)
         require(torch.equal(dec, want), f"K12 {name} B={b}: differs from the plain version")
         dec[: min(b, 3)] = torch.tensor([float("nan"), float("inf"), 0.0], device=dev)[: min(b, 3), None]
         probs, probs_plain = svm.probabilities(dec, m.params), svm.probabilities_plain(dec, m.params)
         require(probs.isnan().equal(probs_plain.isnan()) and probs.nan_to_num().equal(probs_plain.nan_to_num()),
                 f"K13 {name} B={b}: differs from the plain version")
         dec = svm.decision_values(K, m.params)
-        print(f"K12 {name} B={b} N={n} P={p} (order {'lanes' if order[0] == numerics.LANES else 'chain'}, kc={order[1]}): "
+        print(f"K12 {name} B={b} N={n} P={p} (order {'lanes' if order[0] == numerics.LANES else 'chain'}, kc={order[1]}"
+              f"{'' if known else ', XLA order not known'}): "
               f"max_abs_err=0.0; K13 k={m.n_classes} on its decision values and rows of NaN, inf, 0: max_abs_err=0.0")
-        if name != MODEL or b == 2:
+        if name != MODEL or b <= 2:  # timed at the step's and the lane's shapes
             continue
         k13_bytes, k13_ops, most, mean = k13_work(dec, m.params)
         print(f"K13 {name} B={b}: coupling passes a row: largest {most}, mean {mean!r}")
@@ -1304,6 +1336,11 @@ def check_kernels(dev, card):
         require(same_bits(k, p), f"K1 m={m} window={window} B={b} N={n}: differs from the plain version")
         require(bool(k[1].isnan().all()) and bool(torch.isfinite(k[0, : n - 1]).all()), "K1: NaN pattern")
         print(f"K1 m={m} window={window} B={b} N={n} (non-finite rows included): max_abs_err={max_abs(k, p)!r}")
+    Xt, Yt, window, penalty = k1_tie_case()
+    k = dtw.dtw_distance_matrix(t(Xt), t(Yt), window, penalty)
+    p = dtw.dtw_distance_matrix_plain(t(Xt), t(Yt), window, penalty)
+    require(same_bits(k, p), "K1 at a float32 tie of its fused multiply-add: differs from the plain version")
+    print(f"K1 at a float32 tie of its fused multiply-add (B={Xt.shape[0]}): max_abs_err={max_abs(k, p)!r}")
 
     # K2: t-test scores over (B, 6272) adapter buffers, bit for bit, and
     # the n_scores it writes; then the edge cases
@@ -3030,7 +3067,7 @@ def run_trainers(dev, card):
 
     # b. the tRNA trainer's device half at its default arguments
     args = train_trna_model.build_parser().parse_args([])
-    name = train_trna_model.trained_model(args)
+    name = args.model
     barcodes, pats = train_trna_model.MODEL_BARCODES[name], train_trna_model.patterns(name)
     preps = {d: train_trna_model.prep_step(name, d) for d in (dev, "cpu")}
     n_reads = len(barcodes) * args.per_bc + args.noise_n

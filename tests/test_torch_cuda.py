@@ -24,6 +24,7 @@ from bench import synth_minibatch  # noqa: E402
 from chip_smoke import (  # noqa: E402
     K12_SHAPES,
     LAUNCHES,
+    k1_tie_case,
     k2_edge_cases,
     k3_edge_cases,
     k4_edge_cases,
@@ -111,6 +112,15 @@ def test_k1_dtw_instances_and_edge_tiles(dev, m, window, penalty, b, n):
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert bool(got[1].isnan().all()) and bool(torch.isfinite(got[0, : n - 1]).all())
+
+
+def test_k1_dtw_at_a_float32_tie(dev):
+    """K1's __fmaf_rn at a cell whose float64 sum lands on a float32 tie
+    (chip_smoke.k1_tie_case): bit for bit the plain version's `fma`."""
+    X, Y, window, penalty = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+                             for a in k1_tie_case())
+    got = _launched("wdx_dtw", lambda: dtw.dtw_distance_matrix(X, Y, window, penalty))
+    assert torch.equal(got, dtw.dtw_distance_matrix_plain(X, Y, window, penalty))
 
 
 def _same_bits(a, b):

@@ -11,6 +11,7 @@ tie to the last bit: row 795 of the seed-0 bench batch.
 """
 
 import sys
+from fractions import Fraction
 from pathlib import Path
 
 import jax
@@ -174,3 +175,94 @@ def test_mean_std_matches_jitted_masked_mean_std_over_all_lanes(width):
     got = mean_std(torch.from_numpy(x))
     for g, w in zip(got, want):
         assert _same_bits(g.numpy(), np.asarray(w)).all()
+
+
+def _rounded_once(x):
+    """The float32 nearest to the rational x, ties to even."""
+    f = np.float32(float(x))
+    near = [f, np.nextafter(f, np.float32(np.inf)), np.nextafter(f, np.float32(-np.inf))]
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x), int(np.float32(v).view(np.int32)) & 1))
+
+
+def _tie_triples(n):
+    """n float32 triples (a, b, c) whose float64 sum a*b + c lands exactly
+    on a float32 half-way point while the exact sum does not, on the side
+    where rounding that sum again to float32 goes wrong."""
+    rng = np.random.default_rng(7)
+    out = []
+    while len(out) < n:
+        a, b = rng.uniform(1, 2, 2).astype(np.float32) * np.float32(2.0 ** rng.integers(-20, 20))
+        p = Fraction(float(a)) * Fraction(float(b))
+        e = int(np.floor(np.log2(float(p))))
+        unit = Fraction(2) ** (e - 24)
+        m = round(p / unit)
+        if m % 2 == 0 or abs(p - m * unit) >= Fraction(2) ** (e - 31):
+            continue
+        even_up = (m // 2) % 2 == 1  # ties to even goes up from the half-way point
+        c = m * unit - p + (-1 if even_up else 1) * Fraction(2) ** (e - 54)
+        cf = np.float32(float(c))
+        if Fraction(float(cf)) == c:
+            out.append((a, b, cf))
+    return [np.array(v, np.float32) for v in zip(*out)]
+
+
+def _subnormal_tie_triples():
+    """Triples whose sum is a float32 subnormal tie: c = k 2**-149 for odd
+    k, a*b = 2**-150 (1 - 2**-46), so the float64 sum is c + 2**-150."""
+    a = np.float32(2.0**-75 * (1 + 2.0**-23))
+    b = np.float32(2.0**-75 * (1 - 2.0**-23))
+    ks = np.array([2**20 + 1, 2**22 + 3, 2**23 - 1, 129], np.int64)
+    c = (ks.astype(np.float64) * 2.0**-149).astype(np.float32)
+    c = np.concatenate([c, -c]).astype(np.float32)
+    a = np.concatenate([np.full(4, a), np.full(4, -a)]).astype(np.float32)
+    return a, np.full(8, b, np.float32), c
+
+
+def test_fma_rounds_once_at_float32_ties():
+    """Where the float64 sum sits on a float32 tie, normal or subnormal,
+    `fma` rounds the exact sum (the float64 sum rounded again to float32
+    would not)."""
+    from warpdemux_tpu_torch.ops.numerics import fma
+
+    a, b, c = (np.concatenate(v) for v in zip(_tie_triples(64), _subnormal_tie_triples()))
+    want = np.array([_rounded_once(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    twice = (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+    assert not _same_bits(twice, want).any()
+    got = fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    assert _same_bits(got, want).all()
+
+
+def test_fma_rounds_once_on_random_and_subnormal_sums():
+    from warpdemux_tpu_torch.ops.numerics import fma
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    scale = lambda lo, hi: (2.0 ** rng.integers(lo, hi, n)).astype(np.float32)
+    a = rng.normal(size=n).astype(np.float32) * scale(-75, 40)
+    b = rng.normal(size=n).astype(np.float32) * scale(-75, 40)
+    c = rng.normal(size=n).astype(np.float32) * scale(-149, 60)
+    c[::7] = -(a[::7] * b[::7])  # cancellations, some exact
+    want = np.array([_rounded_once(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    got = fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    assert _same_bits(got, want).all()
+    assert (np.abs(want[want != 0]) < np.finfo(np.float32).tiny).sum() > 10  # subnormal results
+
+
+def test_dtw_plain_equals_jax_at_a_float32_tie(monkeypatch):
+    """K1's cell, fma(d, d, best), at an input whose float64 sum lands on a
+    float32 tie (chip_smoke.k1_tie_case): the port's plain DTW equals the
+    jitted JAX one; with the sum rounded twice, 77 of the 256 distances
+    move."""
+    from chip_smoke import k1_tie_case
+    from warpdemux_tpu.ops.dtw import dtw_distance_matrix as jax_dtw
+    from warpdemux_tpu_torch.ops import dtw
+
+    X, Y, window, penalty = k1_tie_case()
+    want = np.asarray(jax_dtw(X, Y, window, penalty))
+    got = dtw.dtw_distance_matrix_plain(torch.from_numpy(X), torch.from_numpy(Y), window, penalty).numpy()
+    assert _same_bits(got, want).all()
+    monkeypatch.setattr(dtw, "fma", lambda a, b, c: (a.double() * b.double() + c.double()).float())
+    twice = dtw.dtw_distance_matrix_plain(torch.from_numpy(X), torch.from_numpy(Y), window, penalty).numpy()
+    assert (~_same_bits(twice, want)).sum() == 77

@@ -80,17 +80,52 @@ def test_xla_dot_equals_the_jitted_dot_beyond_sixteen_pairs(xla_order_host, B, N
     np.testing.assert_array_equal(_bits(_port_dot(K, C)), _bits(jit_dot(K, C)))
 
 
+def _summed_in(K, C, mode, kc):
+    """K C summed in K12's order `mode` (lanes or chain blocks of kc), term
+    by term with `numerics.fma`: the reference `xla_dot` is held to."""
+    B, N = K.shape
+    P = C.shape[1]
+    if mode == numerics.CHAIN:
+        out = K.new_zeros((B, P))
+        for lo in range(0, N, kc):
+            acc = K.new_zeros((B, P))
+            for k in range(lo, min(N, lo + kc)):
+                acc = numerics.fma(K[:, k, None].expand(B, P), C[k].expand(B, P), acc)
+            out = out + acc
+        return out
+    m = N - N % 4
+    lanes = [K.new_zeros((B, P)) for _ in range(4)]
+    for k in range(m):
+        lanes[k % 4] = numerics.fma(K[:, k, None].expand(B, P), C[k].expand(B, P), lanes[k % 4])
+    tail = K.new_zeros((B, P))
+    for k in range(m, N):
+        tail = tail + K[:, k, None] * C[k]
+    return ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) + tail
+
+
 @pytest.mark.parametrize("B, P", [(1, 10), (16, 36), (1000, 78), (50, 55), (32, 100)])
 def test_unsolved_shapes_keep_torch_matmul(B, P):
-    """Where the order was not found, xla_dot refuses and the decision
-    values are torch.matmul's (ROADMAP queue 3, item C)."""
+    """Where XLA's order was not found, xla_dot sums in one fixed order for
+    the shape (XLA's at the same width for a full minibatch: chain blocks of
+    512 for eleven classes; the lanes elsewhere), the order K12 takes there
+    too, and the decision values take it. Its distance from the jitted dot
+    is a float32 dot's rounding: within 8 float32 ulps of 1 times the sum
+    of the terms' magnitudes, sum |K| |C| (the models' probabilities stay
+    within rtol 1e-5, atol 1e-6 of JAX's, ROADMAP queue 3, item C:
+    tests/test_torch_live_lane.py and test_torch_rna002.py)."""
     assert numerics.xla_dot_order(B, 851, P) is None
+    order = numerics.dot_order(B, 851, P)
+    assert order == ((numerics.CHAIN, 512) if P == 55 else (numerics.LANES, 851))
     K, C = _operands(B, 851, P, 3)
-    with pytest.raises(ValueError, match="not known"):
-        _port_dot(K, C)
-    params = svm.SVMParams(torch.from_numpy(C), torch.zeros(P), torch.zeros(P), torch.zeros(P), 0)
-    np.testing.assert_array_equal(svm.decision_values(torch.from_numpy(K), params).numpy(),
-                                  torch.matmul(torch.from_numpy(K), torch.from_numpy(C)).numpy())
+    got = _port_dot(K, C)
+    Kt, Ct = torch.from_numpy(K), torch.from_numpy(C)
+    np.testing.assert_array_equal(_bits(got), _bits(_summed_in(Kt, Ct, *order).numpy()))
+    magnitude = np.abs(K).astype(np.float64) @ np.abs(C).astype(np.float64)
+    assert (np.abs(got - np.asarray(jit_dot(K, C))) <= 8 * 2.0**-23 * magnitude).all()
+    intercept = torch.from_numpy(np.random.default_rng(4).normal(size=P).astype(np.float32))
+    params = svm.SVMParams(Ct, intercept, torch.zeros(P), torch.zeros(P), 0)
+    np.testing.assert_array_equal(_bits(svm.decision_values(Kt, params).numpy()),
+                                  _bits(got + intercept.numpy()))
 
 
 def test_xla_exp_equals_the_jitted_exp():

@@ -10,10 +10,11 @@ All exact:
   off can differ);
 - the trainer at its default arguments writes the shipped
   WDX4_tRNA_rna004_v1_0.npz key for key, dtype for dtype, bit for bit (713
-  training fingerprints, K1's plain version at 713 x 713);
-- with --out WDX4b_tRNA_rna004_v1_0 at a smaller size (--per-bc 20
-  --noise-n 16 --holdout-per-bc 4) it writes the JAX trainer's bundle and
-  prints its lines. (At its defaults it writes the shipped WDX4b bundle
+  training fingerprints, K1's plain version at 713 x 713), as
+  WDX4_tRNA_rna004_v1_0_torch.npz;
+- with --model WDX4b_tRNA_rna004_v1_0 at a smaller size (--per-bc 20
+  --noise-n 16 --holdout-per-bc 4) it writes the bundle of the JAX
+  trainer's --out WDX4b_tRNA_rna004_v1_0 and prints its lines. (At its defaults it writes the shipped WDX4b bundle
   too, 714 fingerprints; that costs as much as the WDX4 pin, ~55 s on one
   thread, and is left to a run by hand.)
 The JAX side runs in 32 bits, as the JAX trainer runs as a script.
@@ -129,10 +130,10 @@ def test_trainer_writes_the_shipped_bundle(tmp_path, monkeypatch, capsys):
     arrays = train_trna_model.main(["--device", "cpu"])
     printed = capsys.readouterr().out
     assert "training fingerprints: (713, 25)" in printed, printed
-    assert f"saved {tmp_path / name}.npz" in printed
+    assert f"saved {tmp_path / name}_torch.npz" in printed
     assert printed.count("holdout[") == 2
     assert sorted(arrays) == sorted(shipped)
-    assert_same_arrays(read_npz(tmp_path / f"{name}.npz"), shipped)
+    assert_same_arrays(read_npz(tmp_path / f"{name}_torch.npz"), shipped)
 
 
 def test_trainer_matches_the_jax_trainer(jax_trainer, tmp_path, monkeypatch, capsys):
@@ -152,9 +153,9 @@ def test_trainer_matches_the_jax_trainer(jax_trainer, tmp_path, monkeypatch, cap
     monkeypatch.setattr(sys, "argv", ["train_trna_model.py", *argv])
     jax_trainer.main()
     want_out = capsys.readouterr().out
-    train_trna_model.main([*argv, "--device", "cpu"])
+    train_trna_model.main(["--model", *argv[1:], "--device", "cpu"])  # --out names the file alone
     got_out = capsys.readouterr().out
-    assert_same_arrays(read_npz(tmp_path / f"{name}.npz"), read_npz(tmp_path / "jax" / f"{name}.npz"))
+    assert_same_arrays(read_npz(tmp_path / f"{name}_torch.npz"), read_npz(tmp_path / "jax" / f"{name}.npz"))
     not_saved = lambda out: [line for line in out.splitlines() if not line.startswith("saved ")]
     assert not_saved(got_out) == not_saved(want_out)
     assert "training fingerprints: (" in got_out and got_out.count("holdout[") == 2

@@ -8,12 +8,14 @@ with the same layered overrides as warpdemux_tpu/config/utils.py, its
 Array bundles (models, CNN weights) are looked up by name in the port's own
 directories first (MODEL_DIR, CNN_DIR: what its trainers and importer
 write, generated and not tracked), then in the reference package's
-(SHARED_MODEL_DIR, SHARED_CNN_DIR), which the port only reads.
+(SHARED_MODEL_DIR, SHARED_CNN_DIR), which the port only reads. The writers
+take names that do not ship (`bundle_path`) unless told to replace one.
 """
 
 from __future__ import annotations
 
 import ast
+import logging
 import tomllib
 from pathlib import Path
 
@@ -30,11 +32,33 @@ MODEL_DIR = PORT_ROOT / "models" / "model_files"
 CNN_DIR = PORT_ROOT / "detect" / "cnn_files"
 
 
+_shadowing: set[Path] = set()  # port bundles already warned of
+
+
 def find_bundle(name: str, own: Path, shared: Path) -> Path:
     """<name>.npz in the port's directory `own` if it is there, else in the
-    shared directory (whether or not it exists there)."""
+    shared directory (whether or not it exists there). A port bundle served
+    in place of a shipped one of the same name is logged, once a path."""
     path = Path(own) / f"{name}.npz"
-    return path if path.exists() else Path(shared) / f"{name}.npz"
+    if not path.exists():
+        return Path(shared) / f"{name}.npz"
+    if (Path(shared) / f"{name}.npz").exists() and path not in _shadowing:
+        _shadowing.add(path)
+        logging.warning("bundle %r: serving %s in place of the shipped %s", name, path, Path(shared) / f"{name}.npz")
+    return path
+
+
+def bundle_path(name: str, own: Path, shared: Path, replace_shipped: bool = False) -> Path:
+    """<own>/<name>.npz, where a writer puts bundle `name`. Refused
+    (FileExistsError) where `shared` ships a bundle of that name, unless
+    `replace_shipped`: the loaders would serve the written one in its
+    place."""
+    if not replace_shipped and (Path(shared) / f"{name}.npz").exists():
+        raise FileExistsError(
+            f"bundle {name!r} ships in {shared}: writing it to {own} would replace it for every "
+            "load of that name; pick another name, or pass --replace-shipped"
+        )
+    return Path(own) / f"{name}.npz"
 
 
 def _deep_merge(base: dict, overlay: dict) -> dict:

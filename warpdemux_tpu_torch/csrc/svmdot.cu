@@ -1,9 +1,10 @@
 // K12: the SVM's one-vs-one decision values, out = K . C + bias for K of
 // (B, N) kernel rows against the support vectors and C the (N, P) pair
 // coefficients, each output summed in the order of XLA:CPU's jitted
-// float32 dot (ops/numerics.py `xla_dot_order` / `xla_dot`, the plain
-// version), so that the probabilities, and the calls made by comparing them
-// with per-barcode thresholds, are the JAX package's bit for bit:
+// float32 dot where that order is known (ops/numerics.py `dot_order` /
+// `xla_dot`, the plain version), so that the probabilities, and the calls
+// made by comparing them with per-barcode thresholds, are the JAX
+// package's bit for bit; in the lanes order at every other shape:
 //   mode 0 (lanes): four fma chains over the k of each residue mod 4,
 //     combined (l0 + l1) + (l2 + l3), plus the last N mod 4 terms as rounded
 //     products added one by one to 0;

@@ -28,7 +28,10 @@ Run as a module to convert every joblib of a reference checkout:
 
 (`--src DIR` names the joblib directory itself; `--out` defaults to the
 port's model directory, config/utils.MODEL_DIR, which the registry reads
-before the JAX package's.)
+before the JAX package's. There a joblib whose name ships in the JAX
+package's model directory is refused, before anything is written, unless
+`--replace-shipped` is given: the registry would serve the converted
+bundle in the shipped one's place.)
 """
 
 from __future__ import annotations
@@ -142,6 +145,9 @@ def build_parser():
                     help="explicit joblib dir (e.g. a DEPRECATED/model_files)")
     ap.add_argument("--out", default=None,
                     help="output directory (default: the port's model directory)")
+    ap.add_argument("--replace-shipped", action="store_true",
+                    help="in the port's model directory, allow names of shipped bundles, "
+                         "which the registry then serves no more")
     return ap
 
 
@@ -161,10 +167,14 @@ def main(argv=None) -> int:
         else Path(args.reference) / "warpdemux" / "models" / "model_files"
     )
     out = output_dir(args)
+    # only the port's model directory is read before the shipped bundles
+    serves = out.resolve() == config_utils.MODEL_DIR.resolve()
+    joblibs = sorted(src.glob("*.joblib"))
+    dsts = [config_utils.bundle_path(jl.stem, out, config_utils.SHARED_MODEL_DIR, args.replace_shipped or not serves)
+            for jl in joblibs]
     out.mkdir(parents=True, exist_ok=True)
-    for jl in sorted(src.glob("*.joblib")):
+    for jl, dst in zip(joblibs, dsts):
         arrays = convert_joblib(jl)
-        dst = out / (jl.stem + ".npz")
         np.savez_compressed(dst, **arrays)
         print(
             f"{jl.stem}: n_sv={arrays['X_sv'].shape[0]} "

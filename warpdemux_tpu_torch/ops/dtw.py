@@ -75,11 +75,7 @@ def _wavefront(X: torch.Tensor, Y: torch.Tensor, window: int, penalty: float) ->
             best = torch.minimum(shift_i(d2), best)  # (i-1, j-1)
         else:
             best = torch.minimum(torch.zeros_like(best), best)  # D[0, 0] = 0
-        # fma(diff, diff, best) with the float64 sum rounded once more, not
-        # to odd: the cells are most of a CPU step's arithmetic, and the
-        # two differ only where the sum lands on a float32 tie
-        cell = (diff.double() * diff.double() + best.double()).to(dtype)
-        d2, d1 = d1, torch.where(valid, cell, inf)
+        d2, d1 = d1, torch.where(valid, fma(diff, diff, best), inf)
     return exact_sqrt(d1[..., m - 1])
 
 

@@ -28,7 +28,8 @@ device's summation order and contraction choices:
 - `xla_dot`: a jitted float32 `jnp.dot` of a (B, N) by an (N, P) matrix
   sums each output in one of a few fixed orders, chosen by the shape
   (`xla_dot_order`): four interleaved FMA chains, or one FMA chain over
-  blocks of k.
+  blocks of k; one of these, fixed for the shape, where XLA's is not
+  known (`dot_order`).
 
 All give the same bits on CPU and CUDA; the kernels run the same trees
 and call __fmaf_rn at the same places.
@@ -46,6 +47,7 @@ import torch
 from warpdemux_tpu_torch.ops import _rsqrt_table
 
 BLOCK = 16
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def blocked_cumsum(a: torch.Tensor) -> torch.Tensor:
@@ -141,17 +143,44 @@ def full_float32():
         _float32_scope.leave()
 
 
+_TIE_BITS = (1 << 29) - 1  # the float64 mantissa bits below float32's
+_TIE = 1 << 28  # ... of a float32 half-way point
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c with one rounding, as a fused multiply-add (the
     CUDA kernels' __fmaf_rn). The product of two float32 values is exact in
-    float64; the float64 sum is rounded to odd (where it is inexact, the
-    neighbour with an odd last bit on the side of the exact sum, which its
-    rounding error gives), and rounding that to float32 is the correctly
-    rounded result. (The float64 sum alone rounds twice, which moves the
-    result where it lands on a float32 tie.)"""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
+    float64, so a*b + c is rounded twice: to float64, then to float32. That
+    moves the result only where the float64 sum lands exactly on a float32
+    half-way point, or among float32's subnormals, while the exact sum is
+    not there. On the CPU one mask test finds those elements, and only they
+    are summed again with the float64 sum rounded to odd, which rounds to
+    float32 correctly. On other devices every element's sum is rounded to
+    odd: a mask would cost a host sync or a dozen more launches."""
+    if a.device.type != "cpu":
+        p = a.double() * b.double()
+        c = c.double()
+        return _round_to_odd(p, c, p + c)
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    s = a.expand(shape).to(torch.float64, memory_format=torch.contiguous_format, copy=True)
+    s.mul_(b)
+    s.add_(c)
+    out = s.to(torch.float32)
+    low = s.reshape(-1).view(torch.int32)[0::2].contiguous()  # each float64's low word (little-endian)
+    low &= _TIE_BITS
+    tie = (low == _TIE).reshape(shape) | (out.abs() <= _TINY)
+    if bool(tie.any()):
+        at = tie.nonzero(as_tuple=True)
+        a, b, c = (x.expand(shape)[at].double() for x in (a, b, c))
+        out[at] = _round_to_odd(a * b, c, s[at])
+    return out
+
+
+def _round_to_odd(p: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """float32 of p + c from its float64 sum s = fl(p + c) rounded to odd:
+    where s is inexact, the neighbour with an odd last bit on the side of
+    the exact sum (its rounding error's), whose rounding to float32 is the
+    correctly rounded result."""
     v = s - p
     err = (p - (s - v)) + (c - v)  # p + c = s + err exactly; NaN where s is not finite
     bits = s.view(torch.int64)
@@ -165,7 +194,7 @@ LANES, CHAIN = 0, 1  # the two summation orders of xla_dot (K12's `mode`)
 
 def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
     """(order, kc) of XLA:CPU's jitted float32 (B, N) x (N, P) dot, or None
-    where the order is not known (the caller then takes torch.matmul).
+    where the order is not known (`dot_order` then picks one).
 
     Read off jax 0.9.0's XLA:CPU on an AVX-512 Xeon by comparing candidate
     orders with the jitted dot bit for bit (tests/test_torch_svm_dot.py):
@@ -190,16 +219,26 @@ def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
     return None
 
 
+FULL_BATCH = 1000  # a minibatch of the offline run
+
+
+def dot_order(B: int, N: int, P: int) -> tuple[int, int]:
+    """(order, kc) that `xla_dot` and K12 sum in: XLA:CPU's where
+    `xla_dot_order` knows it; else, as one fixed order for the shape, the
+    one XLA:CPU takes at the same width for a full minibatch, or the lanes
+    where that is not known either. The kernel and its plain version agree
+    bit for bit at every shape (and stay within rtol 1e-5 of XLA's where
+    the order is not its own, ROADMAP queue 3, item C)."""
+    return xla_dot_order(B, N, P) or xla_dot_order(FULL_BATCH, N, P) or (LANES, N)
+
+
 def xla_dot(K: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """float32 (B, N) x (N, P) product with the bits of a jitted `jnp.dot`
-    at the shapes `xla_dot_order` knows (ValueError elsewhere); the plain
-    version of kernel K12 (csrc/svmdot.cu), its FMAs `fma`'s."""
+    """float32 (B, N) x (N, P) product summed in `dot_order`: the bits of a
+    jitted `jnp.dot` at the shapes `xla_dot_order` knows; the plain version
+    of kernel K12 (csrc/svmdot.cu), its FMAs `fma`'s."""
     B, N = K.shape
     P = C.shape[1]
-    order = xla_dot_order(B, N, P)
-    if order is None:
-        raise ValueError(f"xla_dot: XLA:CPU's order at B={B}, P={P} is not known")
-    mode, kc = order
+    mode, kc = dot_order(B, N, P)
     K = K.to(torch.float32)
     C = C.to(torch.float32)
     if mode == CHAIN:
@@ -243,7 +282,6 @@ _LOG_P = tuple(_f32(p) for p in (
 _LOG_Q1 = _f32(-2.12194440e-4)
 _LOG_Q2 = _f32(0.693359375)
 _SQRT_HALF = _f32(0.707106781186547524)
-_TINY = torch.finfo(torch.float32).tiny
 
 
 def xla_log(a: torch.Tensor) -> torch.Tensor:
@@ -252,9 +290,11 @@ def xla_log(a: torch.Tensor) -> torch.Tensor:
     The algorithm of the kernel XLA compiles for log: range reduction to a
     mantissa m in [sqrt(1/2) - 1, sqrt(2) - 1) and an exponent e, a degree-8
     polynomial in m evaluated as three FMA chains in m**3, and
-    e * ln(2) added in two parts, with the same fused multiply-adds (each
-    emulated as `fma` does: an exact float64 product, one float64 add,
-    one rounding to float32).
+    e * ln(2) added in two parts, with the same fused multiply-adds, each
+    an exact float64 product, one float64 add and one rounding to float32.
+    That rounds twice, so unlike `fma` it can miss XLA's bits where a
+    float64 sum lands on a float32 tie (`fma`'s correction would add about
+    twenty launches to each of the eleven on the card; ROADMAP queue 3).
 
     Domain: finite x > 0, for which the bits equal XLA's. The other inputs
     give what XLA:CPU gives: -inf for zero and for subnormals (which it

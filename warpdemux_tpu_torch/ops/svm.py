@@ -6,9 +6,9 @@ Port of warpdemux_tpu/ops/svm.py:
   exp (`numerics.xla_exp`),
 - one-vs-one decision values: one (B, n_SV) x (n_SV, n_pairs) product
   against a coefficient matrix assembled from libsvm's dual coefficients,
-  summed in the order of the jitted JAX product where that order is known
-  (`numerics.xla_dot`; kernel K12, csrc/svmdot.cu, on CUDA), torch.matmul
-  elsewhere,
+  summed in the order of the jitted JAX product where that order is known,
+  in one fixed order elsewhere (`numerics.xla_dot`; kernel K12,
+  csrc/svmdot.cu, on CUDA),
 - libsvm's sigmoid_predict Platt calibration with the 1e-7 clamp, then
   libsvm's multiclass_probability (Wu & Lin 2004, method 2): Gauss-Seidel
   with eps = 0.005 / k and max(100, k) iterations, batched with
@@ -71,19 +71,16 @@ def pdist_kernel(D: torch.Tensor, gamma: float = 1.0, pwr_dist: int = 1):
 
 def decision_values_plain(K_sv: torch.Tensor, params: SVMParams) -> torch.Tensor:
     """The plain version of `decision_values` (any device)."""
-    if numerics.xla_dot_order(*K_sv.shape, params.coef.shape[1]) is None:
-        return torch.matmul(K_sv, params.coef) + params.intercept
     return numerics.xla_dot(K_sv, params.coef) + params.intercept
 
 
 def decision_values(K_sv: torch.Tensor, params: SVMParams) -> torch.Tensor:
-    """(B, P) one-vs-one decision values from the kernel vs support vectors:
-    K12 on CUDA at the shapes whose order `numerics.xla_dot_order` knows."""
+    """(B, P) one-vs-one decision values from the kernel vs support vectors,
+    summed in `numerics.dot_order`; K12 on CUDA."""
+    if not _cuda.on_cuda(K_sv, params.coef, params.intercept):
+        return decision_values_plain(K_sv, params)
     B, N = K_sv.shape
     P = params.coef.shape[1]
-    order = numerics.xla_dot_order(B, N, P)
-    if order is None or B == 0 or not _cuda.on_cuda(K_sv, params.coef, params.intercept):
-        return decision_values_plain(K_sv, params)
     K_sv = K_sv.contiguous()
     coef = params.coef.contiguous()
     intercept = params.intercept.contiguous()
@@ -93,11 +90,12 @@ def decision_values(K_sv: torch.Tensor, params: SVMParams) -> torch.Tensor:
     if coef.shape[0] != N or intercept.shape[0] != P:
         raise ValueError(f"svm_dot: coef {tuple(coef.shape)} / intercept {tuple(intercept.shape)} for K_sv {(B, N)}")
     out = torch.empty((B, P), dtype=torch.float32, device=K_sv.device)
-    mode, kc = order
-    _cuda.launch(
-        "wdx_svm_dot", K_sv.device, K_sv.data_ptr(), coef.data_ptr(), intercept.data_ptr(),
-        out.data_ptr(), B, N, P, mode, kc,
-    )
+    if B:
+        mode, kc = numerics.dot_order(B, N, P)
+        _cuda.launch(
+            "wdx_svm_dot", K_sv.device, K_sv.data_ptr(), coef.data_ptr(), intercept.data_ptr(),
+            out.data_ptr(), B, N, P, mode, kc,
+        )
     return out
 
 

@@ -13,10 +13,13 @@ Usage:
     python -m warpdemux_tpu_torch.tools.train_cnn [--steps 400] [--out NAME] [--device cpu]
 
 Writes <weights directory>/<NAME>.npz (config/utils.CNN_DIR, the port's
-warpdemux_tpu_torch/detect/cnn_files/; an absolute NAME is a path), which
-models/registry.load_cnn serves before the JAX package's bundle of the
-same name. The run goes on the CUDA GPU unless `--device` names another,
-and raises without one.
+warpdemux_tpu_torch/detect/cnn_files/; an absolute NAME is a path; NAME
+defaults to rna004_cnn_synth_v1_torch). A NAME that ships in the JAX
+package's weights directory, such as every chemistry's default
+rna004_cnn_synth_v1, is refused unless `--replace-shipped` is given:
+models/registry.load_cnn would serve the new weights in its place. The
+run goes on the CUDA GPU unless `--device` names another, and raises
+without one.
 """
 
 from __future__ import annotations
@@ -290,7 +293,9 @@ def build_parser():
     ap.add_argument("--batch", type=int, default=48)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="rna004_cnn_synth_v1")
+    ap.add_argument("--out", default="rna004_cnn_synth_v1_torch")
+    ap.add_argument("--replace-shipped", action="store_true",
+                    help="allow --out to name a shipped bundle, which the loaders then serve no more")
     ap.add_argument(
         "--real-frac", type=float, default=0.0,
         help="fraction of each batch drawn from LLR-labeled real fixture "
@@ -324,8 +329,10 @@ def build_parser():
 
 
 def output_path(args) -> Path:
-    """The bundle the run writes (CNN_DIR read when called)."""
-    return config_utils.CNN_DIR / f"{args.out}.npz"
+    """The bundle the run writes (CNN_DIR read when called); FileExistsError
+    for a shipped name without --replace-shipped."""
+    return config_utils.bundle_path(args.out, config_utils.CNN_DIR, config_utils.SHARED_CNN_DIR,
+                                    args.replace_shipped)
 
 
 def main(argv=None):
@@ -335,6 +342,7 @@ def main(argv=None):
     if args.real_frac > 0 and not args.fixture_dir:
         ap.error("--real-frac needs --fixture-dir")
     device = resolve_device(args.device)
+    out = output_path(args)  # refused before the training, not after it
     rng = np.random.default_rng(args.seed)
     real = None
     if args.real_frac > 0:
@@ -344,7 +352,6 @@ def main(argv=None):
         print(f"loaded {len(real[0])} LLR-labeled real reads")
     params = cnn.init_params(rng, cnn.ARCH_WIDE if args.wide else cnn.ARCH, device)
     history = train(params, rng, args.steps, args.batch, args.lr, args.input_cap, real, args.real_frac)
-    out = output_path(args)
     out.parent.mkdir(parents=True, exist_ok=True)
     cnn.save_params(params, out)
     print(f"saved {out}")

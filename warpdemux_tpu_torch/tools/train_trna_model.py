@@ -13,20 +13,22 @@ The device half runs on the card: the prep step (make_demux_step without
 a model, the pa feed, full outputs, in chunks of 128 reads) and the Gram
 matrix (ops/dtw.dtw_distance_matrix, kernel K1). The SVC fit is
 sklearn's, on the host. At its default arguments the trainer writes the
-shipped WDX4_tRNA_rna004_v1_0.npz array for array, bit for bit.
+arrays of the shipped WDX4_tRNA_rna004_v1_0.npz, bit for bit, as
+WDX4_tRNA_rna004_v1_0_torch.npz.
 
 Usage:
     python -m warpdemux_tpu_torch.tools.train_trna_model [--per-bc 150] [--model WDX4_tRNA_rna004_v1_0] [--out NAME] [--device cpu]
 
 `--model` names the registered model whose barcodes, chemistry and seed
-the run takes (default: --out where it is one of the two, as the JAX
-trainer's `--out` picks the model; else WDX4_tRNA_rna004_v1_0); writes
-<model directory>/<NAME>.npz (models/registry.
-MODEL_DIR, the port's warpdemux_tpu_torch/models/model_files/, read when
-the trainer is called; NAME defaults to the model's), which
-registry.load_model reads before the JAX package's bundle of that name,
-then predicts two holdout families through registry.load_model. The run goes on the CUDA GPU unless `--device` names
-another, and raises without one. Needs sklearn.
+the run takes (default WDX4_tRNA_rna004_v1_0); the run writes
+<model directory>/<NAME>.npz (models/registry.MODEL_DIR, the port's
+warpdemux_tpu_torch/models/model_files/, read when the trainer is called;
+`--out` NAME defaults to the model's name with `_torch` appended). A NAME
+that ships in the JAX package's model directory is refused unless
+`--replace-shipped` is given: registry.load_model would serve the new
+bundle in its place. The trainer then predicts two holdout families
+through registry.load_model. The run goes on the CUDA GPU unless
+`--device` names another, and raises without one. Needs sklearn.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from warpdemux_tpu_torch._cuda import resolve_device
+from warpdemux_tpu_torch.config import utils as config_utils
 from warpdemux_tpu_torch.utils.synthetic import (
     REAL_ADAPTER_STATS as RS,
     real_dwell_sampler,
@@ -146,38 +149,41 @@ def build_parser():
     ap.add_argument("--noise-n", type=int, default=120)
     ap.add_argument("--holdout-per-bc", type=int, default=30)
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--model", default=None, choices=tuple(MODEL_BARCODES))
-    ap.add_argument("--out", default=None, help="name of the written bundle (default: the model's)")
+    ap.add_argument("--model", default="WDX4_tRNA_rna004_v1_0", choices=tuple(MODEL_BARCODES))
+    ap.add_argument("--out", default=None, help="name of the written bundle (default: <model>_torch)")
+    ap.add_argument("--replace-shipped", action="store_true",
+                    help="allow --out to name a shipped bundle, which the loaders then serve no more")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="torch device of the run (default: the CUDA GPU)")
     return ap
 
 
-def trained_model(args) -> str:
-    """The registered model the run trains."""
-    if args.model:
-        return args.model
-    return args.out if args.out in MODEL_BARCODES else "WDX4_tRNA_rna004_v1_0"
+def bundle_name(args) -> str:
+    """The name of the bundle the run writes."""
+    return args.out or f"{args.model}_torch"
 
 
 def output_path(args):
-    """The bundle the run writes (registry.MODEL_DIR read when called)."""
+    """The bundle the run writes (registry.MODEL_DIR read when called);
+    FileExistsError for a shipped name without --replace-shipped."""
     from warpdemux_tpu_torch.models import registry
 
-    return registry.MODEL_DIR / f"{args.out or trained_model(args)}.npz"
+    return config_utils.bundle_path(bundle_name(args), registry.MODEL_DIR, config_utils.SHARED_MODEL_DIR,
+                                    args.replace_shipped)
 
 
 def main(argv=None):
     """Fit, write the bundle, predict the holdouts; returns the arrays."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    out_path = output_path(args)  # refused before the fit, not after it
 
     from sklearn.svm import SVC
 
     from warpdemux_tpu_torch.models import registry
     from warpdemux_tpu_torch.models.importer import arrays_from_svc
 
-    name = trained_model(args)
+    name = args.model
     barcodes = MODEL_BARCODES[name]
     rng = np.random.default_rng(args.seed)
     pats = patterns(name)
@@ -203,7 +209,6 @@ def main(argv=None):
     # synthetic-trained replacement for a missing upstream blob: mark it so
     # load_model warns and users can't mistake it for published weights
     arrays["stand_in"] = np.array(True)
-    out_path = output_path(args)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out_path, **arrays)
     print(f"saved {out_path} (X_sv {arrays['X_sv'].shape})")
@@ -211,7 +216,7 @@ def main(argv=None):
     # holdout through the full predict path, on both generator families:
     # "real" = the trained (measured) family, a fresh seed; "legacy" = the
     # hand-tuned family the model was not trained on
-    model = registry.load_model(args.out or name, device)
+    model = registry.load_model(bundle_name(args), device)
     for family in ("real", "legacy"):
         Xh, yh = make_fingerprints(
             np.random.default_rng(args.seed + 1),
