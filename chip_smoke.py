@@ -10,7 +10,7 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels of csrc/ from source and print what ptxas reported for each
    (registers, spills).
-2. For each kernel K1-K13, on numpy-seeded inputs at the step's shapes
+2. For each kernel K1-K14, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
    the card and time both (the kernel twice: as a caller sees it, and with
@@ -74,17 +74,23 @@ Phases (each raises on failure; nothing is caught):
    constant rows, -0.0 and cancellations, with and without the
    calibration; both variants are timed in turns at each step shape beside
    its bound, and the wrapper beside torch.where(mask, x, 0).sum(-1). K12
-   (the SVM's decision values in XLA:CPU's summation order, new: no Pallas
-   counterpart) is held bit for bit at the shapes of the models that take
-   it (WDX4 at B = 1000, 32, 16 and 2, the tRNA model, WDX6 at B = 16 and
-   1000, WDX10 at B = 64 and 1000) and, in its fixed lanes order, at shapes
-   whose XLA order is not known (WDX4 at B = 1, WDX10 at B = 16, WDX8 and
-   WDX12 of RNA002), and K13 (the SVM's probabilities: the
-   Platt sigmoid and the Wu-Lin coupling in the jitted JAX operations, one
-   thread a row, new) on K12's decision values there and on rows of NaN,
-   inf and 0; both are timed beside their bounds at B = 1000 and the
-   lane's 16 / 32 (K13's operations counted from the coupling passes each
-   row takes), K12 beside torch.addmm. An
+   (the SVM's decision values and the DTW-MLP's layers in XLA:CPU's
+   summation order, new: no Pallas counterpart; a block R rows, a thread a
+   chain of the order, operands staged by cp.async) is held bit for bit at
+   the shapes of the models that take it (WDX4 at B = 1000, 32, 16 and 2,
+   the tRNA model, WDX6 at B = 16 and 1000, WDX10 at B = 64 and 1000) and,
+   in its fixed order, at shapes whose XLA order is not known (WDX4 at
+   B = 1, WDX10 at B = 16, WDX8 and WDX12 of RNA002), and K13 (the SVM's
+   probabilities: the Platt sigmoid and the Wu-Lin coupling in the jitted
+   JAX operations, one warp a row, new) on K12's decision values there and
+   on rows of NaN, inf and 0; both are timed beside their bounds at
+   B = 1000 and the lane's 16 / 32 (K13's operations counted from the
+   coupling passes each row takes, and its latency floor from those
+   passes and a timed chain of divisions), K12 beside torch.addmm, each
+   beside its time before the redesign. K14 (XLA:CPU's float32 log of the LLR cost,
+   new) is held bit for bit against its plain version at the step's LLR
+   shapes, on edge values and on every float32 bit pattern, and timed
+   beside its bound and torch.log (not bit-equal: another log). An
    empty launch is timed as called
    through `_cuda.launch` and through a launch that resolves the entry
    point, the device context and the stream object every time.
@@ -109,7 +115,8 @@ Phases (each raises on failure; nothing is caught):
    (kernels, copies, memsets) are counted and printed beside the count
    before K11 (the adc decision and vbz full steps may not exceed it by
    more than 20) and before K5's callers stopped copying for it; those of
-   the tRNA and RNA002 steps, and of one micro-batch of the live lane. Run
+   the tRNA and RNA002 steps, and of one micro-batch of the live lane;
+   no path may take more than before K14 (DEVICE_OPS_BEFORE_K14). Run
    last, after phase 6: an attached profiler slows every later launch.
 6. The live read-until lane (warpdemux_tpu_torch/live/) on the card:
    a. the lane program (`Session._classify_on_device`: one copy in, K5,
@@ -282,49 +289,61 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                     "new, no Pallas counterpart (XLA:CPU's dot: warpdemux_tpu/ops/svm.py:74)"),
     "wdx_svm_probs": ("K13 SVM probabilities (Platt, Wu-Lin coupling)", "svmprob.cu",
                       "new, no Pallas counterpart (warpdemux_tpu/ops/svm.py:94, a lax.while_loop)"),
+    "wdx_xla_log": ("K14 XLA's float32 log", "xlalog.cu",
+                    "new, no Pallas counterpart (XLA:CPU's log: warpdemux_tpu/detect/boundaries.py:224, :259)"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 # device operations a step of each path before K5's callers stopped copying
 # for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
-# launches a step of each path, in KERNELS' order (K1 .. K13); K11 once for
+# launches a step of each path, in KERNELS' order (K1 .. K14); K11 once for
 # the [mvs_polya] gate's poly(A) mean of each detect pass (the CNN's and
 # the LLR fallback's) and once for the region statistics of full outputs;
 # K12 and K13 once a classified batch (the SVM's decision values, then its
-# probabilities)
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1), "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1),  # one micro-batch of the lane program
+# probabilities); K14 once a detect pass for the LLR refinement's cost
+# (the tRNA paths: the refinement and the adapter's split window)
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2),
+            "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 2),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1, 2),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1), "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0),
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2),
+            "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0, 2),
             # the tRNA paths (phase 8): K3 twice (the adapter's events, then
             # the barcode's from its start), K4 for the clip and the gates
             # (with the adapter MAD) or the four region statistics, K5 for the
             # refine windows, the split window and the adapter, K8 for the
             # adapter-level proxy, K10 for the consensus match, K11 for the
             # region statistics of full outputs (no [mvs_polya] gate)
-            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1),
-            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1),
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1, 2),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1, 2),
             # phase 9: the model families' predict (K1 for DTW-MLP's
-            # distances; the forest has no kernel) and the predict run over
-            # one fingerprint file; the RNA002 steps (LLR detect, no CNN: one
-            # detect pass, one gate)
-            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
-            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
-            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1),
-            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1),
+            # distances, K12 for each of its two layers; the forest has no
+            # kernel) and the predict run over one fingerprint file; the
+            # RNA002 steps (LLR detect, no CNN: one detect pass, one gate)
+            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0),
+            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1, 1),
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1, 1),
             # phase 12: the tRNA trainer's prep step (the pa feed, full
             # outputs, no model: K4 for the proxy median where the adc feeds
             # take K8, no K1); the mRNA step served by the trained CNN
-            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0),
-            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1)}
+            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0, 2),
+            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
 # 3f76e42, torch 2.11.0 on the card, PERF.md section 5)
 DEVICE_OPS_BEFORE_K11 = {"adc_decision": 1874, "vbz_full": 1989, "fused_decision": 1873,
                          "trna_adc_decision": 1901, "trna_vbz_full": 2025}
+# device operations a step or micro-batch of each path before K14, once
+# K12 and K13 had replaced the torch coupling (`count_device_ops` on commit
+# 2a0ac67, torch 2.11.0 on the card, PERF.md section 5): no later change
+# may add any
+DEVICE_OPS_BEFORE_K14 = {"adc_decision": 1740, "vbz_full": 1790, "fused_decision": 1739,
+                   "trna_adc_decision": 1879, "trna_vbz_full": 1917,
+                   "rna002_adc_decision": 1183, "rna002_vbz_full": 1223, "live_lane": 758}
 TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
 # phase 8's run of the offline loop: the vbz wire, predictions and boundaries
 TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
@@ -992,6 +1011,12 @@ K12_SHAPES = (("WDX4_rna004_v1_0", 1000), ("WDX4_rna004_v1_0", 16), ("WDX4_rna00
               ("WDX4_rna004_v1_0", 1), ("WDX10_rna004_v1_0", 16), ("WDX8_rna002_v0_4_4", 16),
               ("WDX12_rna002_v0_4_4", 32))
 SVM_SIGMOID_OPS = 25  # the Platt sigmoid of one decision value: fma, abs, XLA's exp (~20), add, div
+# K12's and K13's device ms before their redesign (commit 2a0ac67's
+# kernels: one thread an output; one thread a row) at WDX4's shapes:
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
+SVM_DEVICE_MS_BEFORE = {("wdx_svm_dot", 1000): 0.0390, ("wdx_svm_dot", 16): 0.0371, ("wdx_svm_dot", 32): 0.0366,
+                      ("wdx_svm_probs", 1000): 0.0222, ("wdx_svm_probs", 16): 0.0187,
+                      ("wdx_svm_probs", 32): 0.0224}
 
 
 def k12_work(B, N, P):
@@ -1033,13 +1058,41 @@ def k13_work(dec, params):
     return (B * P + 2 * P + B * k) * 4, ops, int(passes.max()), float(passes.float().mean())
 
 
+def division_ns(dev):
+    """ns a correctly rounded float32 division takes when each waits for the
+    last: one thread's chain of 2n divisions less its chain of n, over n
+    (csrc/svmprob.cu's probe), from CUDA events."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+
+    fn = _cuda.library().wdx_div_chain
+    x = torch.tensor([1.0, 1.0000001], device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = 1 << 16
+    ms = {}
+    for reps in (n, 2 * n, n, 2 * n):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        require(fn(x.data_ptr(), reps, stream) == 0, "wdx_div_chain: launch failed")
+        start.record()
+        require(fn(x.data_ptr(), reps, stream) == 0, "wdx_div_chain: launch failed")
+        stop.record()
+        torch.cuda.synchronize()
+        ms[reps] = start.elapsed_time(stop)
+    return (ms[2 * n] - ms[n]) / n * 1e6
+
+
 def check_svm(dev, card):
     """Phase 2's K12 and K13: each at the shapes of the models that take
     it, bit for bit against its plain version on the same inputs (kernel
     rows exp(-U(0, 8)) from a seed against the shipped models'
     coefficients; K13 on K12's decision values, plus rows of NaN, inf and
-    zero); timed beside its bound at the step's B = 1000 and the lane's
-    B = 16 / 32, K12 also beside torch.addmm (TF32 off)."""
+    zero); timed beside its bound and its time before the redesign at the step's B = 1000
+    and the lane's B = 16 / 32, K12 also beside torch.addmm (TF32 off), K13
+    also beside its latency floor (its slowest row's passes, each a chain
+    of two dependent divisions a class, at the division's time measured
+    here). Then K12 at the DTW-MLP's two layers, bit for bit against its
+    plain version and timed beside torch.addmm."""
     import numpy as np
     import torch
 
@@ -1048,6 +1101,8 @@ def check_svm(dev, card):
     from warpdemux_tpu_torch.ops import numerics, svm
 
     results = {}
+    div_ns = division_ns(dev)
+    print(f"a correctly rounded float32 division that waits for the last: {div_ns!r} ns on {card}")
     models = {name: load_model(name, dev) for name in dict(K12_SHAPES)}
     for name, b in K12_SHAPES:
         m = models[name]
@@ -1081,14 +1136,129 @@ def check_svm(dev, card):
             results["wdx_svm_probs"] = time_kernel(
                 "wdx_svm_probs", card, 0.0, lambda: svm.probabilities(dec, m.params),
                 lambda: svm.probabilities_plain(dec, m.params), k13_bytes, k13_ops, plain_reps=3)
-            continue
-        for key, fn, work in (("wdx_svm_dot", lambda: svm.decision_values(K, m.params), k12_work(b, n, p)),
-                              ("wdx_svm_probs", lambda: svm.probabilities(dec, m.params), (k13_bytes, k13_ops))):
-            ms, device_ms = time_ms(fn), time_ms(fn, queued=True)
-            bound_ms, bound_by = bound(*work)
-            print(f"live lane {KERNELS[key][0]} B={b}: max_abs_err=0.0 kernel_ms={ms!r} device_ms={device_ms!r} "
-                  f"bound_ms={bound_ms!r} by {bound_by} share={bound_ms / device_ms!r} on {card}")
+            device_ms = {key: results[key]["device_ms"] for key in ("wdx_svm_dot", "wdx_svm_probs")}
+        else:
+            device_ms = {}
+            for key, fn, work in (("wdx_svm_dot", lambda: svm.decision_values(K, m.params), k12_work(b, n, p)),
+                                  ("wdx_svm_probs", lambda: svm.probabilities(dec, m.params), (k13_bytes, k13_ops))):
+                ms, device_ms[key] = time_ms(fn), time_ms(fn, queued=True)
+                bound_ms, bound_by = bound(*work)
+                print(f"live lane {KERNELS[key][0]} B={b}: max_abs_err=0.0 kernel_ms={ms!r} "
+                      f"device_ms={device_ms[key]!r} bound_ms={bound_ms!r} by {bound_by} "
+                      f"share={bound_ms / device_ms[key]!r} on {card}")
+        for key, ms in device_ms.items():
+            print(f"{KERNELS[key][0]} B={b}: device_ms={ms!r} against {SVM_DEVICE_MS_BEFORE[(key, b)]} before the "
+                  f"redesign (commit 2a0ac67; {SVM_DEVICE_MS_BEFORE[(key, b)] / ms!r}x) on {card}")
+        # a Gauss-Seidel step's chain: diff's division, then the new p Q p's
+        # and (Q p)[j]'s side by side, which the next step's diff waits for
+        floor_ms = most * m.n_classes * 2 * div_ns * 1e-6
+        print(f"K13 {name} B={b}: latency floor {floor_ms!r} ms (the largest row's {most} passes x k={m.n_classes} "
+              f"x 2 dependent divisions x {div_ns!r} ns a division); share of the floor reached "
+              f"{floor_ms / device_ms['wdx_svm_probs']!r} on {card}")
+    check_mlp_products(dev, card)
     return results
+
+
+def check_mlp_products(dev, card):
+    """K12 at the DTW-MLP's two layers at the step's B, as phase 9's
+    forward launches it: the hidden (B, 851) x (851, 100) + b and the
+    output (B, 100) x (100, 5) + b on family_arrays' weights, the hidden
+    layer's input standard normal (distances after the scaler), the output
+    layer's the ReLU of the hidden layer. Each launched once and bit for bit
+    its plain version; timed beside its bound and torch.addmm (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.models.registry import load_model_arrays
+    from warpdemux_tpu_torch.ops import numerics, svm
+
+    X_ref = load_model_arrays(MODEL)["X_sv"].astype(np.float32)
+    arrays = family_arrays("dtw_mlp", np.random.default_rng(4), X_ref)
+    h = torch.as_tensor(np.random.default_rng(5).normal(0, 1, (B, X_ref.shape[0])).astype(np.float32), device=dev)
+    for layer, what in enumerate(("hidden", "output")):
+        W = torch.as_tensor(arrays[f"mlp_w{layer}"], device=dev)
+        bias = torch.as_tensor(arrays[f"mlp_b{layer}"], device=dev)
+        n, p = W.shape
+        before = _cuda.launches["wdx_svm_dot"]
+        got = svm.dot_bias(h, W, bias)
+        require(_cuda.launches["wdx_svm_dot"] == before + 1, f"K12 DTW-MLP {what} layer: not launched")
+        require(torch.equal(got, svm.dot_bias_plain(h, W, bias)),
+                f"K12 DTW-MLP {what} layer: differs from the plain version")
+        order = numerics.dot_order(B, n, p)
+        known = numerics.xla_dot_order(B, n, p) is not None
+        kernel = lambda: svm.dot_bias(h, W, bias)
+        ms, device_ms = time_ms(kernel), time_ms(kernel, queued=True)
+        with numerics.full_float32():
+            library = lambda: torch.addmm(bias, h, W)
+            library_ms, library_device_ms = time_ms(library), time_ms(library, queued=True)
+        bound_ms, bound_by = bound(*k12_work(B, n, p))
+        print(f"K12 DTW-MLP {what} layer B={B} N={n} P={p} (order {'lanes' if order[0] == numerics.LANES else 'chain'}, "
+              f"kc={order[1]}{'' if known else ', XLA order not known'}): max_abs_err=0.0 (bit for bit) kernel_ms={ms!r} "
+              f"device_ms={device_ms!r} bound_ms={bound_ms!r} by {bound_by} share={bound_ms / device_ms!r}; "
+              f"torch.addmm (TF32 off) ms={library_ms!r} device_ms={library_device_ms!r} on {card}")
+        h = torch.relu(got)
+
+
+# K14 at the step's LLR shapes: the refinement's cost over 2 boundaries x B
+# windows of 800 samples (splits 1..799), the tRNA adapter's split window
+# of 6000 (`numerics.xla_log` of the stacked variances)
+K14_SHAPES = {"LLR refinement": (2, 2 * B, 799), "tRNA adapter split window": (2, B, 5999)}
+K14_EDGES = (0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.1754944e-38, -1.0, float("inf"), float("-inf"), float("nan"),
+             1.0, 0.5, 2.0, 0.70710677, 0.7071068, 1e-6, 1e6, 3.4e38)
+K14_OPS = 36  # an element: the reduction's 9, eleven multiply-adds at 2, two products, the specials' 3
+K14_SWEEP_CHUNKS = 64  # the 2**32 float32 bit patterns in chunks of 2**26
+
+
+def k14_variances(shape, seed):
+    """Variances as the LLR cost hands them to the log: log-uniform over
+    [1e-6, 1e4], every 97th at the cost's clamp 1e-6."""
+    import numpy as np
+
+    v = np.exp(np.random.default_rng(seed).uniform(np.log(1e-6), np.log(1e4), shape)).astype(np.float32)
+    v.reshape(-1)[::97] = np.float32(1e-6)
+    return v
+
+
+def check_k14(dev, card):
+    """Phase 2's K14: XLA:CPU's float32 log bit for bit against its plain
+    version at the step's LLR shapes, on edge values and on every float32
+    bit pattern (in chunks of 2**26); timed at the refinement's shape beside
+    its bound and torch.log."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.ops import numerics
+
+    def bits_equal(a, b):
+        return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+    result = None
+    for i, (name, shape) in enumerate(K14_SHAPES.items()):
+        x = torch.as_tensor(k14_variances(shape, i), device=dev)
+        before = _cuda.launches["wdx_xla_log"]
+        got = numerics.xla_log(x)
+        require(_cuda.launches["wdx_xla_log"] == before + 1, f"K14 {name}: not launched")
+        require(bits_equal(got, numerics.xla_log_plain(x)), f"K14 {name}: differs from the plain version")
+        off = int((torch.log(x).view(torch.int32) != got.view(torch.int32)).sum())
+        print(f"K14 {name} {tuple(shape)}: max_abs_err=0.0 (bit for bit); torch.log differs on {off} of {x.numel()}")
+        if result is None:
+            result = time_kernel("wdx_xla_log", card, 0.0, lambda: numerics.xla_log(x),
+                                 lambda: numerics.xla_log_plain(x), 8 * x.numel(), K14_OPS * x.numel(),
+                                 library=lambda: torch.log(x), plain_reps=3)
+            print("K14: library_ms is torch.log, another log (not bit-equal: the count above)")
+    x = torch.tensor(K14_EDGES, dtype=torch.float32, device=dev)
+    require(bits_equal(numerics.xla_log(x), numerics.xla_log_plain(x)), "K14 edges: differ from the plain version")
+    t0 = time.perf_counter()
+    off = 0
+    for c in range(K14_SWEEP_CHUNKS):
+        x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        got, want = numerics.xla_log(x), numerics.xla_log_plain(x)
+        off += int(((got.view(torch.int32) != want.view(torch.int32)) & ~(got.isnan() & want.isnan())).sum())
+    require(off == 0, f"K14: {off} float32 bit patterns differ from the plain version")
+    print(f"K14 on every float32 bit pattern ({K14_SWEEP_CHUNKS} x 2**26, {time.perf_counter() - t0:.1f} s): max_abs_err=0.0 "
+          f"against the plain version; edges {K14_EDGES}: 0.0")
+    return result
 
 
 FAMILY_LABELS = (3, 4, 5, 7, -1)
@@ -1743,6 +1913,7 @@ def check_kernels(dev, card):
     )
     results["wdx_rowstats"] = check_k11(dev, card)
     results.update(check_svm(dev, card))
+    results["wdx_xla_log"] = check_k14(dev, card)
     return results
 
 
@@ -2111,23 +2282,28 @@ def count_step_ops(steps, lane_program, offline_run, trna, rna002):
     for path in PATHS:
         n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K11[path]} before K11, "
-              f"{DEVICE_OPS_BEFORE[path]} on commit 7cdf228)")
+        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14, "
+              f"{DEVICE_OPS_BEFORE_K11[path]} before K11, {DEVICE_OPS_BEFORE[path]} on commit 7cdf228)")
         if path != "fused_decision":
             require(n_ops <= DEVICE_OPS_BEFORE_K11[path] + 20, f"{path}: K11's repair grew the step's device operations")
+        require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
     trna_steps, trna_rows = trna
     for path in TRNA_PATHS:
         n_ops = count_device_ops(trna_steps[path], vbz_batch(*trna_rows) if "vbz" in path else trna_rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K11[path]} before K11)")
+        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14, "
+              f"{DEVICE_OPS_BEFORE_K11[path]} before K11)")
+        require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
     rna002_steps, rna002_rows = rna002
     for path in RNA002_PATHS:
         n_ops = count_device_ops(rna002_steps[path], vbz_batch(*rna002_rows) if "vbz" in path else rna002_rows)
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{RNA002_MODELS[0]} {path} step: {n_ops} device operations")
+        print(f"{RNA002_MODELS[0]} {path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14)")
+        require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
     n_ops = count_device_ops(lane_program, ())
     require(n_ops > 0, "live lane: the profiler recorded no device operation")
-    print(f"live lane program, B=16: {n_ops} device operations a micro-batch")
+    print(f"live lane program, B=16: {n_ops} device operations a micro-batch ({DEVICE_OPS_BEFORE_K14['live_lane']} before K14)")
+    require(n_ops <= DEVICE_OPS_BEFORE_K14["live_lane"], "live lane: more device operations than before K14")
     run, wall_ms = offline_run
     busy = device_busy_ms(run)
     require(busy > 0, "offline run: the profiler recorded no device operation")
@@ -2701,6 +2877,7 @@ def run_families_and_rna002(dev, card, mrna_full_step):
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.config import config as c
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.dtw_mlp import mlp_logits
     from warpdemux_tpu_torch.models.registry import load_model_arrays, model_from_arrays
     from warpdemux_tpu_torch.ops import dtw
     from warpdemux_tpu_torch.pipeline.run import run_predict_from_fpts
@@ -2734,6 +2911,12 @@ def run_families_and_rna002(dev, card, mrna_full_step):
         require(same >= B - 1, f"{kind}: GPU and CPU calls disagree")
         require(np.allclose(gpu[2], cpu[2], rtol=1e-5, atol=1e-6), f"{kind}: probabilities off tolerance")
         fpts_t = torch.as_tensor(fpts, device=dev)
+        if kind == "dtw_mlp":  # the logits, on the card's distances, bit for bit the CPU model's
+            D = dtw.dtw_distance_matrix(fpts_t, gpu_model.X_ref, gpu_model.window, gpu_model.penalty)
+            logits = [mlp_logits(D.to(model.X_ref.device), *model.layers(), model.scaler_mean, model.scaler_scale)
+                      for model in (gpu_model, cpu_model)]
+            require(torch.equal(logits[0].cpu(), logits[1]), "dtw_mlp: logits GPU and CPU differ")
+            print(f"dtw_mlp logits, B={B}: GPU (K12) bit for bit the CPU's (xla_dot) on the same distances")
         print(f"{kind} forward, B={B}: kernel_ms={time_ms(lambda: gpu_model(fpts_t))!r} "
               f"device_ms={time_ms(lambda: gpu_model(fpts_t), queued=True)!r} on {card}")
 

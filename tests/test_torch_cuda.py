@@ -859,3 +859,79 @@ def test_svm_kernels_equal_their_plain_versions(dev, name, b):
     got, want = svm.probabilities(dec, m.params), svm.probabilities_plain(dec, m.params)
     assert _cuda.launches["wdx_svm_probs"] == 1
     assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+K12_TILE_MODELS = {10: "WDX4_rna004_v1_0", 21: "WDX6_rna004_v1_0", 55: "WDX10_rna004_v1_0", 78: "WDX12_rna002_v0_4_4"}
+
+
+@pytest.mark.parametrize("P", [10, 21, 55, 78, 100])
+@pytest.mark.parametrize("b", [1, 7, 9, 1000, 1001])
+def test_k12_k13_at_the_tile_edges(dev, b, P):
+    """K12 at row counts on both sides of its row tiles and of a full
+    minibatch, for every width it serves (the models' pair counts, their
+    coefficients; P = 100, the DTW-MLP's hidden layer, on 851 inputs from
+    a seed), bit for bit its plain version; K13 on the models' decision
+    values there, rows of NaN, inf and 0 planted."""
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops import svm
+
+    rng = np.random.default_rng(b * 131 + P)
+    if P == 100:
+        K = torch.as_tensor(rng.normal(size=(b, 851)).astype(np.float32), device=dev)
+        W = torch.as_tensor(rng.normal(size=(851, P)).astype(np.float32), device=dev)
+        bias = torch.as_tensor(rng.normal(size=P).astype(np.float32), device=dev)
+        got = _launched("wdx_svm_dot", lambda: svm.dot_bias(K, W, bias))
+        assert torch.equal(got, svm.dot_bias_plain(K, W, bias))
+        return
+    m = load_model(K12_TILE_MODELS[P], dev)
+    K = torch.as_tensor(np.exp(-rng.uniform(0, 8, (b, m.coef.shape[0]))).astype(np.float32), device=dev)
+    dec = _launched("wdx_svm_dot", lambda: svm.decision_values(K, m.params))
+    assert torch.equal(dec, svm.decision_values_plain(K, m.params))
+    dec[: min(b, 3)] = torch.tensor([float("nan"), float("inf"), 0.0], device=dev)[: min(b, 3), None]
+    got = _launched("wdx_svm_probs", lambda: svm.probabilities(dec, m.params))
+    want = svm.probabilities_plain(dec, m.params)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 7, 9, 11, 12, 13, 16])
+def test_k13_every_class_count(dev, k):
+    """K13's instances (5, 7, 9, 11, 13 classes) and its loop for any other
+    k <= 16, on decision values from a seed with rows of NaN, inf and 0,
+    at a batch whose last rows sum p Q p in XLA's scalar loop."""
+    from warpdemux_tpu_torch.ops import svm
+
+    P = k * (k - 1) // 2
+    rng = np.random.default_rng(k)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    params = svm.SVMParams(None, None, t(rng.normal(-2, 0.5, P)), t(rng.normal(0, 0.3, P)), k)
+    dec = t(rng.normal(0, 3, (65, P)))
+    dec[:3] = torch.tensor([float("nan"), float("inf"), 0.0], device=dev)[:, None]
+    got = _launched("wdx_svm_probs", lambda: svm.probabilities(dec, params))
+    want = svm.probabilities_plain(dec, params)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("shape", [(2, 2000, 799), (2, 1000, 5999), (2, 32, 799), (7,)])
+def test_k14_xla_log_at_the_step_shapes(dev, shape):
+    """K14 bit for bit its plain version on the LLR cost's variances (the
+    refinement's and the tRNA split window's shapes, the live lane's rows)
+    and on the edge values of the log."""
+    from chip_smoke import K14_EDGES, k14_variances
+    from warpdemux_tpu_torch.ops import numerics
+
+    x = torch.as_tensor(k14_variances(shape, 0), device=dev)
+    if len(shape) == 1:
+        x = torch.tensor(K14_EDGES, dtype=torch.float32, device=dev)
+    got = _launched("wdx_xla_log", lambda: numerics.xla_log(x))
+    want = numerics.xla_log_plain(x)
+    assert bool(((got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())).all())
+
+
+def test_k14_on_every_float32_bit_pattern(dev):
+    """K14 against its plain version on all 2**32 float32 bit patterns."""
+    from warpdemux_tpu_torch.ops import numerics
+
+    for c in range(64):
+        x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        got, want = numerics.xla_log(x), numerics.xla_log_plain(x)
+        assert bool(((got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())).all()), c

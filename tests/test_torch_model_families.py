@@ -4,8 +4,9 @@ package's models on the same arrays, and the registry, the demux step, the
 predict run and the live lane with each family.
 
 Against the JAX models: decisions (pred) exact, confidences and
-probabilities within rtol 1e-5, atol 1e-6 (the MLP's products are
-torch.matmul against XLA's dot; the softmax is another implementation),
+probabilities within rtol 1e-5, atol 1e-6 (the MLP's products and
+logits are XLA's bit for bit, tests/test_torch_svm_dot.py; the softmax is
+another implementation),
 and the forest's raw scores bit for bit where it has more than 32 trees
 (the sum over trees in XLA's order).
 """

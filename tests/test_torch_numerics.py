@@ -51,6 +51,35 @@ def test_xla_log_matches_jitted_jnp_log():
     assert (~_same_bits(torch.log(torch.from_numpy(x)).numpy(), want)).sum() > 1000
 
 
+def test_xla_log_matches_jitted_jnp_log_across_the_float32_range():
+    """Random bit patterns over every binade of the positive float32,
+    subnormals included, and every mantissa of [1, 2): the plain version
+    (xla_log on CPU tensors) against the jitted jnp.log."""
+    rng = np.random.default_rng(3)
+    bits = np.concatenate([rng.integers(1, 0x7F800000, 2_000_000), 0x3F800000 + np.arange(1 << 23)])
+    x = bits.astype(np.uint32).view(np.float32)
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = xla_log(torch.from_numpy(x)).numpy()
+    bad = ~_same_bits(got, want)
+    assert not bad.any(), (x[bad][:5], got[bad][:5], want[bad][:5])
+
+
+@pytest.mark.parametrize("binades", [(1, 126, 127), (128, 200, 254)])
+def test_xla_log_has_no_input_where_its_multiply_adds_round_twice(binades):
+    """tools/xla_log_ties: in these binades (all of them when run alone) no
+    positive float32 gives another log with each multiply-add rounded
+    twice (a float64 sum rounded to float32) than rounded once, which is
+    why no tie input is pinned here."""
+    from warpdemux_tpu_torch.tools import xla_log_ties
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        assert xla_log_ties.search(binades, log=lambda line: None) == []
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _row_795():
     adc, off, sc, _ = synth_minibatch(np.random.default_rng(0), 1000, 10000)
     return (adc[795].astype(np.float32) + off[795]) * sc[795]

@@ -9,7 +9,7 @@ on, on the CPU.
   over several processes puts a read in another minibatch than a run in
   one, so this is what makes their rows equal;
 - resolve_device names the card's index;
-- full_float32, which the CNN and the DTW-MLP enter, holds while any of
+- full_float32, which the CNN enters, holds while any of
   many threads is inside (the live lane's classifier threads).
 """
 

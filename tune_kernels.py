@@ -27,6 +27,18 @@ of the sources' tile macros, six builds at a time:
 
 `python3 tune_kernels.py K11` sweeps K11 alone.
 
+`python3 tune_kernels.py SVM [--against DIR]` sweeps K12 (csrc/svmdot.cu:
+WDX_SVMDOT_RT2_WIDTH the product width from which a summing thread takes
+two rows, 0 for always and 1000000 for never, WDX_SVMDOT_MIN_THREADS a block,
+WDX_SVMDOT_KT terms a chunk, WDX_SVMDOT_WHOLE_SMEM = 0 to chunk always,
+WDX_SVMDOT_BLOCKS a full minibatch is cut into) and K13 (csrc/svmprob.cu:
+WDX_SVMPROB_WARPS rows a block) alone at the models' shapes, K13 also with
+its passes cut to 0 (what the sigmoids and the launch cost) and at the
+default build's division latency. With --against, DIR holds another tree's
+svmdot.cu, svmprob.cu and common.cuh (the parent commit's, unpacked with
+`git archive`): its two kernels are built apart and timed in turns with
+this tree's default build (theirs, ours, ours, theirs).
+
 For each variant the script prints what ptxas reported for the kernel
 (registers, spills), checks the wrapper's output bit for bit against the
 plain PyTorch version, and prints the mean time of 20 launches (CUDA
@@ -128,6 +140,90 @@ def sweep_k11(dev, ptxas):
     print(" | ".join(row), "|", ptxas((), "wdx_rowstats_kernel"))
 
 
+SVM_VARIANTS = [(), ("-DWDX_SVMDOT_RT2_WIDTH=0",), ("-DWDX_SVMDOT_RT2_WIDTH=1000000",), ("-DWDX_SVMDOT_MIN_THREADS=256",),
+                ("-DWDX_SVMDOT_MIN_THREADS=1024",), ("-DWDX_SVMDOT_KT=32",), ("-DWDX_SVMDOT_WHOLE_SMEM=0",),
+                ("-DWDX_SVMDOT_BLOCKS=264",), ("-DWDX_SVMPROB_WARPS=2",), ("-DWDX_SVMPROB_WARPS=8",)]
+SVM_SHAPES = (("WDX4_rna004_v1_0", 1000), ("WDX4_rna004_v1_0", 16), ("WDX4_rna004_v1_0", 32),
+              ("WDX4_tRNA_rna004_v1_0", 1000), ("WDX6_rna004_v1_0", 1000), ("WDX10_rna004_v1_0", 1000),
+              ("WDX12_rna002_v0_4_4", 1000))
+
+
+def sweep_svm(dev, ptxas, against=None):
+    """K12 and K13 by variant at SVM_SHAPES (kernel rows exp(-U(0, 8)) from
+    a seed against the models' coefficients, K13 on their decision
+    values), each bit for bit against its plain version; then K13's cost
+    without passes; then, with `against`, another tree's K12 and K13 in
+    turns with this tree's."""
+    import ctypes
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.ops import numerics, svm
+
+    models = {name: load_model(name, dev) for name, _ in SVM_SHAPES}
+    cases = []
+    for name, b in SVM_SHAPES:
+        m = models[name]
+        K = torch.as_tensor(np.exp(-np.random.default_rng(b).uniform(0, 8, (b, m.coef.shape[0]))).astype(np.float32),
+                            device=dev)
+        cases.append((name, b, m, K, svm.decision_values_plain(K, m.params)))
+    for defines in SVM_VARIANTS:
+        _cuda.defines = defines
+        row = [f"K12/K13 {' '.join(defines) or 'default'}"]
+        for name, b, m, K, dec in cases:
+            k12 = lambda: svm.decision_values(K, m.params)
+            k13 = lambda: svm.probabilities(dec, m.params)
+            exact = torch.equal(k12(), dec) and torch.equal(k13(), svm.probabilities_plain(dec, m.params))
+            row.append(f"{name} B={b}: exact={exact} K12 ms={time_ms(k12)!r} K13 ms={time_ms(k13)!r}")
+        print(" | ".join(row), "|", ptxas(defines, "svm"))
+    _cuda.defines = ()
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def probs_call(fn, dec, m, out, passes=None):
+        B, k = dec.shape[0], m.n_classes
+        return lambda: fn(dec.data_ptr(), m.probA.data_ptr(), m.probB.data_ptr(), out.data_ptr(), B, k, 1e-7,
+                          1 - 1e-7, 0.005 / k, max(100, k) if passes is None else passes, svm.xla_vector_rows(B),
+                          stream)
+
+    def dot_call(fn, K, m, out):
+        B, N = K.shape
+        P = m.coef.shape[1]
+        mode, kc = numerics.dot_order(B, N, P)
+        return lambda: fn(K.data_ptr(), m.coef.data_ptr(), m.intercept.data_ptr(), out.data_ptr(), B, N, P, mode, kc,
+                          stream)
+
+    div_ns = chip_smoke.division_ns(dev)
+    for name, b, m, K, dec in cases:
+        out = torch.empty((b, m.n_classes), device=dev)
+        most = chip_smoke.k13_work(dec, m.params)[2]
+        print(f"K13 {name} B={b}: no pass ms={time_ms(probs_call(lib.wdx_svm_probs, dec, m, out, 0))!r}, "
+              f"all ms={time_ms(probs_call(lib.wdx_svm_probs, dec, m, out))!r}, largest row {most} passes; "
+              f"a division that waits for the last {div_ns!r} ns")
+    if against is None:
+        return
+    theirs_path = _cuda.BUILD_DIR / "against" / "libwdx_svm_against.so"
+    _cuda.compile_library([Path(against, "svmdot.cu"), Path(against, "svmprob.cu")], theirs_path)
+    theirs = ctypes.CDLL(str(theirs_path))
+    for fname in ("wdx_svm_dot", "wdx_svm_probs"):
+        getattr(theirs, fname).argtypes = [*_cuda.SIGNATURES[fname], ctypes.c_void_p]
+    for name, b, m, K, dec in cases:
+        d_out, p_out = torch.empty_like(dec), torch.empty((b, m.n_classes), device=dev)
+        row = [f"{name} B={b}, {against} / this tree in turns"]
+        for kernel, calls in (("K12", (dot_call(theirs.wdx_svm_dot, K, m, d_out), dot_call(lib.wdx_svm_dot, K, m, d_out))),
+                              ("K13", (probs_call(theirs.wdx_svm_probs, dec, m, p_out),
+                                       probs_call(lib.wdx_svm_probs, dec, m, p_out)))):
+            times = [time_ms(calls[i]) for i in (0, 1, 1, 0)]
+            row.append(f"{kernel} ms {times!r}")
+        if m.coef.dtype == torch.float32:
+            row.append(f"torch.addmm ms={time_ms(lambda: torch.addmm(m.intercept, K, m.coef))!r}")
+        print(" | ".join(row))
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
@@ -150,6 +246,14 @@ def main(argv) -> int:
 
     dev = torch.device("cuda", 0)
     t = lambda a: torch.as_tensor(a, device=dev)
+    if argv[:1] == ["SVM"]:
+        against = argv[2] if argv[1:2] == ["--against"] else None
+        with ThreadPoolExecutor(6) as pool:
+            logs = dict(zip(SVM_VARIANTS, pool.map(lambda d: _cuda.build_log(_cuda.build(d)).read_text(), SVM_VARIANTS)))
+        sweep_svm(dev, lambda defines, kernel: "; ".join(
+            line for line in _cuda.ptxas_summary(logs[defines]) if kernel in line), against)
+        print(card_line())
+        return 0
     only_k11 = argv == ["K11"]
     variants = K11_VARIANTS if only_k11 else list(dict.fromkeys(
         K1_VARIANTS + K6_VARIANTS[1:] + K7_VARIANTS[1:] + K4_VARIANTS[1:] + K8_VARIANTS[1:] + K3_VARIANTS[1:]

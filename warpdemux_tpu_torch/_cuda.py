@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry point -> argument types (every entry point ends with the stream)
 SIGNATURES = {
     "wdx_dtw": (_P, _P, _P, _I, _I, _I, _I, _F),
@@ -60,10 +61,11 @@ SIGNATURES = {
     "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     "wdx_svm_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
     "wdx_svm_probs": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I),
+    "wdx_xla_log": (_P, _P, _L),
 }
 
 # entry points that launch no kernel of the port and are not counted
-PROBES = {"wdx_empty_launch": (_I, _I)}
+PROBES = {"wdx_empty_launch": (_I, _I), "wdx_div_chain": (_P, _I)}
 
 launches: dict[str, int] = {name: 0 for name in SIGNATURES}
 
@@ -167,7 +169,8 @@ def build_log(library_path: Path) -> Path:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """One line per kernel of a compile log: registers, spills, shared memory."""
+    """One line per kernel of a compile log: registers, stack frame (local
+    memory), spills, shared memory."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
@@ -175,10 +178,12 @@ def ptxas_summary(log: str) -> list[str]:
         if entry:
             info = " ".join(lines[i + 1 : i + 4])
             regs = re.search(r"Used (\d+) registers", info)
+            stack = re.search(r"(\d+) bytes stack frame", info)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
             smem = re.search(r"(\d+) bytes smem", info)
             out.append(
                 f"ptxas {entry.group(1)[:60]}: registers={regs and regs.group(1)} "
+                f"stack frame={stack and stack.group(1)} "
                 f"spill stores/loads={spill and '/'.join(spill.groups())} "
                 f"static smem={smem.group(1) if smem else 0}"
             )

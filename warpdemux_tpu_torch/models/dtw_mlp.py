@@ -4,8 +4,9 @@ Port of warpdemux_tpu/models/dtw_mlp.py as an nn.Module whose arrays are
 buffers: DTW distances against the reference fingerprints (kernel K1 on
 CUDA), an optional standard scaling, ReLU hidden layers, a softmax output
 (sklearn MLPClassifier.predict_proba with k >= 2 classes) and the argmax /
-margin / threshold post-processing. The products are torch.matmul, as the
-JAX package leaves them to XLA, in full float32 (no TF32) on the GPU.
+margin / threshold post-processing. The products are summed as XLA:CPU's
+jitted `h @ W + b` sums them where that order is known, each layer one
+launch of kernel K12 on CUDA (`ops/svm.dot_bias`).
 """
 
 from __future__ import annotations
@@ -15,21 +16,27 @@ import torch
 from warpdemux_tpu_torch.models.base import Classifier
 from warpdemux_tpu_torch.ops import svm as svm_ops
 from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
-from warpdemux_tpu_torch.ops.numerics import full_float32
+
+
+def mlp_logits(D, weights, biases, scaler_mean=None, scaler_scale=None) -> torch.Tensor:
+    """(B, n_ref) distances -> (B, k) output-layer pre-activations: the
+    optional scaling, then each layer's product and bias, ReLU between."""
+    h = D
+    if scaler_mean is not None:
+        # the jitted JAX model divides by its constant scale as XLA rewrites
+        # it: a multiply by the float32 reciprocal
+        h = (h - scaler_mean[None, :]) * (1.0 / scaler_scale)[None, :]
+    for i, (W, b) in enumerate(zip(weights, biases)):
+        h = svm_ops.dot_bias(h, W, b)
+        if i < len(weights) - 1:
+            h = torch.relu(h)
+    return h
 
 
 def mlp_predict_proba(D, weights, biases, scaler_mean=None, scaler_scale=None) -> torch.Tensor:
     """(B, n_ref) distances -> (B, k) class probabilities: ReLU hidden
     layers, softmax output."""
-    h = D
-    if scaler_mean is not None:
-        h = (h - scaler_mean[None, :]) / scaler_scale[None, :]
-    with full_float32():
-        for i, (W, b) in enumerate(zip(weights, biases)):
-            h = torch.matmul(h, W) + b[None, :]
-            if i < len(weights) - 1:
-                h = torch.relu(h)
-    return torch.softmax(h, dim=-1)
+    return torch.softmax(mlp_logits(D, weights, biases, scaler_mean, scaler_scale), dim=-1)
 
 
 class DTWMLPModel(Classifier):

@@ -19,7 +19,7 @@ device's summation order and contraction choices:
   vectorized CPU sqrt is not always.
 - `xla_log`: XLA:CPU's float32 log is the Cephes/Eigen polynomial, off
   the correctly rounded result by one ulp on a few percent of inputs;
-  torch.log (and CUDA's logf) round differently.
+  torch.log (and CUDA's logf) round differently. Kernel K14 on CUDA.
 - `xla_rsqrt`: XLA:CPU rewrites a / sqrt(b) into a * rsqrt(b) and computes
   the rsqrt as the x86 hardware estimate (`vrsqrtps`, a table of 2 x 1024
   entries of 12 bits) refined by two Newton steps with fused
@@ -44,6 +44,7 @@ import threading
 import numpy as np
 import torch
 
+from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops import _rsqrt_table
 
 BLOCK = 16
@@ -103,7 +104,7 @@ def prefix_sums(a: torch.Tensor) -> torch.Tensor:
 
 class _Float32Scope:
     """The TF32 switches are the process's, not a thread's: threads that
-    run the CNN or a DTW-MLP at once (the live lane's classifier threads)
+    run the CNN at once (the live lane's classifier threads, the trainer)
     enter and leave the scope at different times, so the first to enter
     saves the switches and the last to leave restores them."""
 
@@ -190,6 +191,7 @@ def _round_to_odd(p: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Te
 
 
 LANES, CHAIN = 0, 1  # the two summation orders of xla_dot (K12's `mode`)
+LANES_MAX_N = 2048  # the widest N at which P = 78 and 100 were found in the lanes order
 
 
 def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
@@ -201,13 +203,16 @@ def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
     - LANES: four FMA chains over the k of each residue mod 4, combined
       (l0 + l1) + (l2 + l3), then the last N mod 4 terms as rounded
       products added one by one from 0, added last. B >= 2 and P <= 16
-      (every five-class model); P = 21 (seven classes) from B = 51 on.
+      (every five-class model); P = 21 (seven classes) from B = 51 on;
+      P = 78 (twelve classes) and 100 (the DTW-MLP's hidden width) from
+      B = 51 on while N <= 2048 (at N = 2304, 2601 and 3617 it is not).
     - CHAIN: one FMA chain from 0 over each block of kc terms, the block
       sums added in order to 0. P = 21 below B = 51 (kc = N); P = 55
       (eleven classes) from B = 51 on (kc = 512).
     Not found: B = 1 with the coefficients constant, as a model's are (with
-    them as arguments it is one chain); P = 36, 78 and 55 below B = 51; the
-    DTW-MLP's hidden width 100 below B = 64 (ROADMAP queue 3, item C)."""
+    them as arguments it is one chain); P = 36 at any B; P = 55, 78 and 100
+    below B = 51; P = 78 and 100 beyond N = 2048, WDX12's (1000, 3617) x
+    (3617, 78) among them (ROADMAP queue 3, item C)."""
     if B < 2:
         return None
     if P <= 16:
@@ -216,6 +221,8 @@ def xla_dot_order(B: int, N: int, P: int) -> tuple[int, int] | None:
         return (CHAIN, N) if B <= 50 else (LANES, N)
     if P == 55 and B >= 51:
         return CHAIN, 512
+    if P in (78, 100) and B >= 51 and N <= LANES_MAX_N:
+        return LANES, N
     return None
 
 
@@ -285,16 +292,28 @@ _SQRT_HALF = _f32(0.707106781186547524)
 
 
 def xla_log(a: torch.Tensor) -> torch.Tensor:
-    """float32 natural log with the bits of XLA:CPU's `jnp.log`.
+    """float32 natural log with the bits of XLA:CPU's `jnp.log`
+    (`xla_log_plain`); kernel K14 (csrc/xlalog.cu) on CUDA tensors."""
+    if not _cuda.on_cuda(a):
+        return xla_log_plain(a)
+    x = a.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        _cuda.launch("wdx_xla_log", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+def xla_log_plain(a: torch.Tensor) -> torch.Tensor:
+    """float32 natural log with the bits of XLA:CPU's `jnp.log`; the plain
+    version of `xla_log` (any device).
 
     The algorithm of the kernel XLA compiles for log: range reduction to a
     mantissa m in [sqrt(1/2) - 1, sqrt(2) - 1) and an exponent e, a degree-8
     polynomial in m evaluated as three FMA chains in m**3, and
-    e * ln(2) added in two parts, with the same fused multiply-adds, each
-    an exact float64 product, one float64 add and one rounding to float32.
-    That rounds twice, so unlike `fma` it can miss XLA's bits where a
-    float64 sum lands on a float32 tie (`fma`'s correction would add about
-    twenty launches to each of the eleven on the card; ROADMAP queue 3).
+    e * ln(2) added in two parts, each multiply-add one fused multiply-add
+    (`fma`, one rounding). Rounded twice instead (a float64 sum rounded to
+    float32), no positive float32 input changes its result: an exhaustive
+    search over all of them found none.
 
     Domain: finite x > 0, for which the bits equal XLA's. The other inputs
     give what XLA:CPU gives: -inf for zero and for subnormals (which it
@@ -309,21 +328,17 @@ def xla_log(a: torch.Tensor) -> torch.Tensor:
     m = torch.where(small, (m - 1.0) + m, m - 1.0)
     x2 = m * m
     x3 = m * x2
-    m64, x3_64 = m.double(), x3.double()
-
-    def fma64(a64, b, c):
-        # float32 fma(a, b, c) for a given in float64 (b, c: float32 values)
-        return (a64 * b + c).to(torch.float32)
+    c = x.new_tensor
 
     def chain(p0, p1, p2):
-        return fma64(fma64(m64, p0, p1).double(), m64, p2)
+        return fma(fma(m, c(p0), c(p1)), m, c(p2))
 
     A = chain(*_LOG_P[0:3])
     B = chain(*_LOG_P[3:6])
     C = chain(*_LOG_P[6:9])
-    y = fma64(fma64(A.double(), x3_64, B).double(), x3_64, C)
-    t = fma64(y.double(), x3_64, e * _LOG_Q1)
-    r = fma64(e.double(), _LOG_Q2, fma64(x2.double(), -0.5, m) + t)
+    y = fma(fma(A, x3, B), x3, C)
+    t = fma(y, x3, e * _LOG_Q1)
+    r = fma(e, c(_LOG_Q2), fma(x2, c(-0.5), m) + t)
     r = torch.where(x == float("inf"), x, r)
     r = torch.where((x < 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
     # zero and subnormal inputs (read as zero) give -inf, of either sign

@@ -14,7 +14,7 @@ Port of warpdemux_tpu/ops/svm.py:
   with eps = 0.005 / k and max(100, k) iterations, batched with
   per-sample convergence freezing, in the float32 operations of the jitted
   JAX function (bit for bit up to seven classes); kernel K13,
-  csrc/svmprob.cu, on CUDA, one thread a row,
+  csrc/svmprob.cu, on CUDA, one warp a row,
 - argmax -> label map -> threshold-to-noise (-1) post-processing.
 """
 
@@ -69,34 +69,46 @@ def pdist_kernel(D: torch.Tensor, gamma: float = 1.0, pwr_dist: int = 1):
     return numerics.xla_exp(-gamma * Dp)
 
 
+def dot_bias_plain(K: torch.Tensor, C: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of `dot_bias` (any device)."""
+    return numerics.xla_dot(K, C) + bias
+
+
+def dot_bias(K: torch.Tensor, C: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(B, N) x (N, P) + (P,) in float32, the product summed in
+    `numerics.dot_order` and the bias added last, as a jitted
+    `jnp.dot(K, C) + bias`; K12 (csrc/svmdot.cu) on CUDA."""
+    if not _cuda.on_cuda(K, C, bias):
+        return dot_bias_plain(K, C, bias)
+    B, N = K.shape
+    P = C.shape[1]
+    K = K.contiguous()
+    C = C.contiguous()
+    bias = bias.contiguous()
+    _cuda.check(K, torch.float32, 2, "svm_dot K")
+    _cuda.check(C, torch.float32, 2, "svm_dot C")
+    _cuda.check(bias, torch.float32, 1, "svm_dot bias")
+    if C.shape[0] != N or bias.shape[0] != P:
+        raise ValueError(f"svm_dot: C {tuple(C.shape)} / bias {tuple(bias.shape)} for K {(B, N)}")
+    out = torch.empty((B, P), dtype=torch.float32, device=K.device)
+    if B and P:
+        mode, kc = numerics.dot_order(B, N, P)
+        _cuda.launch(
+            "wdx_svm_dot", K.device, K.data_ptr(), C.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, N, P, mode, kc,
+        )
+    return out
+
+
 def decision_values_plain(K_sv: torch.Tensor, params: SVMParams) -> torch.Tensor:
     """The plain version of `decision_values` (any device)."""
-    return numerics.xla_dot(K_sv, params.coef) + params.intercept
+    return dot_bias_plain(K_sv, params.coef, params.intercept)
 
 
 def decision_values(K_sv: torch.Tensor, params: SVMParams) -> torch.Tensor:
     """(B, P) one-vs-one decision values from the kernel vs support vectors,
     summed in `numerics.dot_order`; K12 on CUDA."""
-    if not _cuda.on_cuda(K_sv, params.coef, params.intercept):
-        return decision_values_plain(K_sv, params)
-    B, N = K_sv.shape
-    P = params.coef.shape[1]
-    K_sv = K_sv.contiguous()
-    coef = params.coef.contiguous()
-    intercept = params.intercept.contiguous()
-    _cuda.check(K_sv, torch.float32, 2, "svm_dot K_sv")
-    _cuda.check(coef, torch.float32, 2, "svm_dot coef")
-    _cuda.check(intercept, torch.float32, 1, "svm_dot intercept")
-    if coef.shape[0] != N or intercept.shape[0] != P:
-        raise ValueError(f"svm_dot: coef {tuple(coef.shape)} / intercept {tuple(intercept.shape)} for K_sv {(B, N)}")
-    out = torch.empty((B, P), dtype=torch.float32, device=K_sv.device)
-    if B:
-        mode, kc = numerics.dot_order(B, N, P)
-        _cuda.launch(
-            "wdx_svm_dot", K_sv.device, K_sv.data_ptr(), coef.data_ptr(), intercept.data_ptr(),
-            out.data_ptr(), B, N, P, mode, kc,
-        )
-    return out
+    return dot_bias(K_sv, params.coef, params.intercept)
 
 
 def sigmoid_predict(dec, A, B):
@@ -189,7 +201,7 @@ def probabilities_plain(dec: torch.Tensor, params: SVMParams, min_prob: float = 
     return multiclass_probability(r, k)
 
 
-MAX_CLASSES = 16  # K13 keeps a row's k x k matrix in its thread
+MAX_CLASSES = 16  # K13 keeps a row's k x k matrix in a warp, a row a lane
 
 
 def probabilities(dec: torch.Tensor, params: SVMParams, min_prob: float = 1e-7) -> torch.Tensor:
