@@ -522,7 +522,8 @@ def test_decision_step_gpu_matches_cpu(dev):
     _cuda.reset_launches()
     gpu = make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
-    idle = {"wdx_rolling_detect", "wdx_subseq_dtw"}  # K9 replaces K6 + K7; K10 is the tRNA path's
+    # K9 replaces K6 + K7; K10 is the tRNA path's; K15 the DTW-MLP's and Fpt-Boost's softmax
+    idle = {"wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax"}
     assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
     cpu = make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu", **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
@@ -723,8 +724,8 @@ def test_k11_rows_outside_its_domain_raise(dev):
 @pytest.mark.parametrize("kind", ["dtw_mlp", "fpt_boost"])
 def test_model_family_gpu_matches_cpu(dev, kind):
     """DTW-MLP (851 references, hidden 100) and Fpt-Boost (1,000 trees of
-    depth 6) at 1000 fingerprints: pred on all but one row, probs within
-    rtol 1e-5, atol 1e-6."""
+    depth 6) at 1000 fingerprints: pred, conf and probs bit for bit (K1, K12
+    and K15 are their plain versions' bits), K15 launched once."""
     from warpdemux_tpu_torch.models.registry import model_from_arrays
 
     X_ref = load_model_arrays(MODEL)["X_sv"].astype(np.float32)
@@ -734,9 +735,11 @@ def test_model_family_gpu_matches_cpu(dev, kind):
     _cuda.reset_launches()
     gpu = model_from_arrays(arrays, dev).predict(fpts)
     assert _cuda.launches["wdx_dtw"] == (1 if kind == "dtw_mlp" else 0)
+    assert _cuda.launches["wdx_xla_softmax"] == 1
     cpu = model_from_arrays(arrays, "cpu").predict(fpts)
-    assert (gpu[0] == cpu[0]).sum() >= 999
-    np.testing.assert_allclose(gpu[2], cpu[2], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    np.testing.assert_array_equal(gpu[1].view(np.int32), cpu[1].view(np.int32))
+    np.testing.assert_array_equal(gpu[2].view(np.int32), cpu[2].view(np.int32))
 
 
 @pytest.mark.parametrize("name", RNA002_MODELS)
@@ -935,3 +938,28 @@ def test_k14_on_every_float32_bit_pattern(dev):
         x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
         got, want = numerics.xla_log(x), numerics.xla_log_plain(x)
         assert bool(((got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())).all()), c
+
+
+def _same_or_both_nan(a, b):
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("B, k", [(1000, 5), (1000, 13), (16, 5), (1, 7), (64, 33), (3, 1), (5, 1024)])
+def test_k15_xla_softmax_equals_its_plain_version(dev, B, k):
+    """K15 bit for bit its plain version (a NaN as a NaN) on logits from a
+    seed and on the edge rows (subnormal quotients, +-inf, NaN)."""
+    from chip_smoke import k15_edge_rows, k15_logits
+    from warpdemux_tpu_torch.ops import numerics
+
+    for z in (k15_logits((B, k), B + k), k15_edge_rows(k)):
+        z = torch.as_tensor(z, device=dev)
+        got = _launched("wdx_xla_softmax", lambda: numerics.xla_softmax(z))
+        assert _same_or_both_nan(got, numerics.xla_softmax_plain(z))
+
+
+def test_k15_refuses_the_widths_it_does_not_serve(dev):
+    from warpdemux_tpu_torch.ops import numerics
+
+    for k in (0, 1025):
+        with pytest.raises(ValueError, match="K15 takes"):
+            numerics.xla_softmax(torch.zeros((4, k), device=dev))

@@ -245,9 +245,8 @@ def test_dtw_mlp_products_equal_the_jitted_jax_forward(xla_order_host, mlp_array
     jitted JAX forward (warpdemux_tpu/models/dtw_mlp.py mlp_predict_proba,
     `h @ W + b` with the model's arrays closed over, as its jitted predict
     closes over them: XLA divides by the constant scale as a multiply by
-    its reciprocal); the probabilities within rtol 1e-5, atol 1e-6, off by
-    an ulp in some cells (torch.softmax against XLA's exp and sum, ROADMAP
-    queue 3, item C)."""
+    its reciprocal); the probabilities too (`numerics.xla_softmax`, XLA's
+    exp and sum, ROADMAP queue 3, item C)."""
     from warpdemux_tpu.models.dtw_mlp import DTWMLPModel as JaxMLP
     from warpdemux_tpu.models.dtw_mlp import mlp_predict_proba as jax_mlp_predict_proba
     from warpdemux_tpu_torch.models.dtw_mlp import mlp_logits, mlp_predict_proba
@@ -270,7 +269,7 @@ def test_dtw_mlp_products_equal_the_jitted_jax_forward(xla_order_host, mlp_array
            mlp_predict_proba(Dt, weights, biases, smt, sst).numpy()]
     np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]), err_msg="hidden pre-activations")
     np.testing.assert_array_equal(_bits(got[1]), _bits(want[1]), err_msg="logits")
-    np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(_bits(got[2]), _bits(want[2]), err_msg="probabilities")
 
 
 @pytest.mark.parametrize("B", [64, 1000])

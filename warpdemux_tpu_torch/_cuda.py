@@ -62,6 +62,7 @@ SIGNATURES = {
     "wdx_svm_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
     "wdx_svm_probs": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I),
     "wdx_xla_log": (_P, _P, _L),
+    "wdx_xla_softmax": (_P, _P, _I, _I),
 }
 
 # entry points that launch no kernel of the port and are not counted

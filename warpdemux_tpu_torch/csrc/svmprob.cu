@@ -40,30 +40,6 @@
 #define WDX_SVM_MAX_CLASSES 16
 #define WDX_FULL_MASK 0xffffffffu
 
-// XLA:CPU's float32 exp (ops/numerics.py xla_exp); the constants are the
-// float32 bits of the plain version's.
-__device__ __forceinline__ float wdx_xla_exp(float x) {
-  if (isnan(x)) return x;
-  const float xc = fminf(fmaxf(x, __int_as_float(0xC2AF999A)), __int_as_float(0x42B1999A));
-  const float t = floorf(__fmaf_rn(xc, __int_as_float(0x3FB8AA3B), 0.5f));
-  const float n = fminf(fmaxf(t, -126.f), 127.f);
-  float r = __fmaf_rn(n, -0.693359375f, xc);
-  r = __fmaf_rn(n, __int_as_float(0x395E8083), r);
-  float z = __fmaf_rn(r, __int_as_float(0x39506967), __int_as_float(0x3AB743CE));
-  z = __fmaf_rn(z, r, __int_as_float(0x3C088908));
-  z = __fmaf_rn(z, r, __int_as_float(0x3D2AA9C1));
-  z = __fmaf_rn(z, r, __int_as_float(0x3E2AAAAA));
-  z = __fmaf_rn(z, r, 0.5f);
-  z = __fadd_rn(1.f, __fmaf_rn(z, __fmul_rn(r, r), r));
-  const float y = __fmul_rn(z, __int_as_float(((int)n + 127) << 23));
-  return y < 1.17549435e-38f ? 0.f : y;
-}
-
-// max of |v| over a row as torch.amax: NaN if any is NaN
-__device__ __forceinline__ float wdx_nan_max(float m, float v) {
-  return (isnan(m) || isnan(v)) ? __int_as_float(0x7FC00000) : (v > m ? v : m);
-}
-
 // KM classes at most; FIXED: exactly KM (the loops' bounds known)
 template <int KM, bool FIXED>
 __global__ void __launch_bounds__(WDX_SVMPROB_WARPS * 32)

@@ -6,7 +6,8 @@ CUDA), an optional standard scaling, ReLU hidden layers, a softmax output
 (sklearn MLPClassifier.predict_proba with k >= 2 classes) and the argmax /
 margin / threshold post-processing. The products are summed as XLA:CPU's
 jitted `h @ W + b` sums them where that order is known, each layer one
-launch of kernel K12 on CUDA (`ops/svm.dot_bias`).
+launch of kernel K12 on CUDA (`ops/svm.dot_bias`); the softmax is
+jax.nn.softmax's bits, one launch of kernel K15 (`numerics.xla_softmax`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from warpdemux_tpu_torch.models.base import Classifier
+from warpdemux_tpu_torch.ops import numerics
 from warpdemux_tpu_torch.ops import svm as svm_ops
 from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
 
@@ -35,8 +37,8 @@ def mlp_logits(D, weights, biases, scaler_mean=None, scaler_scale=None) -> torch
 
 def mlp_predict_proba(D, weights, biases, scaler_mean=None, scaler_scale=None) -> torch.Tensor:
     """(B, n_ref) distances -> (B, k) class probabilities: ReLU hidden
-    layers, softmax output."""
-    return torch.softmax(mlp_logits(D, weights, biases, scaler_mean, scaler_scale), dim=-1)
+    layers, XLA's softmax output."""
+    return numerics.xla_softmax(mlp_logits(D, weights, biases, scaler_mean, scaler_scale))
 
 
 class DTWMLPModel(Classifier):

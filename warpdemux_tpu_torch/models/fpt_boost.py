@@ -15,7 +15,9 @@ fingerprints and T trees:
 The sum over trees takes XLA's order (`numerics.xla_sum` over T): bit for
 bit the jitted JAX function's scores for T > 32 trees. For 32 or fewer,
 XLA:CPU sums in an order not found; the scores there differ from JAX's in
-the last bits (probabilities within rtol 1e-5, atol 1e-6).
+the last bits (probabilities within rtol 1e-5, atol 1e-6). The softmax is
+jax.nn.softmax's bits (`numerics.xla_softmax`, kernel K15 on CUDA), so
+above 32 trees the probabilities and confidences are the JAX model's.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from warpdemux_tpu_torch.models.base import Classifier
 from warpdemux_tpu_torch.ops import svm as svm_ops
-from warpdemux_tpu_torch.ops.numerics import xla_sum
+from warpdemux_tpu_torch.ops.numerics import xla_softmax, xla_sum
 
 
 def oblivious_forest_scores(x, feat, thr, leaf_values) -> torch.Tensor:
@@ -66,6 +68,6 @@ class FptBoostModel(Classifier):
     def forward(self, fpts: torch.Tensor):
         """(B, m) fingerprints -> (pred (B,) int32, conf (B,), probs (B, k))."""
         scores = oblivious_forest_scores(fpts, self.feat, self.thr, self.leaf_values) + self.bias
-        probs = torch.softmax(scores, dim=-1)
+        probs = xla_softmax(scores)
         pred, conf = svm_ops.process_probs(probs, self.label_map, self.thresholds)
         return pred, conf, probs

@@ -20,6 +20,9 @@ device's summation order and contraction choices:
 - `xla_log`: XLA:CPU's float32 log is the Cephes/Eigen polynomial, off
   the correctly rounded result by one ulp on a few percent of inputs;
   torch.log (and CUDA's logf) round differently. Kernel K14 on CUDA.
+- `xla_softmax`: jax.nn.softmax jitted on XLA:CPU: XLA's exp of z less
+  the row max over the row's `xla_sum`, a subnormal quotient flushed to
+  zero. Kernel K15 on CUDA.
 - `xla_rsqrt`: XLA:CPU rewrites a / sqrt(b) into a * rsqrt(b) and computes
   the rsqrt as the x86 hardware estimate (`vrsqrtps`, a table of 2 x 1024
   entries of 12 bits) refined by two Newton steps with fused
@@ -375,6 +378,46 @@ def xla_exp(a: torch.Tensor) -> torch.Tensor:
     y = z * pow2
     y = torch.where(y < _TINY, torch.zeros_like(y), y)
     return torch.where(torch.isnan(x), x, y)
+
+
+SOFTMAX_MAX_CLASSES = 32 * 32  # K15 sums rows of up to 32 windows of 32 (one level)
+
+
+def xla_softmax(z: torch.Tensor) -> torch.Tensor:
+    """float32 softmax over the last dim with the bits of XLA:CPU's jitted
+    `jax.nn.softmax` (`xla_softmax_plain`); kernel K15 (csrc/xlasoftmax.cu)
+    on CUDA tensors, which takes 1 to SOFTMAX_MAX_CLASSES classes and
+    raises ValueError for any other width."""
+    if not _cuda.on_cuda(z):
+        return xla_softmax_plain(z)
+    k = z.shape[-1] if z.dim() else 0
+    if not 1 <= k <= SOFTMAX_MAX_CLASSES:
+        raise ValueError(f"xla_softmax: K15 takes 1 to {SOFTMAX_MAX_CLASSES} classes, got shape {tuple(z.shape)}")
+    x = z.to(torch.float32).contiguous()
+    rows = x.numel() // k
+    if rows >= 2**31:
+        raise ValueError(f"xla_softmax: {rows} rows, K15 takes fewer than 2**31")
+    out = torch.empty_like(x)
+    if rows:
+        _cuda.launch("wdx_xla_softmax", x.device, x.data_ptr(), out.data_ptr(), rows, k)
+    return out
+
+
+def xla_softmax_plain(z: torch.Tensor) -> torch.Tensor:
+    """float32 softmax over the last dim with the bits of XLA:CPU's jitted
+    `jax.nn.softmax`; the plain version of `xla_softmax` (any device).
+
+    e = `xla_exp`(z - the row max), then e / `xla_sum`(e) as an IEEE
+    division, a subnormal quotient flushed to zero (XLA:CPU runs with
+    flush-to-zero: a row [0, 0, 0, -87.0, -87.2] gives 0 where the
+    division gives 5.49e-39). A row holding NaN gives NaN; +inf gives NaN
+    (inf - inf); -inf gives 0 beside a finite value, NaN where the whole
+    row is -inf: what the jitted JAX function gives
+    (tests/test_torch_softmax.py)."""
+    x = z.to(torch.float32)
+    e = xla_exp(x - x.amax(-1, keepdim=True))
+    q = e / xla_sum(e)[..., None]
+    return torch.where(q < _TINY, torch.zeros_like(q), q)
 
 
 _rsqrt_tables: dict[torch.device, torch.Tensor] = {}

@@ -1,23 +1,23 @@
-"""Exact ranged medians / MADs by radix selection (no sorts).
+"""Exact ranged medians / MADs by radix selection.
 
 Port of warpdemux_tpu/ops/select.py `range_median_mad`. Float32 values map
 onto int32 keys by the monotone image
 
     key(x) = bits(x) >= 0 ? bits(x) : bits(x) ^ 0x7FFFFFFF
 
-and the k-th smallest key of a range is found by one sign-deciding count
-followed by 31 MSB-first rounds: bit b is set iff count(key < candidate)
-<= k. Medians follow numpy exactly (mean of the two middle order
-statistics for even counts, NaN for an empty range); MAD = median of
-|x - median|.
+and the JAX package finds the k-th smallest key of a range by one
+sign-deciding count followed by 31 MSB-first rounds: bit b is set iff
+count(key < candidate) <= k. Medians follow numpy exactly (mean of the
+two middle order statistics for even counts, NaN for an empty range);
+MAD = median of |x - median|.
 
 CUDA tensors go to kernel K4 (csrc/select.cu): one block per (range, row)
 stages the range's keys in shared memory once and finds the rank-th key by
 histograms of 8-bit digits, most significant first, starting at the highest
 bit in which the range's keys differ (3 or 4 rounds where the bisection
 takes 32); rows whose keys do not fit shared memory stream the bisection
-from device memory. CPU tensors go to the plain bisection over (R, B, L)
-masks.
+from device memory. CPU tensors go to the plain version over (R, B, L)
+masks, which sorts each range's keys once.
 
 `range_medians_adc` is the median-only path of the adc and vbz feeds: the
 order statistics are selected over the int16 ADC preimage of the calibrated
@@ -38,7 +38,6 @@ from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops.numerics import fma
 
 _I32_MAX = 2**31 - 1
-_I32_MIN = -(2**31)
 # room kept for K4's static shared memory (its histograms and the warps'
 # slots: 6,464 bytes as built, 12,928 with the 11-bit digits of the sweep in
 # tune_kernels.py)
@@ -67,35 +66,20 @@ def keys_to_float(key: torch.Tensor) -> torch.Tensor:
     return i.contiguous().view(torch.float32)
 
 
-def _masked_rank_keys(key, mask, ranks):
-    """int32 key of the rank-th smallest masked key along the last axis."""
-    cnt_neg = ((key < 0) & mask).sum(-1)
-    res = torch.where(
-        ranks < cnt_neg,
-        torch.full_like(ranks, _I32_MIN),
-        torch.zeros_like(ranks),
-    )
-    for i in range(31):
-        t = res | (1 << (30 - i))
-        cnt = ((key < t[..., None]) & mask).sum(-1)
-        res = torch.where(cnt <= ranks, t, res)
-    return res
-
-
 def median_from_keys(key, mask, n):
-    """Median (numpy semantics) from precomputed keys; n = count(mask)."""
-    lo_rank = torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)
-    lo_key = _masked_rank_keys(key, mask, lo_rank)
-    lo = keys_to_float(lo_key)
-    # upper middle: lo again iff its multiplicity covers rank n // 2, else
-    # the next larger masked key
-    cnt_le = ((key <= lo_key[..., None]) & mask).sum(-1)
-    nxt = torch.where(
-        (key > lo_key[..., None]) & mask, key, torch.full_like(key, _I32_MAX)
-    ).amin(-1)
-    need_next = (n % 2 == 0) & (cnt_le <= n // 2)
-    hi = torch.where(need_next, keys_to_float(nxt), lo)
-    med = torch.where(n % 2 == 1, lo, 0.5 * (lo + hi))
+    """Median (numpy semantics) from precomputed keys; n = count(mask).
+
+    The two middle order statistics of each masked row, read off one sort
+    of its keys with those outside the mask moved past the end: an order
+    statistic takes no float arithmetic, so any exact selection gives the
+    bits that the kernels' radix selection gives."""
+    if key.shape[-1] == 0:
+        return torch.full(n.shape, float("nan"), device=key.device)
+    srt = torch.where(mask, key, torch.full_like(key, _I32_MAX)).sort(-1).values
+    n = n.to(torch.int64)
+    lo = keys_to_float(srt.gather(-1, torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)[..., None]))
+    hi = keys_to_float(srt.gather(-1, (n // 2).clamp_max(key.shape[-1] - 1)[..., None]))
+    med = torch.where(n[..., None] % 2 == 1, lo, 0.5 * (lo + hi))[..., 0]
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
