@@ -100,7 +100,7 @@ Phases (each raises on failure; nothing is caught):
    through `_cuda.launch` and through a launch that resolves the entry
    point, the device context and the stream object every time.
 3. Three main paths of the WDX4 step on the first 256 reads of
-   bench.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
+   synthetic.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
    a. the adc feed, decision outputs: every kernel but K9, K10 and K15
       must launch;
@@ -259,6 +259,24 @@ Phases (each raises on failure; nothing is caught):
    (LAUNCHES["pa_detect"] for the detect trace), and no other: a profiler
    that missed the ctypes launches fails here. The stage table's dtw and
    svm proba rows must launch their kernels (K1; K12 and K13) once a call.
+14. The port's throughput tools and boundary validation
+   (warpdemux_tpu_torch/tools/bench_models, sweep_minibatch, bench_trna,
+   validate_boundaries) on the card, after phase 13, in a process of its
+   own (no profiler attached there), each through the function its command
+   line calls with every launch count at 0 before it and read after it:
+   a. bench_models at WDX4 / WDX6 / WDX10, the full and decision steps on
+      16 staged B=1000 adc minibatches (TOOL_DISTINCT drawn, the rest
+      copies), TOOL_ROUNDS rounds in turns: the JSON line of each model and
+      each round's reads/s;
+   b. sweep_minibatch at B = 500, 1000, 2000 and 4000 (16,000 reads a
+      measurement), the Markdown table with the peak memory of each B;
+   c. bench_trna at B = 1000 (the tRNA step on the pa feed): its line;
+   every step of a-c launching its path's LAUNCHES pin and nothing else;
+   d. validate_boundaries.validate on 400 synthetic mRNA reads
+      (validate_batches) on the card and on the CPU: every table line
+      equal, the launches of LAUNCHES["validate_boundaries"] a minibatch;
+   e. K12 at the WDX6 and WDX10 step shapes (B = 1000): bit for bit its
+      plain version, timed beside its bound and torch.addmm (TF32 off).
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -354,7 +372,14 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2, 0),
             # phase 13's detect trace: detect_boundaries_with_fallback alone
             # on calibrated float signals (no adc: K4 where the adc feeds
             # take K8), with its region statistics, no fingerprint
-            "pa_detect": (0, 0, 0, 4, 2, 1, 2, 0, 0, 0, 3, 0, 0, 2, 0)}
+            "pa_detect": (0, 0, 0, 4, 2, 1, 2, 0, 0, 0, 3, 0, 0, 2, 0),
+            # phase 14: bench_trna's step (the tRNA step on the pa feed, full
+            # outputs: K4 for the adapter-level proxy where the adc feeds
+            # take K8); one minibatch of validate_boundaries.validate (four
+            # detect configurations on float signals, the three fingerprinted
+            # ones through K1, K12 and K13)
+            "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 2, 0),
+            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 6, 0)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -387,6 +412,16 @@ OFFLINE_TIMED_ROUNDS = 3
 TWO_STAGE_MODELS = ("WDX4_rna004_v1_0", "WDX10_rna004_v1_0")
 TWO_STAGE_ROUNDS = 5
 SOAK_READS = 4000  # phase 6d's soak
+# phase 14: the throughput tools at their models and sizes, each path timed
+# TOOL_ROUNDS times in turns; TOOL_DISTINCT minibatches drawn a measurement
+# and the rest staged as copies of them (the host draws ~1,400 reads/s);
+# validate_boundaries.validate on VALIDATE_READS reads in minibatches of 200
+TOOL_MODELS = ("WDX4_rna004_v1_0", "WDX6_rna004_v1_0", "WDX10_rna004_v1_0")
+SWEEP_SIZES = (500, 1000, 2000, 4000)
+TOOL_ROUNDS = 3
+TOOL_DISTINCT = 2
+VALIDATE_READS = 400
+K12_WIDE_MODELS = ("WDX6_rna004_v1_0", "WDX10_rna004_v1_0")  # K12 timed at their step shapes in phase 14
 OFFLINE_LAST_ROWS = 617  # the last of the four minibatches: 3,617 reads, one short batch
 # phase 10's run: the data of WORKER_DISTINCT minibatches (each drawn once a
 # process) in WORKER_MINIBATCHES minibatches of read ids of their own, the
@@ -425,12 +460,12 @@ def trna_minibatch(rng, n, length=L):
     barcoded reads with a 600-sample poly(A), without one (the split
     path), with real-fitted dwell times; tRNA reads without a capture
     spike (rna start peak not found), with the body at the adapter's level
-    (med shift check failed); and bench.synth_minibatch mRNA rows (no
+    (med shift check failed); and synthetic.synth_minibatch mRNA rows (no
     consensus: real signal check failed or consensus query outlier).
     barcode is the planted class, -1 where none was planted."""
     import numpy as np
 
-    from bench import ADC_OFFSET, ADC_SCALE, synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import ADC_OFFSET, ADC_SCALE, synth_minibatch
     from warpdemux_tpu_torch.utils.synthetic import (
         real_dwell_sampler,
         synth_trna_barcoded_read,
@@ -474,10 +509,10 @@ RNA002_L = 15000  # the chemistry's sig_preload_size
 def rna002_minibatch(rng, n, length=RNA002_L):
     """(adc (n, length) int16, offset, scale, lens): the port's
     utils/synthetic.synth_batch mRNA reads quantized to ADC counts with
-    bench.py's calibration."""
+    synthetic.synth_minibatch's calibration."""
     import numpy as np
 
-    from bench import ADC_OFFSET, ADC_SCALE
+    from warpdemux_tpu_torch.utils.synthetic import ADC_OFFSET, ADC_SCALE
     from warpdemux_tpu_torch.utils.synthetic import synth_batch
 
     sigs, lens, _ = synth_batch(rng, n, L=length)
@@ -1525,7 +1560,7 @@ def check_kernels(dev, card):
     import torch
     import torch.nn.functional as F
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
@@ -2028,7 +2063,7 @@ def _steps(dev):
 
 def vbz_batch(adc, off, sc, lens):
     """Reads packed into the VBZ wire with the port's numpy helpers, at
-    bench.VBZ_WIDTH data bytes a row, or the multiple of 1024 that holds
+    synthetic.VBZ_WIDTH data bytes a row, or the multiple of 1024 that holds
     the longest (rows of more than 10,000 samples)."""
     from warpdemux_tpu_torch.tools._trace import vbz_pack
 
@@ -2361,7 +2396,7 @@ def count_step_ops(steps, lane_program, offline_run, trna, rna002):
     more."""
     import numpy as np
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
 
     adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
     rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
@@ -2447,7 +2482,7 @@ def run_main_paths(dev, steps):
     import numpy as np
     import torch
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch.ops.vbz_device import vbz_decode_batch
 
     cpu_steps = _steps("cpu")
@@ -2649,7 +2684,7 @@ def run_offline_loop(dev, card, step_rates):
     import numpy as np
     import torch
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.pipeline.run import demux_minibatches
@@ -2753,7 +2788,7 @@ def vbz_ragged(adc, off, sc, in_lens):
     the body of exactly in_len samples, key bits and data zero past it."""
     import numpy as np
 
-    from bench import VBZ_WIDTH
+    from warpdemux_tpu_torch.utils.synthetic import VBZ_WIDTH
     from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc
 
     keys = np.zeros((len(adc), (adc.shape[1] + 7) // 8), np.uint8)
@@ -2776,7 +2811,7 @@ def run_twostage_wire(dev, card):
     import numpy as np
     import torch
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
     from warpdemux_tpu_torch.models.registry import load_model
@@ -3005,7 +3040,7 @@ def run_families_and_rna002(dev, card, mrna_full_step):
     import numpy as np
     import torch
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.config import config as c
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
@@ -3129,7 +3164,7 @@ def phase10_worker(device, out, n_batches, batch_size, last_rows):
     import torch
     import torch.distributed as dist
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.models.registry import load_model
     from warpdemux_tpu_torch.parallel.multihost import host_shard_tag, init_distributed
@@ -3270,7 +3305,7 @@ def run_trainers(dev, card):
     import numpy as np
     import torch
 
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.config import utils as config_utils
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
@@ -3473,6 +3508,215 @@ def run_trainers(dev, card):
     return by_path
 
 
+def validate_batches(n=VALIDATE_READS, batch=200):
+    """(sigs, in_lens, full_lens, read_ids) minibatches of `n` synthetic mRNA
+    reads in picoamps: half barcoded reads planted from WDX4's support
+    vectors (live/dummy.synth_barcoded_read, the classes in turn, seed 0),
+    so that the barcode calls are not all noise, half rows of
+    synth_minibatch(default_rng(0), n / 2, L), every eighth cut to 300 to
+    2,400 samples."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.live.dummy import synth_barcoded_read
+    from warpdemux_tpu_torch.models.registry import load_model_arrays
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
+
+    arrays = load_model_arrays(MODEL)
+    X, n_classes = arrays["X_sv"], len(arrays["label_map"]) - 1  # the noise class has no reads
+    bounds = np.concatenate([[0], np.cumsum(arrays["n_support"])])
+    rng = np.random.default_rng(0)
+    sigs = np.zeros((n, L), np.float32)
+    in_lens = np.zeros(n, np.int32)
+    full_lens = np.zeros(n, np.int32)
+    for i in range(n // 2):
+        ci = i % n_classes
+        sig = synth_barcoded_read(rng, X[rng.integers(bounds[ci], bounds[ci + 1])])
+        in_lens[i], full_lens[i] = min(L, sig.size), sig.size
+        sigs[i, : in_lens[i]] = sig[: in_lens[i]]
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), n - n // 2, L)
+    pa = (adc.astype(np.float32) + off[:, None]) * sc[:, None]
+    row = np.arange(len(lens))
+    cut = np.where(row % 8 == 7, 300 * (1 + (row // 8) % 8), lens)
+    for j in range(len(lens)):
+        sigs[n // 2 + j, : cut[j]] = pa[j, : cut[j]]
+    in_lens[n // 2:] = full_lens[n // 2:] = cut
+    ids = np.array([f"read{i}" for i in range(n)], object)
+    return [(sigs[k : k + batch], in_lens[k : k + batch], full_lens[k : k + batch], ids[k : k + batch])
+            for k in range(0, n, batch)]
+
+
+def check_tool_launches(by_path, name, rates, path):
+    """A tool path's launches, each of its `rates.calls` steps the pin of
+    LAUNCHES[path]; recorded under `name`."""
+    want = {key: n * rates.calls for key, n in zip(KERNELS, LAUNCHES[path]) if n}
+    print(f"phase 14 {name}: {rates.calls} steps launched {rates.launches} (LAUNCHES[{path!r}] x {rates.calls})")
+    require(rates.launches == want, f"phase 14 {name}: launches differ from LAUNCHES[{path!r}] x {rates.calls}")
+    by_path[name] = {key: rates.launches.get(key, 0) for key in KERNELS}
+
+
+def run_tools(dev, card):
+    """Phase 14: the port's throughput tools and boundary validation
+    (warpdemux_tpu_torch/tools/) on the card, each driven through the
+    function its command line calls, every launch count at 0 before each
+    tool and read after it:
+    a. bench_models at WDX4 / WDX6 / WDX10 (16 staged B=1000 minibatches),
+       the full and decision steps in turns;
+    b. sweep_minibatch at B = 500-4000 (16,000 reads a measurement), with
+       the peak memory each B took;
+    c. bench_trna at B = 1000 (12 staged copies of one tRNA minibatch);
+    d. validate_boundaries.validate on validate_batches() on the card and on
+       the CPU: the tables equal line for line;
+    e. K12 at the WDX6 and WDX10 step shapes (B = 1000): bit for bit its
+       plain version, timed beside its bound and torch.addmm.
+    a-c with TOOL_ROUNDS rounds each; every step's launches its path's
+    LAUNCHES pin (adc full steps: "vbz_full"'s, whose vbz decode launches
+    nothing). Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_cnn, load_model
+    from warpdemux_tpu_torch.ops import numerics, svm
+    from warpdemux_tpu_torch.tools import _throughput, bench_models, bench_trna, sweep_minibatch
+    from warpdemux_tpu_torch.tools import validate_boundaries as vb
+
+    by_path = {}
+
+    def launched_only(paths, what):
+        total = {key: n for key, n in _cuda.launches.items() if n}
+        summed = {key: sum(by_path[p][key] for p in paths) for key in KERNELS}
+        require(total == {key: n for key, n in summed.items() if n}, f"phase 14 {what}: launches outside its steps")
+
+    # a. the model sweep
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    rows = bench_models.bench_models(TOOL_MODELS, dev, TOOL_ROUNDS, distinct=TOOL_DISTINCT)
+    names = []
+    for row, rates in rows:
+        print(json.dumps(row))
+        print("\n".join(f"# {row['model']} {line[2:]}" for line in _throughput.round_lines(rates, card)))
+        require(all(r > 0 for path in rates.values() for r in path.rounds), f"phase 14 {row['model']}: a rate of 0")
+        for outputs, path in (("full", "vbz_full"), ("decision", "adc_decision")):
+            names.append(f"bench_models {row['model']} {outputs}")
+            check_tool_launches(by_path, names[-1], rates[outputs], path)
+    launched_only(names, "bench_models")
+    print(f"phase 14 bench_models: {time.perf_counter() - t0!r} s")
+
+    # b. the minibatch sweep
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    print(f"# {sweep_minibatch.MODEL}, adc feed, inputs on the device, {sweep_minibatch.N_READS} reads a "
+          f"measurement, rounds={TOOL_ROUNDS}, {TOOL_DISTINCT} distinct minibatches a B, on {card}")
+    print("\n".join(sweep_minibatch.HEADER))
+    names = []
+    for row in sweep_minibatch.sweep(SWEEP_SIZES, dev, TOOL_ROUNDS, distinct=TOOL_DISTINCT):
+        print("| " + " | ".join(row.cells()) + " |")
+        print("\n".join(f"# B={row.B} {line[2:]}" for line in _throughput.round_lines(row.rates, card)))
+        print(f"# B={row.B}: {row.n_batches} minibatches a measurement, peak allocated {row.peak_bytes} bytes")
+        require(row.peak_bytes > 0, f"phase 14 sweep B={row.B}: no device memory")
+        for outputs, path in (("full", "vbz_full"), ("decision", "adc_decision")):
+            names.append(f"sweep_minibatch B={row.B} {outputs}")
+            check_tool_launches(by_path, names[-1], row.rates[outputs], path)
+    launched_only(names, "sweep_minibatch")
+    print(f"phase 14 sweep_minibatch: {time.perf_counter() - t0!r} s")
+
+    # c. the tRNA step
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    run = bench_trna.bench_trna(B, dev, TOOL_ROUNDS)
+    print("\n".join(_throughput.round_lines({"tRNA": run.rates}, card)))
+    print(bench_trna.line(run, dev))
+    require(run.rates.n_pass > 0, "phase 14 bench_trna: no read passed")
+    check_tool_launches(by_path, "bench_trna", run.rates, "trna_pa_full")
+    launched_only(["bench_trna"], "bench_trna")
+    print(f"phase 14 bench_trna: {time.perf_counter() - t0!r} s")
+
+    # d. the boundary validation, card against CPU
+    t0 = time.perf_counter()
+    batches = validate_batches()
+    spc = get_model_spc_config(vb.MODEL)
+    _cuda.reset_launches()
+    gpu = vb.validate(batches, spc, load_model(vb.MODEL, dev), load_cnn(spc.cnn_model_name, dev))
+    by_path["validate_boundaries"] = {key: _cuda.launches[key] for key in KERNELS}
+    want = {key: n * len(batches) for key, n in zip(KERNELS, LAUNCHES["validate_boundaries"])}
+    print(f"phase 14 validate_boundaries: {len(batches)} minibatches launched "
+          f"{ {k: n for k, n in by_path['validate_boundaries'].items() if n} }")
+    require(by_path["validate_boundaries"] == want, "phase 14 validate: launches differ from LAUNCHES x minibatches")
+    t_gpu = time.perf_counter() - t0
+    cpu = vb.validate(batches, spc, load_model(vb.MODEL, "cpu"), load_cnn(spc.cnn_model_name, "cpu"))
+    print(f"# {sum(len(b[3]) for b in batches)} synthetic mRNA reads, validate on {card}")
+    print("\n".join(gpu.lines))
+    same = sum(a == b for a, b in zip(gpu.lines, cpu.lines))
+    print(f"phase 14 validate: table lines equal GPU vs CPU {same}/{len(cpu.lines)} "
+          f"(card {t_gpu!r} s, CPU {time.perf_counter() - t0 - t_gpu!r} s)")
+    require(gpu.lines == cpu.lines, "phase 14 validate: the card's tables differ from the CPU's")
+    require(int(gpu.res["cnn+fb"]["success"].sum()) > 0 and any(p >= 0 for p in gpu.preds["llr"]),
+            "phase 14 validate: no read passed or no barcode was called")
+
+    # e. K12 at the wide models' step shapes
+    for name in K12_WIDE_MODELS:
+        m = load_model(name, dev)
+        n, p = m.coef.shape
+        K = torch.as_tensor(np.exp(-np.random.default_rng(B).uniform(0, 8, (B, n))).astype(np.float32), device=dev)
+        require(torch.equal(svm.decision_values(K, m.params), svm.decision_values_plain(K, m.params)),
+                f"K12 {name} B={B}: differs from the plain version")
+        with numerics.full_float32():
+            ms = time_ms(lambda: svm.decision_values(K, m.params))
+            device_ms = time_ms(lambda: svm.decision_values(K, m.params), queued=True)
+            plain_ms = time_ms(lambda: svm.decision_values_plain(K, m.params), reps=3)
+            lib_ms = time_ms(lambda: torch.addmm(m.intercept, K, m.coef))
+            lib_device_ms = time_ms(lambda: torch.addmm(m.intercept, K, m.coef), queued=True)
+        bound_ms, bound_by = bound(*k12_work(B, n, p))
+        print(f"K12 {name} B={B} N={n} P={p} (the step's shape in bench_models): max_abs_err=0.0 kernel_ms={ms!r} "
+              f"device_ms={device_ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} by {bound_by} "
+              f"share={bound_ms / device_ms!r} library_ms={lib_ms!r} library_device_ms={lib_device_ms!r} "
+              f"(torch.addmm, TF32 off) on {card}")
+    return by_path
+
+
+def phase14_main(out_path) -> int:
+    """Phase 14 in a process of its own (`run_tool_process`): no profiler has
+    been attached to it, so its launches cost what a tool's cost. Loads the
+    kernel library the parent built and writes the launch counts by path to
+    `out_path` as JSON."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    _cuda.library()
+    by_path = run_tools(dev, card)
+    with open(out_path, "w") as fh:
+        json.dump(by_path, fh)
+    return 0
+
+
+def run_tool_process(card):
+    """Phase 14 (run_tools) in a child process on cuda:0, after phase 13:
+    its output goes to this process's, its launch counts come back."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "launches.json"
+        sys.stdout.flush()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.phase14_main(sys.argv[1]))",
+             str(out)],
+            cwd=Path(__file__).resolve().parent, timeout=900,
+        )
+        require(proc.returncode == 0, f"phase 14: the tools' process exited {proc.returncode}")
+        by_path = json.loads(out.read_text())
+    print(f"phase 14: {time.perf_counter() - t0!r} s in a process of its own on {card}")
+    return by_path
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3480,7 +3724,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from bench import synth_minibatch  # fails outside the repository
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch  # fails outside the repository
     from warpdemux_tpu_torch import _cuda
 
     dev = torch.device("cuda", 0)
@@ -3512,6 +3756,7 @@ def main() -> int:
     by_path.update(run_worker_processes(card))
     count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows))
     run_profiling_tools(dev, card)
+    by_path.update(run_tool_process(card))
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

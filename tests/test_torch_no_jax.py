@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of warpdemux_tpu_torch, and
-neither of the GPU scripts at the repository root, imports jax or the JAX
-package, and the package loads with jax unavailable."""
+neither of the GPU scripts at the repository root, imports jax, the JAX
+package or the JAX package's benchmark (the root bench.py), and the
+package loads with jax unavailable."""
 
 import ast
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 PKG = Path(__file__).resolve().parents[1] / "warpdemux_tpu_torch"
 SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "tune_kernels.py"]
 MODULES = sorted(PKG.rglob("*.py")) + SCRIPTS
-FORBIDDEN = ("jax", "jaxlib", "warpdemux_tpu")
+FORBIDDEN = ("jax", "jaxlib", "warpdemux_tpu", "bench")
 
 
 def _imported_roots(path):
@@ -72,7 +73,7 @@ def test_package_loads_without_jax():
         "else:\n"
         "    raise AssertionError('minknow_transport ran without minknow_api')\n"
         "import numpy as np\n"
-        "from bench import synth_minibatch\n"
+        "from warpdemux_tpu_torch.utils.synthetic import synth_minibatch\n"
         "from warpdemux_tpu_torch.cli import main\n"
         "from warpdemux_tpu_torch.config import config as c\n"
         "from warpdemux_tpu_torch.pipeline.resume import scan_processed_reads\n"

@@ -266,3 +266,26 @@ def test_no_gpu_and_no_device_exits_2(pod5_set, tmp_path, capsys):
     assert main(["demux", "-i", str(d), "-o", str(tmp_path / "out"), *COMMON]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "out").exists()  # nothing ran
+
+
+def test_parity_harness_agrees_on_the_default_runs(default_runs):
+    """The port's parity harness (warpdemux_tpu_torch/tools/parity_vs_reference
+    `diff_runs`) on the JAX CLI's and the port's default runs of the set:
+    every read compared, the barcodes in agreement, no read missing on
+    either side, every failed read with the same reason; and the report the
+    JAX tool's `diff_runs` gives on the same runs."""
+    sys.path.insert(0, str(REPO / "tools"))
+    from parity_vs_reference import diff_runs as jax_diff_runs
+
+    from warpdemux_tpu_torch.tools.parity_vs_reference import diff_runs
+
+    port, ref = default_runs
+    report = diff_runs(str(ref), str(port))
+    assert report["barcode_agreement"] == 1.0 and report["barcode_disagreements"] == []
+    assert report["pass_only_in_ref"] == [] and report["pass_only_in_tpu"] == []
+    assert report["n_compared"] == report["ref_predicted"] == report["tpu_predicted"] > 0
+    assert report["ref_failed"] == report["tpu_failed"] > 0
+    assert sum(report["fail_reason_crosstab"].values()) == report["ref_failed"]
+    assert all(a == b for a, b in (key.split(" -> ") for key in report["fail_reason_crosstab"]))
+    assert report["conf_max_abs_delta"] <= 0.001 and report["prob_max_abs_delta"] <= 0.0001
+    assert report == jax_diff_runs(str(ref), str(port))

@@ -238,7 +238,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from bench import synth_minibatch
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays

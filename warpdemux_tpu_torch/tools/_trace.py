@@ -23,16 +23,15 @@ inside them: what the CPU computed, not a device metric.
 from __future__ import annotations
 
 import subprocess
-import sys
 import time
 from collections import defaultdict
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from warpdemux_tpu_torch import _cuda
+from warpdemux_tpu_torch.utils import synthetic
 
 MODEL = "WDX4_rna004_v1_0"
 L = 10000  # the preload of a bench read
@@ -104,32 +103,21 @@ def device_name(device: torch.device) -> str:
     return out.stdout.strip()
 
 
-def _bench():
-    """The repository root's bench.py, whose module level imports numpy
-    only (its JAX half is imported inside its functions)."""
-    root = str(Path(__file__).resolve().parents[2])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    import bench
-
-    return bench
-
-
 def bench_minibatch(B: int, seed: int = 0):
-    """(adc, offset, scale, lens): bench.synth_minibatch(default_rng(seed),
-    B, 10000), the reads every tool and chip_smoke.py profile."""
-    return _bench().synth_minibatch(np.random.default_rng(seed), B, L)
+    """(adc, offset, scale, lens): synth_minibatch(default_rng(seed), B,
+    10000), the reads every tool and chip_smoke.py profile."""
+    return synthetic.synth_minibatch(np.random.default_rng(seed), B, L)
 
 
 def vbz_pack(adc: np.ndarray):
     """(keys, data): the reads packed into the VBZ wire with the port's numpy
-    helpers, at bench.VBZ_WIDTH data bytes a row or the multiple of 1024
+    helpers, at synthetic.VBZ_WIDTH data bytes a row or the multiple of 1024
     that holds the longest (rows of more than 10,000 samples)."""
     from warpdemux_tpu_torch.ops.vbz_device import inner_layout_from_adc, pack_inner_host
 
     bodies = [inner_layout_from_adc(r) for r in adc]
     need = max(len(b) for b in bodies) - (adc.shape[1] + 7) // 8
-    return pack_inner_host(bodies, adc.shape[1], max(_bench().VBZ_WIDTH, -(-need // 1024) * 1024))
+    return pack_inner_host(bodies, adc.shape[1], max(synthetic.VBZ_WIDTH, -(-need // 1024) * 1024))
 
 
 def busy_us(events) -> float:

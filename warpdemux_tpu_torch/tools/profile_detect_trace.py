@@ -2,7 +2,7 @@
 
 Port of tools/profile_detect_trace.py: detect/boundaries.py
 `detect_boundaries_with_fallback` (WDX4's detect config, the CNN its spc
-names) on the calibrated signals of bench.synth_minibatch(default_rng(0),
+names) on the calibrated signals of synthetic.synth_minibatch(default_rng(0),
 B, 10000) on the device, traced after a warm-up over 6 calls
 (tools/_trace.py). Prints the unprofiled wall time, the device's busy ms a
 call and its idle share, then the top 40 device operations.

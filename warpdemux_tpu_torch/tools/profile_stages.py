@@ -3,7 +3,7 @@
 Port of tools/profile_stages.py: the stages of the WDX4 step run one by
 one as the vbz full step chains them (pipeline/step.py), each timed over
 REPS = 8 calls after a warm-up, between two torch.cuda.synchronize() on the
-card, on bench.synth_minibatch(default_rng(0), B, 10000):
+card, on utils/synthetic.synth_minibatch(default_rng(0), B, 10000):
 
 - vbz decode (ops/vbz_device, the reads packed with its numpy helpers),
   detect (with the step's adc and calibration), fingerprint, dtw (B x 851),

@@ -1,7 +1,7 @@
 """Device operations of the whole demux step, from torch.profiler.
 
 Port of tools/profile_step_trace.py: `make_demux_step` (WDX4, the adc feed
-or the vbz wire) on bench.synth_minibatch(default_rng(0), B, 10000) with
+or the vbz wire) on synthetic.synth_minibatch(default_rng(0), B, 10000) with
 the inputs on the device, traced after a warm-up over 6 steps
 (tools/_trace.py). Prints the unprofiled wall time, the device's busy ms
 a step and its idle share of the traced window (in place of the JAX tool's

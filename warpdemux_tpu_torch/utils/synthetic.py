@@ -3,10 +3,45 @@
 Copy of warpdemux_tpu/utils/synthetic.py: the same generators draw the
 same numbers from the same numpy Generator, so a seed gives the JAX
 package's reads. The tRNA generators build the reads that chip_smoke.py
-drives through the tRNA step on a machine without JAX.
+drives through the tRNA step on a machine without JAX. `synth_minibatch`
+is the copy of the root bench.py's seed minibatch, which every tool of
+the port and chip_smoke.py feed the step.
 """
 
 import numpy as np
+
+# The seed minibatch of the repository's benchmark (bench.py): B reads of L
+# samples in the pod5-native int16 ADC domain, calibrated with a typical
+# RNA004 scale and offset; VBZ_WIDTH data bytes a row hold every seed-0
+# read packed into the VBZ wire (the bodies peak at ~10.1 KB)
+B = 1000  # the minibatch (the reference's default)
+L = 10000  # the preload
+VBZ_WIDTH = 10 * 1024
+ADC_SCALE = np.float32(0.1755)
+ADC_OFFSET = np.float32(-240.0)
+
+
+def synth_minibatch(rng, B, L):
+    """(adc (B, L) int16, offset (B,) f32, scale (B,) f32, lens (B,) int32):
+    event-structured adapter + flat poly(A) + RNA-like levels, vectorized;
+    the numbers of bench.synth_minibatch for the same Generator state."""
+    n_ev = L // 25
+    adapter_levels = rng.normal(78.0, 11.0, size=(B, n_ev)).astype(np.float32)
+    sig = np.repeat(adapter_levels, 25, axis=1)[:, :L]
+    # overwrite [a_end, p_end) with flat poly(A) and beyond with RNA-like levels
+    a_end = rng.integers(2800, 5600, size=B)
+    p_len = rng.integers(800, 2500, size=B)
+    idx = np.arange(L)[None, :]
+    in_pa = (idx >= a_end[:, None]) & (idx < (a_end + p_len)[:, None])
+    in_rna = idx >= (a_end + p_len)[:, None]
+    rna_levels = np.repeat(rng.normal(96.0, 13.0, size=(B, n_ev)).astype(np.float32), 25, axis=1)[:, :L]
+    sig = np.where(in_pa, 104.0, sig)
+    sig = np.where(in_rna, rna_levels, sig)
+    sig += rng.normal(0, 1.8, size=(B, L)).astype(np.float32)
+    adc = np.clip(np.rint(sig / ADC_SCALE - ADC_OFFSET), -32768, 32767).astype(np.int16)
+    offset = np.full(B, ADC_OFFSET, np.float32)
+    scale = np.full(B, ADC_SCALE, np.float32)
+    return adc, offset, scale, np.full(B, L, np.int32)
 
 
 def synth_read(
