@@ -10,7 +10,7 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels of csrc/ from source and print what ptxas reported for each
    (registers, spills).
-2. For each kernel K1-K15, on numpy-seeded inputs at the step's shapes
+2. For each kernel K1-K16, on numpy-seeded inputs at the step's shapes
    (B=1000 reads, L=10000 samples, A=6272 adapter samples, N=851 and 2601
    support vectors), compare the kernel with its plain PyTorch version on
    the card and time both (the kernel twice: as a caller sees it, and with
@@ -87,10 +87,22 @@ Phases (each raises on failure; nothing is caught):
    B = 1000 and the lane's 16 / 32 (K13's operations counted from the
    coupling passes each row takes, and its latency floor from those
    passes and a timed chain of divisions), K12 beside torch.addmm, each
-   beside its time before the redesign. K14 (XLA:CPU's float32 log of the LLR cost,
-   new) is held bit for bit against its plain version at the step's LLR
-   shapes, on edge values and on every float32 bit pattern, and timed
-   beside its bound and torch.log (not bit-equal: another log). K15
+   beside its time before the redesign. XLA:CPU's float32 log, elementwise
+   (`wdx_xla_log`, which no step launches since K14 took the LLR cost
+   whole), is held bit for bit against its plain version at the LLR's
+   variance shapes, on edge values and on every float32 bit pattern, and
+   timed beside its bound and torch.log (not bit-equal: another log). K14
+   (the LLR changepoint split: the cost of every split of a window from
+   its prefix sums, XLA's log inlined, and the first argmin, one block a
+   window, new) is held split for split against its plain version at
+   LLR_SHAPES (the refinement's 2 x B windows of 800, the tRNA adapter's
+   B windows of 6000 with each row's own end) on windows from a seed and
+   on the edge rows of LLR_EDGES, and timed beside its bound and the
+   torch operations it replaced. K16 (XLA:CPU's exp of -gamma times the
+   DTW distances, the SVM's kernel matrix, new) is held bit for bit at
+   K16_SHAPES and K16_SCALES, on edge values, on a view off its 16-byte
+   vectors and on every float32 bit pattern, and timed beside its bound
+   and torch.exp. K15
    (XLA:CPU's float32 softmax of the DTW-MLP and Fpt-Boost families, new:
    one warp a row, the sum in XLA's order by shuffles) is held bit for bit
    against its plain version at K15_SHAPES, on logits from a seed and on
@@ -102,8 +114,8 @@ Phases (each raises on failure; nothing is caught):
 3. Three main paths of the WDX4 step on the first 256 reads of
    synthetic.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
-   a. the adc feed, decision outputs: every kernel but K9, K10 and K15
-      must launch;
+   a. the adc feed, decision outputs: every kernel but K9, K10, K15 and
+      the elementwise log must launch;
       (success, fail_code, pred) must agree with the CPU path on at least
       255 of 256 rows, and the CPU result must hit the repository's pins;
    b. the vbz feed (the reads packed into the VBZ wire by the port's numpy
@@ -122,7 +134,9 @@ Phases (each raises on failure; nothing is caught):
    before K11 (the adc decision and vbz full steps may not exceed it by
    more than 20) and before K5's callers stopped copying for it; those of
    the tRNA and RNA002 steps, and of one micro-batch of the live lane;
-   no path may take more than before K14 (DEVICE_OPS_BEFORE_K14). Runs
+   no path may take more than before K14 (DEVICE_OPS_BEFORE_K14), every
+   path fewer than before K14's redesign and K16 (DEVICE_OPS_BEFORE_K16)
+   and no more than DEVICE_OPS_PINNED. Runs
    after phase 10, before phase 13: an attached profiler slows every later
    launch.
 6. The live read-until lane (warpdemux_tpu_torch/live/) on the card:
@@ -130,8 +144,9 @@ Phases (each raises on failure; nothing is caught):
       K4, K2, K3 and K1, one fetch) on 64 replay reads cut at poly(A) plus
       padding, each held in every signal-length bucket, at max_batch 32 and
       16, against the CPU lane: (ok, pred) must agree on all but one row of
-      each, and every micro-batch must launch K1-K5 once and K6-K9 never;
-   b. each of the seven kernels at the lane's shapes (B = 16 and 32; K5 at
+      each, and every micro-batch must launch K1-K5, K16, K12 and K13 once
+      and K6-K9 never;
+   b. each of the eight kernels at the lane's shapes (B = 16 and 32; K5 at
       L = 2048 and 12288) against its plain version, timed beside its
       bound, and the lane program a micro-batch as called;
    c. a whole session on the replay client through the port's
@@ -258,7 +273,8 @@ Phases (each raises on failure; nothing is caught):
    launches, with the calls a step of the path's LAUNCHES pin
    (LAUNCHES["pa_detect"] for the detect trace), and no other: a profiler
    that missed the ctypes launches fails here. The stage table's dtw and
-   svm proba rows must launch their kernels (K1; K12 and K13) once a call.
+   svm proba rows must launch their kernels (K1; K16, K12 and K13) once a
+   call.
 14. The port's throughput tools and boundary validation
    (warpdemux_tpu_torch/tools/bench_models, sweep_minibatch, bench_trna,
    validate_boundaries) on the card, after phase 13, in a process of its
@@ -323,63 +339,70 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                     "new, no Pallas counterpart (XLA:CPU's dot: warpdemux_tpu/ops/svm.py:74)"),
     "wdx_svm_probs": ("K13 SVM probabilities (Platt, Wu-Lin coupling)", "svmprob.cu",
                       "new, no Pallas counterpart (warpdemux_tpu/ops/svm.py:94, a lax.while_loop)"),
-    "wdx_xla_log": ("K14 XLA's float32 log", "xlalog.cu",
+    "wdx_xla_log": ("K14 elementwise log (no step launches it)", "xlalog.cu",
                     "new, no Pallas counterpart (XLA:CPU's log: warpdemux_tpu/detect/boundaries.py:224, :259)"),
     "wdx_xla_softmax": ("K15 XLA's float32 softmax", "xlasoftmax.cu",
                         "new, no Pallas counterpart (XLA:CPU's jax.nn.softmax: warpdemux_tpu/models/dtw_mlp.py:42, "
                         "warpdemux_tpu/models/fpt_boost.py:101)"),
+    "wdx_llr_split": ("K14 LLR changepoint split", "xlalog.cu",
+                      "new, no Pallas counterpart (XLA:CPU's cost and argmin: warpdemux_tpu/detect/boundaries.py:201 "
+                      "_llr_refine, :229 _llr_split_window)"),
+    "wdx_xla_exp_scaled": ("K16 XLA's float32 exp of the SVM kernel matrix", "xlaexp.cu",
+                           "new, no Pallas counterpart (XLA:CPU's exp: warpdemux_tpu/ops/svm.py:184 pdist_kernel)"),
 }
 PATHS = ("adc_decision", "vbz_full", "fused_decision")
 # device operations a step of each path before K5's callers stopped copying
 # for it and K2 wrote n_scores itself: `count_device_ops` on commit 7cdf228
 DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1746}
-# launches a step of each path, in KERNELS' order (K1 .. K15); K11 once for
-# the [mvs_polya] gate's poly(A) mean of each detect pass (the CNN's and
-# the LLR fallback's) and once for the region statistics of full outputs;
-# K12 and K13 once a classified batch (the SVM's decision values, then its
-# probabilities); K14 once a detect pass for the LLR refinement's cost
-# (the tRNA paths: the refinement and the adapter's split window); K15 once
-# a classified batch of the DTW-MLP or Fpt-Boost families (their softmax)
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2, 0),
-            "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 2, 0),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1, 2, 0),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0),  # one micro-batch of the lane program
+# launches a step of each path, in KERNELS' order (K1 .. K13, the
+# elementwise log, K15, K14, K16); K11 once for the [mvs_polya] gate's
+# poly(A) mean of each detect pass (the CNN's and the LLR fallback's) and
+# once for the region statistics of full outputs; K16, K12 and K13 once a
+# classified SVM batch (the kernel matrix's exp, the decision values, the
+# probabilities); K14 once a detect pass for the LLR refinement's split
+# (the tRNA paths: the refinement and the adapter's split window); the
+# elementwise log nowhere since K14 took the whole cost; K15 once a
+# classified batch of the DTW-MLP or Fpt-Boost families (their softmax)
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
+            "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1, 0, 0, 2, 1),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2, 0),
-            "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0, 2, 0),
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
+            "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0, 0, 0, 2, 0),
             # the tRNA paths (phase 8): K3 twice (the adapter's events, then
             # the barcode's from its start), K4 for the clip and the gates
             # (with the adapter MAD) or the four region statistics, K5 for the
             # refine windows, the split window and the adapter, K8 for the
             # adapter-level proxy, K10 for the consensus match, K11 for the
             # region statistics of full outputs (no [mvs_polya] gate)
-            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1, 2, 0),
-            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1, 2, 0),
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1, 0, 0, 2, 1),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 2, 1),
             # phase 9: the model families' predict (K1 for DTW-MLP's
             # distances, K12 for each of its two layers, K15 for either
             # family's softmax) and the predict run over one fingerprint file; the
             # RNA002 steps (LLR detect, no CNN: one detect pass, one gate)
-            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0, 1),
-            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1),
-            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1, 1, 0),
-            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1, 1, 0),
+            "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0, 1, 0, 0),
+            "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0),
+            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1, 0, 0, 1, 1),
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1, 0, 0, 1, 1),
             # phase 12: the tRNA trainer's prep step (the pa feed, full
             # outputs, no model: K4 for the proxy median where the adc feeds
             # take K8, no K1); the mRNA step served by the trained CNN
-            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0, 2, 0),
-            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 2, 0),
+            "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 2, 0),
+            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
             # phase 13's detect trace: detect_boundaries_with_fallback alone
             # on calibrated float signals (no adc: K4 where the adc feeds
             # take K8), with its region statistics, no fingerprint
-            "pa_detect": (0, 0, 0, 4, 2, 1, 2, 0, 0, 0, 3, 0, 0, 2, 0),
+            "pa_detect": (0, 0, 0, 4, 2, 1, 2, 0, 0, 0, 3, 0, 0, 0, 0, 2, 0),
             # phase 14: bench_trna's step (the tRNA step on the pa feed, full
             # outputs: K4 for the adapter-level proxy where the adc feeds
             # take K8); one minibatch of validate_boundaries.validate (four
             # detect configurations on float signals, the three fingerprinted
-            # ones through K1, K12 and K13)
-            "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 2, 0),
-            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 6, 0)}
+            # ones through K1, K16, K12 and K13)
+            "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 0, 0, 2, 1),
+            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 0, 0, 6, 3)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -393,6 +416,17 @@ DEVICE_OPS_BEFORE_K11 = {"adc_decision": 1874, "vbz_full": 1989, "fused_decision
 DEVICE_OPS_BEFORE_K14 = {"adc_decision": 1740, "vbz_full": 1790, "fused_decision": 1739,
                    "trna_adc_decision": 1879, "trna_vbz_full": 1917,
                    "rna002_adc_decision": 1183, "rna002_vbz_full": 1223, "live_lane": 758}
+# ... and before K14 took the LLR cost whole and K16 the SVM's exp
+# (`count_device_ops` on commit 29601bf, torch 2.11.0 on the card, PERF.md
+# section 5): every path must now take fewer
+DEVICE_OPS_BEFORE_K16 = {"adc_decision": 1600, "vbz_full": 1650, "fused_decision": 1599,
+                         "trna_adc_decision": 1739, "trna_vbz_full": 1777,
+                         "rna002_adc_decision": 1113, "rna002_vbz_full": 1153, "live_lane": 758}
+# ... and since (`count_device_ops` with K14 the whole LLR split and K16,
+# torch 2.11.0 on the card, PERF.md section 5): no later change may add any
+DEVICE_OPS_PINNED = {"adc_decision": 1129, "vbz_full": 1179, "fused_decision": 1128,
+                     "trna_adc_decision": 1257, "trna_vbz_full": 1295,
+                     "rna002_adc_decision": 744, "rna002_vbz_full": 784, "live_lane": 491}
 TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
 # phase 8's run of the offline loop: the vbz wire, predictions and boundaries
 TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
@@ -1325,6 +1359,214 @@ def check_k14(dev, card):
     return result
 
 
+# K14, the LLR split (`detect/boundaries.llr_split`), at the step's shapes:
+# the refinement's 2 x B windows of 800 samples (every split counts, the
+# second segment to the window's end), and the tRNA adapter's B windows of
+# 6000 (each row's own end, splits from LLR_MIN_SPLIT); its inputs are the
+# windows' prefix sums, as the callers hand them over
+LLR_SHAPES = {"LLR refinement": (2 * B, 800, False), "tRNA adapter split window": (B, 6000, True)}
+LLR_MIN_SPLIT = 2000  # min_obs_adapter of rna004_130bps@v1.0_tRNA
+# edge rows (llr_edge_windows): variances that all clamp, palindromes whose
+# two end splits tie to the last bit, NaN and inf samples, squares that
+# overflow, a NaN past the row's end, and row ends that mask every split,
+# all but one, or leave the row one sample long
+LLR_EDGES = ("constant", "zeros", "palindrome", "integer palindrome", "two levels", "NaN sample", "NaN first",
+             "inf sample", "overflowing squares", "NaN past the row's end", "every split masked", "row end 1",
+             "one split")
+# a split: four divisions, two multiply-adds and clamps, two subtractions,
+# two logs, the last product and multiply-add, the argmin's compare
+LLR_OPS = 2 * K14_OPS + 18
+
+
+def llr_windows(R, W, seed):
+    """(windows (R, W) float32, row ends (R,) int32): a level of ~90 pA with
+    a noise of 6, a step of 15 pA at a random position in every other row;
+    the row ends anywhere in 1..W, every fourth at W."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    win = rng.normal(90, 6, (R, W)).astype(np.float32)
+    cut = rng.integers(1, W, R)
+    step = (np.arange(W)[None, :] >= cut[:, None]) & (np.arange(R) % 2 == 0)[:, None]
+    win += np.where(step, np.float32(15), np.float32(0))
+    weff = rng.integers(1, W + 1, R).astype(np.int32)
+    weff[::4] = W
+    return win, weff
+
+
+def llr_edge_windows(W, min_split=LLR_MIN_SPLIT, seed=0):
+    """(windows (len(LLR_EDGES), W) float32, row ends (len(LLR_EDGES),)
+    int32): one row a name of LLR_EDGES, in that order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = np.round(rng.normal(90, 6, (len(LLR_EDGES), W))).astype(np.float32)
+    weff = np.full(len(LLR_EDGES), W, np.int32)
+    edge = {name: i for i, name in enumerate(LLR_EDGES)}
+    rows[edge["constant"]] = 90.0
+    rows[edge["zeros"]] = 0.0
+    rows[edge["palindrome"]] = tied_palindrome(W, lambda r: np.round(r.normal(90, 6, W // 2)))
+    rows[edge["integer palindrome"]] = tied_palindrome(W, lambda r: r.integers(85, 95, W // 2))
+    rows[edge["two levels"]] = np.where(np.arange(W) < W // 2, 80.0, 100.0)
+    rows[edge["NaN sample"], W // 3] = np.nan
+    rows[edge["NaN first"], 0] = np.nan
+    rows[edge["inf sample"], W // 2] = np.inf
+    rows[edge["overflowing squares"]] = 1e20
+    rows[edge["NaN past the row's end"], 3 * W // 4] = np.nan
+    weff[edge["NaN past the row's end"]] = W // 2
+    weff[edge["every split masked"]] = min(min_split, W)
+    weff[edge["row end 1"]] = 1
+    weff[edge["one split"]] = min(min_split + 1, W)
+    return rows, weff
+
+
+def tied_palindrome(W, draw):
+    """The first window [h, h reversed] of halves h = draw(default_rng(k)),
+    k = 0, 1, ..., whose first and last splits cost the same to the last
+    bit and least of all (the plain cost, on the CPU): the split must be
+    the first one."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch.detect import boundaries as bd
+
+    for k in range(64):
+        half = np.asarray(draw(np.random.default_rng(k)), np.float32)
+        win = np.concatenate([half, half[::-1]])
+        cost = bd._llr_cost(torch.from_numpy(win[None]))[0]
+        if cost[0] == cost[-1] == cost.min():
+            return win
+    raise AssertionError(f"no palindrome of {W} samples ties at both ends")
+
+
+def llr_work(R, W, weff, min_split):
+    """(bytes, operations) of one K14 call: the two (R, W + 1) prefix sums
+    and the row ends read once, the splits written once; LLR_OPS a split
+    whose cost is computed, one compare a masked one."""
+    import numpy as np
+
+    n_bytes = 2 * R * (W + 1) * 4 + R * 4 + (0 if weff is None else R * 4)
+    if weff is None:
+        computed = R * (W - 1)
+    else:
+        computed = int(np.maximum(np.clip(weff, 1, W) - max(min_split, 1), 0).sum())
+    return n_bytes, computed * LLR_OPS + (R * (W - 1) - computed)
+
+
+def check_llr_split(dev, card):
+    """Phase 2's K14: the LLR split bit for bit against its plain version at
+    LLR_SHAPES, on windows from a seed and on the edge rows of LLR_EDGES;
+    timed at each shape beside its bound and beside the design it replaced
+    (the cost in torch operations around the elementwise log kernel)."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.detect import boundaries as bd
+    from warpdemux_tpu_torch.ops import numerics
+
+    def before(c1, c2, weff, min_split):
+        """The design this kernel replaced: the cost in torch operations,
+        its log through `wdx_xla_log`, then the first argmin."""
+        saved = bd.xla_log_plain
+        bd.xla_log_plain = numerics.xla_log
+        try:
+            return bd.llr_split_plain(c1, c2, weff, min_split)
+        finally:
+            bd.xla_log_plain = saved
+
+    result = None
+    for i, (name, (R, W, with_end)) in enumerate(LLR_SHAPES.items()):
+        min_split = LLR_MIN_SPLIT if with_end else 1
+        for what, (win, ends) in (("windows", llr_windows(R, W, i)), ("edge rows", llr_edge_windows(W))):
+            x = torch.as_tensor(win, device=dev)
+            c1, c2 = numerics.prefix_sums(x), numerics.prefix_sums(x * x)
+            weff = torch.as_tensor(ends, device=dev) if with_end else None
+            n = _cuda.launches["wdx_llr_split"]
+            got = bd.llr_split(c1, c2, weff, min_split)
+            require(_cuda.launches["wdx_llr_split"] == n + 1, f"K14 {name} {what}: not launched")
+            want = bd.llr_split_plain(c1, c2, weff, min_split)
+            require(torch.equal(got, want), f"K14 {name} {what}: splits differ from the plain version "
+                                            f"on rows {(got != want).nonzero().flatten().tolist()[:8]}")
+            require(torch.equal(before(c1, c2, weff, min_split), want), f"K14 {name} {what}: the design before differs")
+        print(f"K14 {name} ({R} windows of {W}): max_abs_err=0 (every split equal) on windows and on the edge rows "
+              f"{LLR_EDGES}{' (every row its own end)' if with_end else ''}")
+        x = torch.as_tensor(llr_windows(R, W, i)[0], device=dev)
+        c1, c2 = numerics.prefix_sums(x), numerics.prefix_sums(x * x)
+        weff = torch.as_tensor(llr_windows(R, W, i)[1], device=dev) if with_end else None
+        print(f"K14 {name}, timed ({R} windows of {W}):")
+        entry = time_kernel("wdx_llr_split", card, 0.0, lambda: bd.llr_split(c1, c2, weff, min_split),
+                            lambda: bd.llr_split_plain(c1, c2, weff, min_split),
+                            *llr_work(R, W, None if weff is None else weff.cpu().numpy(), min_split), plain_reps=3)
+        old = lambda: before(c1, c2, weff, min_split)  # noqa: E731
+        print(f"K14 {name}: the design before (torch operations around wdx_xla_log) ms={time_ms(old, reps=3)!r} "
+              f"device_ms={time_ms(old, reps=3, queued=True)!r} on {card}")
+        result = result or entry
+    return result
+
+
+# K16 at the SVM's kernel matrix: the step's B x 851 support vectors of WDX4
+# and the live lane's 16 and 32 rows, at -gamma of the shipped RNA004 models
+# (1.0) and of RNA002's (1.2)
+K16_SHAPES = ((B, 851), (16, 851), (32, 851))
+K16_SCALES = (-1.0, -1.2)
+K16_EDGES = (0.0, -0.0, 1e-45, -1e-45, 1e-40, -1.0, 1.0, 0.5, 72.9, 73.2, 87.8, -87.8, 88.8, -88.8, 103.0,
+             -103.0, 1e30, -1e30, 3.4e38, float("inf"), float("-inf"), float("nan"))
+K16_OPS = 36  # an element: the product, XLA's exp (its clamps at 2, eight multiply-adds at 2, floor, the shift and scale, the flush)
+K16_SWEEP_CHUNKS = 64  # the 2**32 float32 bit patterns in chunks of 2**26
+
+
+def svm_distances(shape, seed):
+    """DTW distances as the step hands them to the kernel matrix: U(0, 8)
+    (the kernel rows check_svm gives K12)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).uniform(0, 8, shape).astype(np.float32)
+
+
+def check_k16(dev, card):
+    """Phase 2's K16: XLA:CPU's exp of -gamma * D bit for bit against its
+    plain version (a NaN as a NaN) at K16_SHAPES and K16_SCALES, on
+    distances from a seed, on edge values and at a start and length off
+    its 16-byte vectors; on every float32 bit pattern at the shipped
+    models' -gamma; timed at each shape beside its bound and torch.exp of
+    -gamma * D (one call on the product)."""
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.ops import numerics
+
+    result = None
+    edges = torch.tensor(K16_EDGES, dtype=torch.float32, device=dev)
+    for i, shape in enumerate(K16_SHAPES):
+        D = torch.as_tensor(svm_distances(shape, i), device=dev)
+        for scale in K16_SCALES:
+            for what, x in (("distances", D), ("edges", edges), ("unaligned", D.reshape(-1)[1:-2])):
+                n = _cuda.launches["wdx_xla_exp_scaled"]
+                got = numerics.xla_exp(x, scale)
+                require(_cuda.launches["wdx_xla_exp_scaled"] == n + 1, f"K16 {shape} {what}: not launched")
+                require(bits_equal(got, numerics.xla_exp_plain(x, scale)),
+                        f"K16 {shape} {what} scale {scale}: differs from the plain version")
+        off = int((torch.exp(-1.0 * D).view(torch.int32) != numerics.xla_exp(D, -1.0).view(torch.int32)).sum())
+        print(f"K16 {shape}: max_abs_err=0.0 (bit for bit) on distances, edges and an unaligned view at scales "
+              f"{K16_SCALES}; torch.exp differs on {off} of {D.numel()}")
+        print(f"K16 {shape}, timed:")
+        entry = time_kernel("wdx_xla_exp_scaled", card, 0.0, lambda: numerics.xla_exp(D, -1.0),
+                            lambda: numerics.xla_exp_plain(D, -1.0), 8 * D.numel(), K16_OPS * D.numel(),
+                            library=lambda: torch.exp(-1.0 * D), plain_reps=3)
+        print(f"K16 {shape}: library_ms is torch.exp of -gamma * D, another exp (not bit-equal: the count above)")
+        result = result or entry
+    t0 = time.perf_counter()
+    off = 0
+    for c in range(K16_SWEEP_CHUNKS):
+        x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        got, want = numerics.xla_exp(x, -1.0), numerics.xla_exp_plain(x, -1.0)
+        off += int(((got.view(torch.int32) != want.view(torch.int32)) & ~(got.isnan() & want.isnan())).sum())
+    require(off == 0, f"K16: {off} float32 bit patterns differ from the plain version")
+    print(f"K16 on every float32 bit pattern at scale -1.0 ({K16_SWEEP_CHUNKS} x 2**26, "
+          f"{time.perf_counter() - t0:.1f} s): max_abs_err=0.0 against the plain version")
+    return result
+
+
 # K15 at the shapes its callers give it: the families' 5 classes at the
 # step's B, one read; 13 classes (WDX10's label count); 7 at B = 1; and 33,
 # past one window of XLA's sum
@@ -2043,6 +2285,8 @@ def check_kernels(dev, card):
     results.update(check_svm(dev, card))
     results["wdx_xla_log"] = check_k14(dev, card)
     results["wdx_xla_softmax"] = check_k15(dev, card)
+    results["wdx_llr_split"] = check_llr_split(dev, card)
+    results["wdx_xla_exp_scaled"] = check_k16(dev, card)
     return results
 
 
@@ -2164,11 +2408,13 @@ def count_device_ops(step, args):
 
 @contextlib.contextmanager
 def captured_kernel_calls():
-    """Inside, every call of the live lane's seven kernel wrappers is
+    """Inside, every call of the live lane's eight kernel wrappers is
     recorded as {launch-count key: (wrapper, args, plain version)}: the
     arguments the lane program gives each kernel."""
     from warpdemux_tpu_torch.models import dtw_svm
-    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, svm, window_gather
+    from warpdemux_tpu_torch.ops import (
+        dtw, fingerprint, normalize, numerics, peaks, segmentation, select, svm, window_gather,
+    )
 
     sites = (  # (module that calls it, name there, key, plain version)
         (fingerprint, "shift_rows", "wdx_shift_rows", window_gather.shift_rows_plain),
@@ -2176,6 +2422,7 @@ def captured_kernel_calls():
         (segmentation, "windowed_t_test", "wdx_ttest", segmentation.windowed_t_test_plain),
         (peaks, "suppress_by_distance", "wdx_suppress", peaks.suppress_by_distance_plain),
         (dtw_svm, "dtw_distance_matrix", "wdx_dtw", dtw.dtw_distance_matrix_plain),
+        (numerics, "xla_exp", "wdx_xla_exp_scaled", numerics.xla_exp_plain),
         (svm, "decision_values", "wdx_svm_dot", svm.decision_values_plain),
         (svm, "probabilities", "wdx_svm_probs", svm.probabilities_plain),
     )
@@ -2215,6 +2462,8 @@ def lane_kernel_work(key, args):
         return k12_work(K.shape[0], *params.coef.shape)
     if key == "wdx_svm_probs":
         return k13_work(*args[:2])[:2]
+    if key == "wdx_xla_exp_scaled":
+        return 8 * args[0].numel(), K16_OPS * args[0].numel()
     X, Y = args[:2]
     return k1_work(X.shape[0], Y.shape[0], X.shape[1], args[2])
 
@@ -2288,7 +2537,7 @@ def run_live_lane(dev, card):
         cpu.reporter.close()
     print(f"launches of one micro-batch of the live lane: {one_batch}")
 
-    # 6b. the seven kernels at the lane's shapes, held against their plain
+    # 6b. the eight kernels at the lane's shapes, held against their plain
     # versions; then the lane program as a whole
     for (max_batch, bucket), captured in sorted(calls.items()):
         require(set(captured) == {k for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n},
@@ -2400,31 +2649,27 @@ def count_step_ops(steps, lane_program, offline_run, trna, rna002):
 
     adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
     rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
-    for path in PATHS:
-        n_ops = count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows)
+    def check(path, what, n_ops):
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14, "
-              f"{DEVICE_OPS_BEFORE_K11[path]} before K11, {DEVICE_OPS_BEFORE[path]} on commit 7cdf228)")
-        if path != "fused_decision":
-            require(n_ops <= DEVICE_OPS_BEFORE_K11[path] + 20, f"{path}: K11's repair grew the step's device operations")
+        print(f"{what}: {n_ops} device operations ({DEVICE_OPS_PINNED[path]} pinned, {DEVICE_OPS_BEFORE_K16[path]} "
+              f"before K14's redesign and K16, {DEVICE_OPS_BEFORE_K14[path]} before K14"
+              + (f", {DEVICE_OPS_BEFORE_K11[path]} before K11" if path in DEVICE_OPS_BEFORE_K11 else "")
+              + (f", {DEVICE_OPS_BEFORE[path]} on commit 7cdf228)" if path in DEVICE_OPS_BEFORE else ")"))
         require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
+        require(n_ops < DEVICE_OPS_BEFORE_K16[path], f"{path}: no fewer device operations than before K16")
+        require(n_ops <= DEVICE_OPS_PINNED[path], f"{path}: more device operations than pinned")
+
+    for path in PATHS:
+        check(path, f"{path} step", count_device_ops(steps[path], vbz_batch(*rows) if path == "vbz_full" else rows))
     trna_steps, trna_rows = trna
     for path in TRNA_PATHS:
-        n_ops = count_device_ops(trna_steps[path], vbz_batch(*trna_rows) if "vbz" in path else trna_rows)
-        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14, "
-              f"{DEVICE_OPS_BEFORE_K11[path]} before K11)")
-        require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
+        check(path, f"{path} step",
+              count_device_ops(trna_steps[path], vbz_batch(*trna_rows) if "vbz" in path else trna_rows))
     rna002_steps, rna002_rows = rna002
     for path in RNA002_PATHS:
-        n_ops = count_device_ops(rna002_steps[path], vbz_batch(*rna002_rows) if "vbz" in path else rna002_rows)
-        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{RNA002_MODELS[0]} {path} step: {n_ops} device operations ({DEVICE_OPS_BEFORE_K14[path]} before K14)")
-        require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
-    n_ops = count_device_ops(lane_program, ())
-    require(n_ops > 0, "live lane: the profiler recorded no device operation")
-    print(f"live lane program, B=16: {n_ops} device operations a micro-batch ({DEVICE_OPS_BEFORE_K14['live_lane']} before K14)")
-    require(n_ops <= DEVICE_OPS_BEFORE_K14["live_lane"], "live lane: more device operations than before K14")
+        check(path, f"{RNA002_MODELS[0]} {path} step",
+              count_device_ops(rna002_steps[path], vbz_batch(*rna002_rows) if "vbz" in path else rna002_rows))
+    check("live_lane", "live lane program, B=16 (a micro-batch)", count_device_ops(lane_program, ()))
     run, wall_ms = offline_run
     busy = device_busy_ms(run)
     require(busy > 0, "offline run: the profiler recorded no device operation")
@@ -2473,7 +2718,7 @@ def run_profiling_tools(dev, card):
     print("\n".join(table.table()))
     launches = {stage.name: stage.launches for stage in table.stages}
     require(launches["dtw (B x 851)"] == {"wdx_dtw": 1}, f"phase 13 stage dtw: {launches['dtw (B x 851)']}")
-    require(launches["svm proba"] == {"wdx_svm_dot": 1, "wdx_svm_probs": 1},
+    require(launches["svm proba"] == {"wdx_svm_dot": 1, "wdx_svm_probs": 1, "wdx_xla_exp_scaled": 1},
             f"phase 13 stage svm proba: {launches['svm proba']}")
 
 
@@ -2493,8 +2738,9 @@ def run_main_paths(dev, steps):
     # a. adc feed, decision outputs
     out, by_path["adc_decision"] = _drive("adc_decision", steps["adc_decision"], rows)
     for key, n in by_path["adc_decision"].items():
-        # the fused and the tRNA paths' kernels, and the DTW-MLP / Fpt-Boost softmax (phase 9)
-        if key not in ("wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax"):
+        # the fused and the tRNA paths' kernels, the DTW-MLP / Fpt-Boost softmax (phase 9)
+        # and the elementwise log, which no step launches
+        if key not in ("wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log"):
             require(n > 0, f"{key} was never launched by the adc decision path")
     ref = cpu_steps["adc_decision"](*rows)
     probs = out.probs.cpu()
@@ -3500,7 +3746,7 @@ def run_trainers(dev, card):
     by_path["trna_trainer_holdout"] = dict(_cuda.launches)
     hold_steps = 2 * -(-(len(barcodes) + 1) * args.holdout_per_bc // train_trna_model.CHUNK)
     want_hold = {k: hold_steps * n for k, n in prep.items()}
-    for key in ("wdx_dtw", "wdx_svm_dot", "wdx_svm_probs"):  # each predict: K1, then the SVM's K12 and K13
+    for key in ("wdx_dtw", "wdx_xla_exp_scaled", "wdx_svm_dot", "wdx_svm_probs"):  # each predict: K1, then the SVM's K16, K12 and K13
         want_hold[key] += 2
     print(f"launches in the trna_trainer_holdout run: {by_path['trna_trainer_holdout']}")
     require(by_path["trna_trainer_holdout"] == want_hold,
@@ -3770,7 +4016,12 @@ def main() -> int:
             "launches_by_path": counts,
             **results[key],
         })
-    require(all(k["launches"] > 0 for k in kernels), "a kernel was launched by no main path")
+    # every kernel a path is pinned to launch was launched; the elementwise
+    # log is pinned to none since K14 took the LLR cost whole (phase 2 holds it)
+    pinned = {key for counts in LAUNCHES.values() for key, n in zip(KERNELS, counts) if n}
+    require(pinned == set(KERNELS) - {"wdx_xla_log"}, f"kernels pinned to no path: {set(KERNELS) - pinned}")
+    require(all(k["launches"] > 0 for key, k in zip(KERNELS, kernels) if key in pinned),
+            "a kernel was launched by no main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -522,8 +522,9 @@ def test_decision_step_gpu_matches_cpu(dev):
     _cuda.reset_launches()
     gpu = make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
-    # K9 replaces K6 + K7; K10 is the tRNA path's; K15 the DTW-MLP's and Fpt-Boost's softmax
-    idle = {"wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax"}
+    # K9 replaces K6 + K7; K10 is the tRNA path's; K15 the DTW-MLP's and Fpt-Boost's softmax;
+    # the elementwise log no step launches since K14 took the LLR cost whole
+    idle = {"wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log"}
     assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
     cpu = make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu", **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
@@ -963,3 +964,77 @@ def test_k15_refuses_the_widths_it_does_not_serve(dev):
     for k in (0, 1025):
         with pytest.raises(ValueError, match="K15 takes"):
             numerics.xla_softmax(torch.zeros((4, k), device=dev))
+
+
+def _llr_split_both(dev, win, ends, min_split):
+    """K14's splits and its plain version's on the windows' prefix sums
+    (ends None: every split, to the window's end)."""
+    from warpdemux_tpu_torch.ops import numerics
+
+    x = torch.as_tensor(win, device=dev)
+    c1, c2 = numerics.prefix_sums(x), numerics.prefix_sums(x * x)
+    weff = None if ends is None else torch.as_tensor(ends, device=dev)
+    got = _launched("wdx_llr_split", lambda: bd.llr_split(c1, c2, weff, min_split))
+    return got, bd.llr_split_plain(c1, c2, weff, min_split)
+
+
+@pytest.mark.parametrize("name", ["LLR refinement", "tRNA adapter split window"])
+def test_k14_llr_split_at_the_step_shapes(dev, name):
+    """K14 split for split its plain version at the refinement's 2 x 1000
+    windows of 800 and the tRNA adapter's 1000 windows of 6000 (each row's
+    own end), on windows from a seed and on the edge rows of LLR_EDGES."""
+    from chip_smoke import LLR_MIN_SPLIT, LLR_SHAPES, llr_edge_windows, llr_windows
+
+    R, W, with_end = LLR_SHAPES[name]
+    min_split = LLR_MIN_SPLIT if with_end else 1
+    for win, ends in (llr_windows(R, W, 3), llr_edge_windows(W)):
+        got, want = _llr_split_both(dev, win, ends if with_end else None, min_split)
+        assert torch.equal(got, want), (got != want).nonzero().flatten()[:8]
+
+
+@pytest.mark.parametrize("W", [2, 3, 31, 32, 33, 255, 256, 257, 1000])
+def test_k14_llr_split_at_widths_off_its_block(dev, W):
+    """Windows narrower and wider than a block's 256 threads, every split
+    and each row's own end with min_split from 0 to past the window."""
+    from chip_smoke import llr_windows
+
+    win, ends = llr_windows(64, W, W)
+    got, want = _llr_split_both(dev, win, None, 1)
+    assert torch.equal(got, want)
+    for min_split in (0, 1, W // 2, W + 1):
+        got, want = _llr_split_both(dev, win, ends, min_split)
+        assert torch.equal(got, want), min_split
+
+
+def test_k14_llr_split_refuses_what_it_does_not_serve(dev):
+    c = torch.zeros((4, 2), device=dev)
+    with pytest.raises(ValueError, match="llr_split"):
+        bd.llr_split(c, c)
+    c = torch.zeros((4, 801), device=dev)
+    with pytest.raises(ValueError, match="llr_split"):
+        bd.llr_split(c, c, torch.ones(3, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(1000, 851), (16, 851), (32, 851), (7,), (1, 3), (1000, 2601)])
+@pytest.mark.parametrize("scale", [-1.0, -1.2, 1.0])
+def test_k16_xla_exp_scaled_at_the_svm_shapes(dev, shape, scale):
+    """K16 bit for bit its plain version (a NaN as a NaN) on distances from
+    a seed at the SVM's shapes and at lengths off its 16-byte vectors, on a
+    view whose start is off them, and on the edge values."""
+    from chip_smoke import K16_EDGES, svm_distances
+    from warpdemux_tpu_torch.ops import numerics
+
+    D = torch.as_tensor(svm_distances(shape, 1), device=dev)
+    for x in (D, D.reshape(-1)[1:], torch.tensor(K16_EDGES, dtype=torch.float32, device=dev)):
+        got = _launched("wdx_xla_exp_scaled", lambda: numerics.xla_exp(x, scale))
+        assert got.shape == x.shape and _same_or_both_nan(got, numerics.xla_exp_plain(x, scale))
+
+
+def test_k16_on_every_float32_bit_pattern(dev):
+    """K16 against its plain version on all 2**32 float32 bit patterns at
+    the shipped models' scale (-gamma = -1)."""
+    from warpdemux_tpu_torch.ops import numerics
+
+    for c in range(64):
+        x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        assert _same_or_both_nan(numerics.xla_exp(x, -1.0), numerics.xla_exp_plain(x, -1.0)), c

@@ -63,6 +63,8 @@ SIGNATURES = {
     "wdx_svm_probs": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I),
     "wdx_xla_log": (_P, _P, _L),
     "wdx_xla_softmax": (_P, _P, _I, _I),
+    "wdx_llr_split": (_P, _P, _P, _P, _I, _I, _I),
+    "wdx_xla_exp_scaled": (_P, _P, _L, _F),
 }
 
 # entry points that launch no kernel of the port and are not counted

@@ -1,6 +1,9 @@
-// K14: XLA:CPU's float32 natural log, elementwise over a contiguous tensor
-// (ops/numerics.py `xla_log`, whose plain version `xla_log_plain` is the same
-// function in torch operations): the range reduction to a mantissa m in
+// XLA:CPU's float32 natural log, and K14, the LLR changepoint split that
+// takes it.
+//
+// `wdx_xla_log`, elementwise over a contiguous tensor (ops/numerics.py
+// `xla_log`, whose plain version `xla_log_plain` is the same function in
+// torch operations): the range reduction to a mantissa m in
 // [sqrt(1/2) - 1, sqrt(2) - 1) and an exponent e, the degree-8 Cephes
 // polynomial as three FMA chains in m**3, and e * ln(2) added in two parts,
 // each of the eleven multiply-adds one __fmaf_rn (one rounding; the library
@@ -8,14 +11,25 @@
 // subnormal inputs give -inf (XLA reads a subnormal as zero), +inf gives
 // +inf, negative numbers and NaN give NaN.
 //
-// Replaces no Pallas kernel: the JAX package leaves the log of the LLR
-// changepoint cost to XLA (warpdemux_tpu/detect/boundaries.py:224 and :259,
-// jnp.log). In torch operations it took ~50 launches a call; here it is one.
-//
 // Bound: memory (4 bytes read and 4 written an element against ~30
 // operations). Each thread takes WDX_XLALOG_ITEMS elements a block-width
 // apart, so a warp's loads and stores are coalesced and several loads are
-// in flight a thread.
+// in flight a thread. No step launches it since K14 took the whole cost;
+// it stays the log that is held on every float32 bit pattern.
+//
+// K14, `wdx_llr_split` (detect/boundaries.py `llr_split`, plain version
+// `llr_split_plain`): for each of R windows of W samples, the split t in
+// 1..W-1 minimizing n1 * log(var1) + n2 * log(var2), from the windows'
+// prefix sums. Replaces no Pallas kernel: the JAX package leaves the cost
+// and its argmin to XLA (warpdemux_tpu/detect/boundaries.py:201
+// `_llr_refine`, :229 `_llr_split_window`); in torch operations the cost
+// took ~100 launches a call. One block a window, the threads striding over
+// the splits (a warp's prefix-sum loads coalesced); each cost in the plain
+// version's order, every division __fdiv_rn, every multiply-add one
+// __fmaf_rn, the log `wdx_xla_logf`; the first index of the minimum by a
+// min over (cost, t) packed in 64 bits, across the warp by shuffles, then
+// across the block. Bound: memory (the two prefix sums read once, ~90
+// operations a split).
 #include "common.cuh"
 
 constexpr int WDX_XLALOG_THREADS = 256;
@@ -72,5 +86,68 @@ WDX_API int wdx_xla_log(const float* in, float* out, long long n, cudaStream_t s
   const long long blocks = (n + per_block - 1) / per_block;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   wdx_xla_log_kernel<<<(unsigned)blocks, WDX_XLALOG_THREADS, 0, stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+constexpr int WDX_LLR_THREADS = 256;
+
+// The variance clamp of the cost: torch.clamp_min(v, 1e-6) keeps NaN,
+// where fmaxf would give 1e-6.
+__device__ __forceinline__ float wdx_llr_clamp(float v) { return v < 1e-6f ? 1e-6f : v; }
+
+// (cost, t) as one key whose unsigned order is jnp.argmin's: any NaN
+// before every number, then by value with -0.0 equal to 0.0, then by t.
+__device__ __forceinline__ unsigned long long wdx_argmin_key(float cost, int t) {
+  const unsigned k = isnan(cost) ? 0u : (unsigned)wdx_order_key(cost == 0.f ? 0.f : cost) ^ 0x80000000u;
+  return ((unsigned long long)k << 32) | (unsigned)t;
+}
+
+// weff null: the second segment of every window runs to W and every split
+// counts. Else it runs to the window's own end weff[r] (clamped to [1, W]),
+// and only the splits in [min_split, weff[r]) count (the others cost inf).
+__global__ void __launch_bounds__(WDX_LLR_THREADS)
+    wdx_llr_split_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
+                         const int* __restrict__ weff, int* __restrict__ split, int W, int min_split) {
+  const long long row = (long long)blockIdx.x * (W + 1);
+  const float* a = c1 + row;
+  const float* b = c2 + row;
+  const int end = weff ? min(max(weff[blockIdx.x], 1), W) : W;
+  const int lo = weff ? max(min_split, 1) : 1;
+  const float cT1 = a[end], cT2 = b[end];
+  unsigned long long best = ~0ull;
+  for (int t = threadIdx.x + 1; t < W; t += WDX_LLR_THREADS) {
+    float cost = __int_as_float(0x7F800000);
+    if (t >= lo && t < end) {
+      const float n1 = (float)t, n2 = (float)(end - t);
+      const float s1 = a[t], s2 = b[t];
+      const float q1 = __fdiv_rn(s1, n1);
+      const float v1 = wdx_llr_clamp(__fmaf_rn(-q1, q1, __fdiv_rn(s2, n1)));
+      const float sT1 = __fsub_rn(cT1, s1), sT2 = __fsub_rn(cT2, s2);
+      const float q2 = __fdiv_rn(sT1, n2);
+      const float v2 = wdx_llr_clamp(__fmaf_rn(-q2, q2, __fdiv_rn(sT2, n2)));
+      cost = __fmaf_rn(n1, wdx_xla_logf(v1), __fmul_rn(n2, wdx_xla_logf(v2)));
+    }
+    const unsigned long long key = wdx_argmin_key(cost, t);
+    best = key < best ? key : best;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, o);
+    best = other < best ? other : best;
+  }
+  __shared__ unsigned long long partial[WDX_LLR_THREADS / 32];
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < WDX_LLR_THREADS / 32; ++w) best = partial[w] < best ? partial[w] : best;
+    split[blockIdx.x] = (int)(unsigned)best;
+  }
+}
+
+WDX_API int wdx_llr_split(const float* c1, const float* c2, const int* weff, int* split, int R, int W,
+                          int min_split, cudaStream_t stream) {
+  if (R == 0) return 0;
+  if (R < 0 || W < 2 || W == INT_MAX) return (int)cudaErrorInvalidValue;
+  wdx_llr_split_kernel<<<(unsigned)R, WDX_LLR_THREADS, 0, stream>>>(c1, c2, weff, split, W, min_split);
   return (int)cudaGetLastError();
 }

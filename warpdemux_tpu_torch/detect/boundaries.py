@@ -15,7 +15,8 @@ traverse the pore adapter -> poly(A) -> RNA; detection (llr / cnn):
 4. the first sustained candidate gives the adapter -> poly(A) boundary,
    the run's lapse gives poly(A) -> RNA,
 5. both are refined to the sample with an exact two-segment Gaussian
-   changepoint scan in a local window (window copy: kernel K5),
+   changepoint scan in a local window (window copy: kernel K5; the cost
+   of every split and its first argmin: kernel K14),
 6. gate medians (K8 or K4) and the gates give the fail codes,
 7. with_stats: mean / std / median / MAD of the adapter, poly(A) and RNA
    regions (medians and MADs: kernel K4).
@@ -25,7 +26,7 @@ capture spike at the read's head, found on the signal downscaled by
 downscale_factor; the adapter-level proxy is the median of the window
 after it; a short poly(A) is searched as above (K6, K7, K5), and without
 one the adapter ends at the best two-segment split of the max_obs_adapter
-window after its start (one more K5 window).
+window after its start (one more K5 window and K14 launch).
 
 The JAX package relies on XLA's common-subexpression elimination to run
 the proxy median and the rolling statistics once for the fallback pair;
@@ -59,7 +60,7 @@ from warpdemux_tpu_torch.config.sig_proc import DetectConfig
 from warpdemux_tpu_torch.detect import cnn as cnn_mod
 from warpdemux_tpu_torch.detect.containers import DetectArrays
 from warpdemux_tpu_torch.ops.normalize import masked_median
-from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log
+from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log_plain
 from warpdemux_tpu_torch.ops.rowstats import range_mean_std
 from warpdemux_tpu_torch.ops.select import range_median_mad, range_medians_adc
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
@@ -245,10 +246,11 @@ def _first_true(mask: torch.Tensor, default: int):
 
 
 def _first_argmin(cost: torch.Tensor) -> torch.Tensor:
-    """Per-row index of the FIRST minimum (int32)."""
+    """Per-row index (int32) of the FIRST NaN, else of the FIRST minimum:
+    what jnp.argmin gives (-0.0 ties 0.0; a row of inf gives 0)."""
     W = cost.shape[1]
     pos = torch.arange(W, device=cost.device, dtype=torch.int32)[None, :]
-    is_min = cost == cost.amin(1, keepdim=True)
+    is_min = (cost == cost.amin(1, keepdim=True)) | cost.isnan()
     return torch.where(is_min, pos, torch.full_like(pos, W)).amin(1)
 
 
@@ -266,29 +268,82 @@ def _llr_refine(x, coarse, radius: int):
     start = torch.clamp(coarse - radius, min=0)
     start = torch.clamp_max(start, max(L - W, 0)).reshape(K * B)
     win = shift_rows(x, start, W)
-    return (start + _first_argmin(_llr_cost(win)) + 1).reshape(K, B)
+    return (start + llr_split(prefix_sums(win), prefix_sums(win * win))).reshape(K, B)
 
 
 def _llr_cost(win):
-    """(B, W - 1) cost n1*log(var1) + n2*log(var2) of the splits 1..W-1 of
-    (B, W) windows, rounded as XLA:CPU rounds the JAX expression: blocked
-    prefix sums, fused multiply-adds where it contracts, its own log. The
-    two ends of a window can tie to the last bit, so the argmin depends on
-    every rounding."""
-    W = win.shape[1]
-    c1 = prefix_sums(win)
-    c2 = prefix_sums(win * win)
-    n1 = torch.arange(1, W, device=win.device, dtype=torch.float32)[None, :]
-    n2 = W - n1
+    """(B, W - 1) cost of the splits 1..W-1 of (B, W) windows: the LLR
+    refinement's `_llr_cost_from_sums` over the windows' prefix sums."""
+    return _llr_cost_from_sums(prefix_sums(win), prefix_sums(win * win))
+
+
+def _llr_cost_from_sums(c1, c2, weff=None, min_split: int = 1):
+    """(R, W - 1) cost n1*log(var1) + n2*log(var2) of the splits 1..W-1,
+    from the (R, W + 1) prefix sums c1 of the windows and c2 of their
+    squares, rounded as XLA:CPU rounds the JAX expression: fused
+    multiply-adds where it contracts, its own log. The two ends of a window
+    can tie to the last bit, so the argmin depends on every rounding.
+
+    weff None: the second segment runs to the window's end W. weff (R,):
+    it runs to the row's own end weff in [1, W] (count clamped to 1), and
+    the splits before min_split or at weff and past it cost inf."""
+    W = c1.shape[1] - 1
+    n1 = torch.arange(1, W, device=c1.device, dtype=torch.float32)[None, :]
     s1, s2 = c1[:, 1:W], c2[:, 1:W]
     q1 = s1 / n1
     v1 = torch.clamp_min(fma(-q1, q1, s2 / n1), 1e-6)
-    sT1 = c1[:, W : W + 1] - s1
-    sT2 = c2[:, W : W + 1] - s2
+    if weff is None:
+        n2 = W - n1
+        cT1, cT2 = c1[:, W : W + 1], c2[:, W : W + 1]
+    else:
+        n2 = torch.clamp_min(weff.to(torch.float32)[:, None] - n1, 1.0)
+        idx = weff.to(torch.int64)[:, None]
+        cT1, cT2 = torch.gather(c1, 1, idx), torch.gather(c2, 1, idx)
+    sT1 = cT1 - s1
+    sT2 = cT2 - s2
     q2 = sT1 / n2
     v2 = torch.clamp_min(fma(-q2, q2, sT2 / n2), 1e-6)
-    log_v1, log_v2 = xla_log(torch.stack([v1, v2]))
-    return fma(n1, log_v1, n2 * log_v2)
+    log_v1, log_v2 = xla_log_plain(torch.stack([v1, v2]))
+    cost = fma(n1, log_v1, n2 * log_v2)
+    if weff is None:
+        return cost
+    tpos = torch.arange(1, W, device=c1.device)[None, :]
+    ok = (tpos >= min_split) & (tpos < weff[:, None])
+    return torch.where(ok, cost, torch.full_like(cost, float("inf")))
+
+
+def llr_split_plain(c1, c2, weff=None, min_split: int = 1) -> torch.Tensor:
+    """The plain version of `llr_split` (any device)."""
+    return _first_argmin(_llr_cost_from_sums(c1, c2, weff, min_split)) + 1
+
+
+def llr_split(c1, c2, weff=None, min_split: int = 1) -> torch.Tensor:
+    """(R,) int32 best split in 1..W-1 of each of R windows of W samples:
+    the first argmin of `_llr_cost_from_sums` plus one, from the (R, W + 1)
+    float32 prefix sums c1 / c2 (`numerics.prefix_sums` of the windows and
+    of their squares); `weff` (R,) and `min_split` as there. Kernel K14
+    (csrc/xlalog.cu, `wdx_llr_split`) on CUDA: the whole cost and its first
+    argmin in one launch."""
+    tensors = (c1, c2) if weff is None else (c1, c2, weff)
+    if not _cuda.on_cuda(*tensors):
+        return llr_split_plain(c1, c2, weff, min_split)
+    c1, c2 = c1.contiguous(), c2.contiguous()
+    _cuda.check(c1, torch.float32, 2, "llr_split c1")
+    _cuda.check(c2, torch.float32, 2, "llr_split c2")
+    R, W = c1.shape[0], c1.shape[1] - 1
+    if c2.shape != c1.shape or W < 2:
+        raise ValueError(f"llr_split: prefix sums {tuple(c1.shape)} / {tuple(c2.shape)}, want (R, W + 1) with W >= 2")
+    if weff is not None:
+        weff = weff.to(torch.int32).contiguous()
+        if weff.shape != (R,):
+            raise ValueError(f"llr_split: weff {tuple(weff.shape)} for {R} windows")
+    out = torch.empty(R, dtype=torch.int32, device=c1.device)
+    if R:
+        _cuda.launch(
+            "wdx_llr_split", c1.device, c1.data_ptr(), c2.data_ptr(),
+            None if weff is None else weff.data_ptr(), out.data_ptr(), R, W, int(min_split),
+        )
+    return out
 
 
 def _llr_split_window(xz, start, W: int, min_split: int, n_valid):
@@ -301,25 +356,8 @@ def _llr_split_window(xz, start, W: int, min_split: int, n_valid):
     L = xz.shape[1]
     start = start.clamp(0, max(L - 1, 0))
     win = shift_rows(xz, start, W, torch.full_like(start, W))
-    c1 = prefix_sums(win)
-    c2 = prefix_sums(win * win)
     weff = (n_valid - start).clamp(1, W)
-    n1 = torch.arange(1, W, device=xz.device, dtype=torch.float32)[None, :]
-    n2 = torch.clamp_min(weff.to(torch.float32)[:, None] - n1, 1.0)
-    s1, s2 = c1[:, 1:W], c2[:, 1:W]
-    q1 = s1 / n1
-    v1 = torch.clamp_min(fma(-q1, q1, s2 / n1), 1e-6)
-    idx = weff.to(torch.int64)[:, None]
-    sT1 = torch.gather(c1, 1, idx) - s1
-    sT2 = torch.gather(c2, 1, idx) - s2
-    q2 = sT1 / n2
-    v2 = torch.clamp_min(fma(-q2, q2, sT2 / n2), 1e-6)
-    log_v1, log_v2 = xla_log(torch.stack([v1, v2]))
-    cost = fma(n1, log_v1, n2 * log_v2)
-    tpos = torch.arange(1, W, device=xz.device)[None, :]
-    ok = (tpos >= min_split) & (tpos < weff[:, None])
-    cost = torch.where(ok, cost, torch.full_like(cost, float("inf")))
-    split = _first_argmin(cost) + 1
+    split = llr_split(prefix_sums(win), prefix_sums(win * win), weff, min_split)
     return torch.minimum(torch.clamp_min(start + split, 0), n_valid)
 
 

@@ -19,7 +19,12 @@ device's summation order and contraction choices:
   vectorized CPU sqrt is not always.
 - `xla_log`: XLA:CPU's float32 log is the Cephes/Eigen polynomial, off
   the correctly rounded result by one ulp on a few percent of inputs;
-  torch.log (and CUDA's logf) round differently. Kernel K14 on CUDA.
+  torch.log (and CUDA's logf) round differently. The elementwise kernel
+  `wdx_xla_log` on CUDA; the LLR cost takes its device function inside
+  K14 (`detect/boundaries.llr_split`).
+- `xla_exp`: XLA:CPU's float32 exp (Cephes, its FMAs, subnormal results
+  flushed to zero), of the input times a float32 scale. Kernel K16 on
+  CUDA.
 - `xla_softmax`: jax.nn.softmax jitted on XLA:CPU: XLA's exp of z less
   the row max over the row's `xla_sum`, a subnormal quotient flushed to
   zero. Kernel K15 on CUDA.
@@ -296,7 +301,8 @@ _SQRT_HALF = _f32(0.707106781186547524)
 
 def xla_log(a: torch.Tensor) -> torch.Tensor:
     """float32 natural log with the bits of XLA:CPU's `jnp.log`
-    (`xla_log_plain`); kernel K14 (csrc/xlalog.cu) on CUDA tensors."""
+    (`xla_log_plain`); the elementwise kernel `wdx_xla_log`
+    (csrc/xlalog.cu) on CUDA tensors."""
     if not _cuda.on_cuda(a):
         return xla_log_plain(a)
     x = a.to(torch.float32).contiguous()
@@ -355,17 +361,33 @@ _EXP_P = tuple(_f32(p) for p in (
 _LOG2E = _f32(1.44269504088896341)
 
 
-def xla_exp(a: torch.Tensor) -> torch.Tensor:
-    """float32 exp with the bits of XLA:CPU's jitted `jnp.exp`.
+def xla_exp(a: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """float32 exp(scale * a) with the bits of XLA:CPU's jitted
+    `jnp.exp(scale * a)` (`xla_exp_plain`); kernel K16 (csrc/xlaexp.cu) on
+    CUDA tensors."""
+    if not _cuda.on_cuda(a):
+        return xla_exp_plain(a, scale)
+    x = a.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        _cuda.launch("wdx_xla_exp_scaled", x.device, x.data_ptr(), out.data_ptr(), x.numel(), float(scale))
+    return out
 
-    The Cephes algorithm XLA compiles for exp, with the multiply-adds it
-    contracts into FMAs (each emulated as `fma` does): the input clamped to
-    [-87.8, 88.8], n = floor(fma(x, log2(e), 0.5)) clamped to [-126, 127],
-    r = x - n * ln(2) in two FMAs, a degree-5 polynomial in r by Horner's
-    FMAs, z = 1 + fma(poly, r * r, r), the result z * 2**n with subnormal
-    results flushed to zero (XLA:CPU runs with flush-to-zero). NaN gives
-    NaN, +inf +inf and -inf 0."""
-    x = a.to(torch.float32)
+
+def xla_exp_plain(a: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """float32 exp(scale * a) with the bits of XLA:CPU's jitted `jnp.exp`;
+    the plain version of `xla_exp` (any device).
+
+    The product is a float32 one, scale rounded to float32 first, as torch
+    and a jitted JAX function both take a Python float times a float32
+    array. Then the Cephes algorithm XLA compiles for exp, with the
+    multiply-adds it contracts into FMAs (each emulated as `fma` does): the
+    input clamped to [-87.8, 88.8], n = floor(fma(x, log2(e), 0.5)) clamped
+    to [-126, 127], r = x - n * ln(2) in two FMAs, a degree-5 polynomial in
+    r by Horner's FMAs, z = 1 + fma(poly, r * r, r), the result z * 2**n
+    with subnormal results flushed to zero (XLA:CPU runs with
+    flush-to-zero). NaN gives NaN, +inf +inf and -inf 0."""
+    x = a.to(torch.float32) * scale
     xc = x.clamp(-87.8, 88.8)
     n = torch.floor(fma(xc, torch.full_like(xc, _LOG2E), torch.full_like(xc, 0.5))).clamp(-126.0, 127.0)
     r = fma(n, torch.full_like(n, -0.693359375), xc)
@@ -407,7 +429,7 @@ def xla_softmax_plain(z: torch.Tensor) -> torch.Tensor:
     """float32 softmax over the last dim with the bits of XLA:CPU's jitted
     `jax.nn.softmax`; the plain version of `xla_softmax` (any device).
 
-    e = `xla_exp`(z - the row max), then e / `xla_sum`(e) as an IEEE
+    e = `xla_exp_plain`(z - the row max), then e / `xla_sum`(e) as an IEEE
     division, a subnormal quotient flushed to zero (XLA:CPU runs with
     flush-to-zero: a row [0, 0, 0, -87.0, -87.2] gives 0 where the
     division gives 5.49e-39). A row holding NaN gives NaN; +inf gives NaN
@@ -415,7 +437,7 @@ def xla_softmax_plain(z: torch.Tensor) -> torch.Tensor:
     row is -inf: what the jitted JAX function gives
     (tests/test_torch_softmax.py)."""
     x = z.to(torch.float32)
-    e = xla_exp(x - x.amax(-1, keepdim=True))
+    e = xla_exp_plain(x - x.amax(-1, keepdim=True))
     q = e / xla_sum(e)[..., None]
     return torch.where(q < _TINY, torch.zeros_like(q), q)
 

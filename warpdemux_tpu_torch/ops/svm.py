@@ -3,7 +3,7 @@
 Port of warpdemux_tpu/ops/svm.py:
 
 - kernel K = exp(-gamma * D**pwr_dist) over DTW distances, with XLA:CPU's
-  exp (`numerics.xla_exp`),
+  exp (`numerics.xla_exp`; kernel K16, csrc/xlaexp.cu, on CUDA),
 - one-vs-one decision values: one (B, n_SV) x (n_SV, n_pairs) product
   against a coefficient matrix assembled from libsvm's dual coefficients,
   summed in the order of the jitted JAX product where that order is known,
@@ -64,9 +64,10 @@ def build_pair_coef(dual_coef: np.ndarray, n_support: np.ndarray) -> np.ndarray:
 
 
 def pdist_kernel(D: torch.Tensor, gamma: float = 1.0, pwr_dist: int = 1):
-    """K = exp(-gamma * D**pwr_dist), XLA:CPU's exp."""
+    """K = exp(-gamma * D**pwr_dist), XLA:CPU's exp; K16 (the product and
+    the exp, csrc/xlaexp.cu) on CUDA."""
     Dp = D if pwr_dist == 1 else D**pwr_dist
-    return numerics.xla_exp(-gamma * Dp)
+    return numerics.xla_exp(Dp, -gamma)
 
 
 def dot_bias_plain(K: torch.Tensor, C: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -115,7 +116,7 @@ def sigmoid_predict(dec, A, B):
     """libsvm sigmoid_predict: numerically stable 1 / (1 + exp(dec*A + B)),
     with the FMA and the exp of the jitted JAX function."""
     fApB = numerics.fma(dec, A.expand_as(dec), B.expand_as(dec))
-    efa = numerics.xla_exp(-fApB.abs())
+    efa = numerics.xla_exp_plain(-fApB.abs())
     return torch.where(fApB >= 0, efa / (1.0 + efa), 1.0 / (1.0 + efa))
 
 
