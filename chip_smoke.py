@@ -18,7 +18,7 @@ Phases (each raises on failure; nothing is caught):
    time alone); print its bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 rate, from
    this run's inputs) and the share of it reached. K1 is also held at its
-   generic instance, at edge tiles, on non-finite fingerprints and at a
+   wide kernel (every lattice but m = 25, window 15), at edge tiles, on non-finite fingerprints and at a
    cell whose sum lands on a float32 tie (`k1_tie_case`); K6 at
    lengths off the scan's block size, with windows longer than the row and
    at a row too long for shared memory (its device-scratch variant, K9's
@@ -107,7 +107,18 @@ Phases (each raises on failure; nothing is caught):
    one warp a row, the sum in XLA's order by shuffles) is held bit for bit
    against its plain version at K15_SHAPES, on logits from a seed and on
    the edge rows of K15_EDGE_ROWS (subnormal quotients, +-inf, NaN), and
-   timed beside its bound and torch.softmax (not bit-equal). An
+   timed beside its bound and torch.softmax (not bit-equal). The shapes
+   past the shipped models' (faults F, G, H): K13 at WIDE_CLASSES (17-64
+   classes) on each of its kernels that takes k (one warp a row up to 32;
+   one block a row, Q in shared memory or in a global workspace), K1 at
+   LONG_FINGERPRINTS (25-100 events, windows 15 and m) on each of its
+   kernels that takes the shape (the register kernel at 25 and 15 alone;
+   the wide kernel, its DP rows in shared memory or a workspace), K15 also at K15_WIDE_SHAPES
+   (1,025 and 12,288 classes) and on each of its kernels that takes the
+   width (lanes, warp, block, global), all bit for bit their plain
+   versions and each timed on the device in turns; K15's lanes and warp
+   kernels in turns with torch.softmax at K15_TIMED (the families' 5 and
+   13 classes, at 1,000 and 100,000 rows). An
    empty launch is timed as called
    through `_cuda.launch` and through a launch that resolves the entry
    point, the device context and the stream object every time.
@@ -293,6 +304,16 @@ Phases (each raises on failure; nothing is caught):
       equal, the launches of LAUNCHES["validate_boundaries"] a minibatch;
    e. K12 at the WDX6 and WDX10 step shapes (B = 1000): bit for bit its
       plain version, timed beside its bound and torch.addmm (TF32 off).
+15. Shapes past the shipped models' on the card against the CPU (after
+   phase 3, before phase 4): a. the classify chain (K1, K16, K12, K13) of a
+   synthetic SVM (svm_arrays: 40 support vectors a class, RNA004's gamma)
+   at WIDE_CLASSES, one predict of CHAIN_ROWS fingerprints: the launches of
+   LAUNCHES["dtw_svm_predict"], pred, conf and probs bit for bit the CPU's;
+   b. the adc step, full outputs, on phase 3's N_ROWS reads with a
+   24-class SVM, then with fingerprints of 40 events (the config's
+   barcode_num_events and barcode_seg_num_events) and a 5-class SVM of
+   40-event support vectors: each at its LAUNCHES pin, every row agreeing
+   as phase 3b compares them, (success, pred) equal on every row.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -402,7 +423,14 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
             # detect configurations on float signals, the three fingerprinted
             # ones through K1, K16, K12 and K13)
             "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 0, 0, 2, 1),
-            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 0, 0, 6, 3)}
+            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 0, 0, 6, 3),
+            # phase 15: the adc step, full outputs, with a 24-class SVM and
+            # with 40-event fingerprints (each a vbz full step's launches);
+            # one predict of a synthetic SVM (K1, then the SVM's K16, K12
+            # and K13)
+            "wide_classes_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
+            "long_fingerprints_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
+            "dtw_svm_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -1112,6 +1140,13 @@ K12_SHAPES = (("WDX4_rna004_v1_0", 1000), ("WDX4_rna004_v1_0", 16), ("WDX4_rna00
               ("WDX4_rna004_v1_0", 1), ("WDX10_rna004_v1_0", 16), ("WDX8_rna002_v0_4_4", 16),
               ("WDX12_rna002_v0_4_4", 32))
 SVM_SIGMOID_OPS = 25  # the Platt sigmoid of one decision value: fma, abs, XLA's exp (~20), add, div
+WIDE_CLASSES = (17, 24, 32, 33, 48, 64)  # K13 and the classify chain past 16 classes (phases 2 and 15)
+# K1 past 32 events (phase 2), and at the shipped 25 and at 32, where the
+# wide kernel serves every window but the register kernel's 15 at 25
+LONG_FINGERPRINTS = (25, 32, 33, 40, 64, 100)
+LONG_FINGERPRINT_ROWS = 256  # queries of phase 2's K1 checks past 32 events, against 851 references
+WIDE_STEP_CLASSES, LONG_STEP_EVENTS = 24, 40  # phase 15's steps
+CHAIN_ROWS = 128  # fingerprints through phase 15's classify chain
 # K12's and K13's device ms before their redesign (commit 2a0ac67's
 # kernels: one thread an output; one thread a row) at WDX4's shapes:
 # PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
@@ -1151,7 +1186,7 @@ def k13_work(dec, params):
 
     svm._p_dot = counted
     try:
-        svm.probabilities_plain(dec.cpu(), svm.SVMParams(*(a.cpu() for a in params[:4]), k))
+        svm.probabilities_plain(dec.cpu(), svm.SVMParams(*(a if a is None else a.cpu() for a in params[:4]), k))
     finally:
         svm._p_dot = real
     heads = passes + (passes < max(100, k)).long()
@@ -1571,6 +1606,10 @@ def check_k16(dev, card):
 # step's B, one read; 13 classes (WDX10's label count); 7 at B = 1; and 33,
 # past one window of XLA's sum
 K15_SHAPES = ((1000, 5), (1000, 13), (16, 5), (1, 7), (64, 33))
+K15_WIDE_SHAPES = ((1000, 1025), (16, 12288))  # past one level of XLA's windows: the block kernels
+# the families' widths, timed beside torch.softmax in turns: a minibatch,
+# and 100 of them at once
+K15_TIMED = ((1000, 5), (1000, 13), (100000, 5), (100000, 13))
 # rows of 5 logits on which the softmax's edges show (each cut or padded
 # with -inf to k classes by k15_edge_rows): quotients that are subnormal
 # (XLA flushes them to 0), infinities, NaN, subnormal and signed-zero
@@ -1581,6 +1620,60 @@ K15_EDGE_ROWS = ((0.0, 0.0, 0.0, -87.0, -87.2), (0.0, 0.0, 0.0, 0.0, -86.9), (fl
                  (1e-40, -1e-40, 0.0, -0.0, 3.0), (88.0, -88.0, 0.0, 1.0, 2.0), (3.4e38, -3.4e38, 0.0, 0.0, 0.0),
                  (-87.5,) * 5)
 K15_OPS = 30  # a class: the max's compare, the subtraction, XLA's exp (~25 with the clamps), the add, the division
+
+
+def k13_wide_case(dev, k, b=B):
+    """(decision values, SVMParams) of k classes from a seed: b rows normal
+    with a spread of 3, rows of NaN, inf and 0 first; Platt slopes and
+    offsets of the shipped models' scale."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch.ops import svm
+
+    P = k * (k - 1) // 2
+    rng = np.random.default_rng(k)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    params = svm.SVMParams(None, None, t(rng.normal(-2, 0.5, P)), t(rng.normal(0, 0.3, P)), k)
+    dec = t(rng.normal(0, 3, (b, P)))
+    dec[:3] = torch.tensor([float("nan"), float("inf"), 0.0], device=dev)[:, None]
+    return dec, params
+
+
+def k13_variants(k):
+    from warpdemux_tpu_torch.ops import svm
+
+    return [v for v in svm.VARIANTS if not (v == "warp" and k > 32)
+            and not (v == "shared" and svm._k13_variant(k, None) == "global")]
+
+
+def check_k13_wide(dev, card):
+    """Phase 2's K13 past 16 classes: at WIDE_CLASSES, B = 1000 rows of
+    `k13_wide_case`, each variant that takes k (the warp kernel up to 32
+    classes, the block kernel with Q in shared memory and in a global
+    workspace) bit for bit the plain version and timed on the device in
+    turns, beside the bound from the passes this batch takes."""
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.ops import svm
+
+    for k in WIDE_CLASSES:
+        dec, params = k13_wide_case(dev, k)
+        want = svm.probabilities_plain(dec, params)
+        variants = k13_variants(k)
+        for v in variants:
+            before = _cuda.launches["wdx_svm_probs"]
+            got = svm.probabilities(dec, params, variant=v)
+            require(_cuda.launches["wdx_svm_probs"] == before + 1, f"K13 k={k} {v}: not launched once")
+            require(bits_equal(got, want), f"K13 k={k} {v} kernel: differs from the plain version")
+        k13_bytes, k13_ops, most, mean = k13_work(dec, params)
+        bound_ms, bound_by = bound(k13_bytes, k13_ops)
+        turns = variants + variants[::-1]
+        times = [(v, time_ms(lambda: svm.probabilities(dec, params, variant=v), queued=True)) for v in turns]
+        default = svm._k13_variant(k, None)
+        print(f"K13 k={k} B={B}: max_abs_err=0.0 on every variant ({', '.join(variants)}; default {default}); "
+              f"coupling passes a row: largest {most}, mean {mean!r}; bound_ms={bound_ms!r} by {bound_by}")
+        for v, ms in times:
+            print(f"K13 k={k} B={B} {v} kernel: device_ms={ms!r} share={bound_ms / ms!r} on {card}")
 
 
 def k15_logits(shape, seed):
@@ -1600,34 +1693,69 @@ def k15_edge_rows(k):
     return rows[:, :k]
 
 
+def k15_variants(k):
+    from warpdemux_tpu_torch.ops import numerics
+
+    return [v for v in numerics.SOFTMAX_VARIANTS if not (v == "lanes" and k > 32)
+            and not (v == "warp" and k > 32 * 32)]
+
+
 def check_k15(dev, card):
     """Phase 2's K15: XLA:CPU's float32 softmax bit for bit against its plain
     version (a NaN as a NaN: the card's default NaN is not the CPU's) at
-    K15_SHAPES, on logits from a seed and on the edge rows at each width;
-    timed at the families' (1000, 5) beside its bound and torch.softmax
-    (another softmax: not bit-equal, the count printed)."""
+    K15_SHAPES and K15_WIDE_SHAPES, on logits from a seed and on the edge
+    rows at each width, on each of its kernels that takes the width (a warp
+    a row by lanes or by windows, a block a row with its sums in shared
+    memory or a workspace); then the lanes kernel (the default up to 32
+    classes), the warp kernel (the default there before) and torch.softmax
+    (another softmax: not bit-equal, the count printed) timed in turns at
+    K15_TIMED beside the bound; the default at (1000, 5) in the kernels
+    line."""
     import torch
 
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.ops import numerics
 
     result = None
-    for i, shape in enumerate(K15_SHAPES):
+    for i, shape in enumerate(K15_SHAPES + K15_WIDE_SHAPES):
+        variants = k15_variants(shape[1])
         for what, z in (("logits", k15_logits(shape, i)), ("edge rows", k15_edge_rows(shape[1]))):
             z = torch.as_tensor(z, device=dev)
-            before = _cuda.launches["wdx_xla_softmax"]
-            got = numerics.xla_softmax(z)
-            require(_cuda.launches["wdx_xla_softmax"] == before + 1, f"K15 {shape} {what}: not launched")
-            require(bits_equal(got, numerics.xla_softmax_plain(z)), f"K15 {shape} {what}: differs from the plain version")
+            want = numerics.xla_softmax_plain(z)
+            for v in (None, *variants):
+                before = _cuda.launches["wdx_xla_softmax"]
+                got = numerics.xla_softmax(z, variant=v)
+                require(_cuda.launches["wdx_xla_softmax"] == before + 1, f"K15 {shape} {what} {v}: not launched")
+                require(bits_equal(got, want), f"K15 {shape} {what} {v}: differs from the plain version")
         z = torch.as_tensor(k15_logits(shape, i), device=dev)
         off = int((torch.softmax(z, -1).view(torch.int32) != numerics.xla_softmax(z).view(torch.int32)).sum())
         print(f"K15 {shape}: max_abs_err=0.0 (bit for bit) on logits and on the {len(K15_EDGE_ROWS)} edge rows at "
-              f"k={shape[1]}; torch.softmax differs on {off} of {z.numel()}")
+              f"k={shape[1]}, on every kernel that takes it ({', '.join(variants)}); torch.softmax differs on "
+              f"{off} of {z.numel()}")
         if result is None:
             result = time_kernel("wdx_xla_softmax", card, 0.0, lambda: numerics.xla_softmax(z),
                                  lambda: numerics.xla_softmax_plain(z), 8 * z.numel(), K15_OPS * z.numel(),
                                  library=lambda: torch.softmax(z, -1), plain_reps=3)
             print("K15: library_ms is torch.softmax, another softmax (not bit-equal: the count above)")
+        if shape in K15_WIDE_SHAPES:
+            for v in ("block", "global", "global", "block"):
+                ms = time_ms(lambda: numerics.xla_softmax(z, variant=v), queued=True)
+                bound_ms, bound_by = bound(8 * z.numel(), K15_OPS * z.numel())
+                print(f"K15 {shape} {v} kernel: device_ms={ms!r} bound_ms={bound_ms!r} by {bound_by} "
+                      f"share={bound_ms / ms!r} on {card}")
+    for i, shape in enumerate(K15_TIMED):
+        z = torch.as_tensor(k15_logits(shape, 100 + i), device=dev)
+        want = numerics.xla_softmax_plain(z)
+        for v in ("lanes", "warp"):
+            require(bits_equal(numerics.xla_softmax(z, variant=v), want), f"K15 {shape} {v}: differs")
+        bound_ms, bound_by = bound(8 * z.numel(), K15_OPS * z.numel())
+        calls = {"lanes kernel": lambda: numerics.xla_softmax(z, variant="lanes"),
+                 "warp kernel": lambda: numerics.xla_softmax(z, variant="warp"),
+                 "torch.softmax": lambda: torch.softmax(z, -1)}
+        for name in (*calls, *reversed(calls)):
+            ms, device_ms = time_ms(calls[name]), time_ms(calls[name], queued=True)
+            print(f"K15 {shape} in turns, {name}: kernel_ms={ms!r} device_ms={device_ms!r} bound_ms={bound_ms!r} "
+                  f"by {bound_by} share={bound_ms / device_ms!r} on {card}")
     return result
 
 
@@ -1671,6 +1799,32 @@ def family_arrays(kind, rng, X_ref=None, trees=FOREST_TREES, depth=FOREST_DEPTH,
         thr=rng.normal(0, 1, (trees, depth)).astype(np.float32),
         leaf_values=(rng.normal(0, 1, (trees, 2**depth, k)) * 1.5 / np.sqrt(trees)).astype(np.float32),
         bias=rng.normal(0, 0.1, k).astype(np.float32),
+    )
+
+
+def svm_arrays(k, rng, m=25, per_class=40):
+    """A DTW-SVM bundle's arrays of k classes from `rng`: per_class support
+    vectors a class (N = per_class k fingerprints of m events, normal), the
+    libsvm dual coefficients (k - 1, N; U(-8, 8), so that the reads' kernel
+    rows, not the intercepts, pick the class), intercepts and Platt
+    parameters of the shipped models' ranges, RNA004's gamma (1.0), the last
+    class the noise class, thresholds of 0.2 / k (a mix of noise calls and
+    classes on the bench reads); what the port's
+    registry.dtw_svm_from_arrays and the JAX DTWSVMModel.from_arrays both
+    read."""
+    import numpy as np
+
+    n = per_class * k
+    P = k * (k - 1) // 2
+    X = rng.normal(0, 1, (n, m))
+    return dict(
+        X_sv=X.astype(np.float32), X_sv_f64=X.astype(np.float32).astype(np.float64),
+        dual_coef=rng.uniform(-8, 8, (k - 1, n)), n_support=np.full(k, per_class, np.int64),
+        intercept=rng.normal(0, 0.3, P), probA=rng.uniform(-6, -4, P), probB=rng.normal(0, 0.3, P),
+        classes=np.arange(k, dtype=np.int64), label_map=np.array([*range(k - 1), -1], np.int32),
+        thresholds=np.array([0.2 / k] * (k - 1) + [1.01]), window=np.int64(15), penalty=np.float64(0.1),
+        gamma=np.float64(1.0), pwr_dist=np.int64(1), block_size=np.int64(500), noise_class=np.bool_(True),
+        n_classes=np.int64(k),
     )
 
 
@@ -1851,8 +2005,8 @@ def check_kernels(dev, card):
               f"device_ms={time_ms(lambda: _cuda.empty_launch(dev, B, 256), reps=50, queued=True)!r} on {card}")
 
     # K1: banded DTW against WDX4 (N=851) and WDX10 (N=2601) support
-    # vectors (the static m=25, window=15 instance), then the generic
-    # instance and edge tiles, non-finite fingerprints included
+    # vectors (the static m=25, window=15 instance), then the wide kernel
+    # at other lattices and edge tiles, non-finite fingerprints included
     X = t(rng.normal(0, 1, (B, 25)).astype(np.float32))
     for model in ("WDX10_rna004_v1_0", MODEL):  # WDX4 last: its numbers are kept
         Y = t(load_model_arrays(model)["X_sv"].astype(np.float32))
@@ -2281,13 +2435,59 @@ def check_kernels(dev, card):
         lambda: subsequence.subsequence_dtw_plain(q, series, slens),
         *k10_work(q.shape[0], slens, series.shape[1]), plain_reps=3,
     )
+    check_k1_long(dev, card)
     results["wdx_rowstats"] = check_k11(dev, card)
     results.update(check_svm(dev, card))
+    check_k13_wide(dev, card)
     results["wdx_xla_log"] = check_k14(dev, card)
     results["wdx_xla_softmax"] = check_k15(dev, card)
     results["wdx_llr_split"] = check_llr_split(dev, card)
     results["wdx_xla_exp_scaled"] = check_k16(dev, card)
     return results
+
+
+def k1_variants(m, window):
+    from warpdemux_tpu_torch.ops import dtw
+
+    return [v for v in dtw.VARIANTS if not (v == "registers" and (m, window) != dtw.REGISTER_SHAPE)
+            and not (v == "shared" and not dtw.wide_threads(m))]
+
+
+def check_k1_long(dev, card):
+    """Phase 2's K1 past 32 events: at LONG_FINGERPRINTS, LONG_FINGERPRINT_ROWS
+    queries against 851 references from a seed (NaN and infinite samples
+    planted), windows 15 and m (the full lattice), each variant that takes
+    the shape (the register kernel at m = 25, window 15 alone; the wide
+    kernel, its DP rows in shared memory or in a global workspace) bit for
+    bit the plain version; at window 15, B = 1000 queries, each timed on the
+    device in turns beside its bound."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.ops import dtw
+
+    for m in LONG_FINGERPRINTS:
+        rng = np.random.default_rng(m)
+        X = rng.normal(0, 1, (B, m)).astype(np.float32)
+        Y = rng.normal(0, 1, (851, m)).astype(np.float32)
+        X[1, 3], X[2, m - 1], X[3, 0], Y[850, 2] = np.nan, np.inf, -np.inf, np.nan
+        X, Y = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+        Xc = X[:LONG_FINGERPRINT_ROWS]
+        for window in (15, m):
+            want = dtw.dtw_distance_matrix_plain(Xc, Y, window, 0.1)
+            for v in k1_variants(m, window):
+                before = _cuda.launches["wdx_dtw"]
+                got = dtw.dtw_distance_matrix(Xc, Y, window, 0.1, variant=v)
+                require(_cuda.launches["wdx_dtw"] == before + 1, f"K1 m={m} window={window} {v}: not launched once")
+                require(bits_equal(got, want), f"K1 m={m} window={window} {v}: differs from the plain version")
+        variants = k1_variants(m, 15)
+        bound_ms, bound_by = bound(*k1_work(B, 851, m, 15))
+        print(f"K1 m={m}: max_abs_err=0.0 at windows 15 and {m} on every variant that takes them ({', '.join(variants)} "
+              f"at 15; default {dtw._k1_variant(m, 15, None)}); at B={B} N=851 window=15 bound_ms={bound_ms!r} by {bound_by}")
+        for v in variants + variants[::-1]:
+            ms = time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1, variant=v), queued=True)
+            print(f"K1 m={m} B={B} N=851 window=15 {v} kernel: device_ms={ms!r} share={bound_ms / ms!r} on {card}")
 
 
 def _steps(dev):
@@ -3539,6 +3739,75 @@ def run_worker_processes(card):
     return {name: launches}
 
 
+def wide_spc(spc, m):
+    """`spc` with fingerprints of m events (barcode_num_events and
+    barcode_seg_num_events, the config TOML's `barcode_num_events`)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        spc, fingerprint=dataclasses.replace(spc.fingerprint, barcode_num_events=m),
+        seg_extra=dataclasses.replace(spc.seg_extra, barcode_seg_num_events=m))
+
+
+def run_wide_shapes(dev, card):
+    """Phase 15: the shapes past the shipped models' on the card against the
+    CPU. a. the classify chain (K1, K16, K12, K13) of a synthetic SVM
+    (`svm_arrays`, 40 support vectors a class) at WIDE_CLASSES, one predict
+    of CHAIN_ROWS fingerprints from a seed: each kernel launched once, pred,
+    conf and probs bit for bit the CPU's; b. the adc step, full outputs, on
+    the first N_ROWS seed-0 bench reads with a WIDE_STEP_CLASSES-class SVM,
+    then with fingerprints of LONG_STEP_EVENTS events (a 5-class SVM of such
+    support vectors): the launches of the path's pin, every row agreeing as
+    phase 3b compares them, and (success, pred) equal on every row."""
+    import numpy as np
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
+
+    by_path = {}
+    chain = dict(zip(KERNELS, LAUNCHES["dtw_svm_predict"]))
+    for k in WIDE_CLASSES:
+        arrays = svm_arrays(k, np.random.default_rng(k))
+        fpts = np.random.default_rng(k + 1).normal(0, 1, (CHAIN_ROWS, 25)).astype(np.float32)
+        model = dtw_svm_from_arrays(arrays, dev)
+        _cuda.reset_launches()
+        got = model.predict(fpts)
+        require(dict(_cuda.launches) == chain, f"chain k={k}: launches {dict(_cuda.launches)}")
+        want = dtw_svm_from_arrays(arrays, "cpu").predict(fpts)
+        require(all(np.array_equal(g.view(np.int32), w.view(np.int32)) for g, w in zip(got, want)),
+                f"chain k={k}: pred, conf or probs differ from the CPU's")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            model.predict(fpts)
+        print(f"classify chain k={k} (N={40 * k} support vectors, P={k * (k - 1) // 2} pairs), {CHAIN_ROWS} "
+              f"fingerprints: K1, K16, K12 and K13 each launched once; pred, conf and probs bit for bit the CPU's; "
+              f"{(time.perf_counter() - t0) / 5 * 1e3!r} ms a predict as called on {card}")
+    by_path["dtw_svm_predict"] = chain
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
+    rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
+    spc = get_model_spc_config(MODEL)
+    for path, k, m in (("wide_classes_adc_full", WIDE_STEP_CLASSES, 25),
+                       ("long_fingerprints_adc_full", 5, LONG_STEP_EVENTS)):
+        arrays = svm_arrays(k, np.random.default_rng(k), m=m)
+        steps = [make_demux_step(dtw_svm_from_arrays(arrays, d), wide_spc(spc, m), input_format="adc", device=d)
+                 for d in (dev, "cpu")]
+        out, by_path[path] = _drive(path, steps[0], rows)
+        ref = steps[1](*rows)
+        fpt = out.unpack().fpt.fpt
+        require(tuple(out.probs.shape) == (N_ROWS, k) and fpt.shape == (N_ROWS, m),
+                f"{path}: probs {tuple(out.probs.shape)}, fingerprints {fpt.shape}")
+        same = _compare_full(out, ref)
+        decided = all(np.array_equal(getattr(out, c).cpu().numpy(), getattr(ref, c).numpy()) for c in ("success", "pred"))
+        print(f"{path} ({k} classes, fingerprints of {m}): rows agreeing GPU vs CPU on every int, median, MAD, mean "
+              f"and std column: {same}/{N_ROWS}; (success, pred) equal on every row: {decided}; calls "
+              f"{dict(Counter(ref.pred.numpy().tolist()))}")
+        require(same == N_ROWS and decided, f"{path}: GPU and CPU steps disagree")
+    return by_path
+
+
 def run_trainers(dev, card):
     """Phase 12: the trainers of warpdemux_tpu_torch/tools/ on the card.
     Returns the launch counts by path. Writes nothing under the repository
@@ -3988,6 +4257,7 @@ def main() -> int:
     results = check_kernels(dev, card)
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
+    by_path.update(run_wide_shapes(dev, card))
     rng = np.random.default_rng(0)
     step_rates = time_throughput(steps, card, PATHS, [synth_minibatch(rng, B, L) for _ in range(4)])
     offline_counts, offline_run = run_offline_loop(dev, card, step_rates)

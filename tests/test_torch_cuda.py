@@ -24,6 +24,8 @@ from bench import synth_minibatch  # noqa: E402
 from chip_smoke import (  # noqa: E402
     K12_SHAPES,
     LAUNCHES,
+    k13_wide_case,
+    k15_variants,
     k1_tie_case,
     k2_edge_cases,
     k3_edge_cases,
@@ -99,9 +101,9 @@ def test_k1_dtw(dev, n_ref):
     [(25, 15, 0.1, 37, 131), (20, 8, 0.1, 37, 131), (32, 32, 0.5, 9, 300), (25, 1, 0.0, 5, 7)],
 )
 def test_k1_dtw_instances_and_edge_tiles(dev, m, window, penalty, b, n):
-    """The static instance at a B and N that divide no tile, the generic
-    instance at other lattices, NaN and infinite samples included: bit for
-    bit the plain version."""
+    """The static instance at a B and N that divide no tile, the wide kernel
+    at other lattices, NaN and infinite samples included: bit for bit the
+    plain version."""
     rng = np.random.default_rng(m + window)
     X = rng.normal(0, 1, (b, m)).astype(np.float32)
     Y = rng.normal(0, 1, (n, m)).astype(np.float32)
@@ -112,6 +114,36 @@ def test_k1_dtw_instances_and_edge_tiles(dev, m, window, penalty, b, n):
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert bool(got[1].isnan().all()) and bool(torch.isfinite(got[0, : n - 1]).all())
+
+
+@pytest.mark.parametrize("m", [25, 32, 33, 40, 64, 100, 800, 1000])
+@pytest.mark.parametrize("window", [15, 1, 0, "m"])
+@pytest.mark.parametrize("variant", [None, "registers", "shared", "global"])
+def test_k1_at_any_fingerprint_length(dev, m, window, variant):
+    """K1 at any fingerprint length: the register kernel at m = 25, window
+    15 (refused elsewhere), the wide kernel (each row's band in a loop) with
+    its DP rows in shared memory or in a global workspace, forced at every
+    m; windows 15, 1, 0 (no cell in the band: +inf) and m (the full
+    lattice); NaN and infinite samples, a B and N that divide no tile: bit
+    for bit the plain version."""
+    window = m if window == "m" else window
+    for refused, what in ((variant == "registers" and (m, window) != dtw.REGISTER_SHAPE, "alone"),
+                          (variant == "shared" and not dtw.wide_threads(m), "do not fit")):
+        if refused:
+            with pytest.raises(ValueError, match=what):
+                dtw.dtw_distance_matrix(torch.zeros((1, m), device=dev), torch.zeros((1, m), device=dev), window,
+                                        variant=variant)
+            return
+    b, n = (7, 131) if m <= 100 else (4, 40)
+    rng = np.random.default_rng(m * 7 + window)
+    X = rng.normal(0, 1, (b, m)).astype(np.float32)
+    Y = rng.normal(0, 1, (n, m)).astype(np.float32)
+    X[1, 3], X[2, m - 1], X[3, 0], Y[n - 1, 2] = np.nan, np.inf, -np.inf, np.nan
+    X, Y = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    got = _launched("wdx_dtw", lambda: dtw.dtw_distance_matrix(X, Y, window, 0.1, variant=variant))
+    want = dtw.dtw_distance_matrix_plain(X, Y, window, 0.1)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 def test_k1_dtw_at_a_float32_tie(dev):
@@ -915,6 +947,47 @@ def test_k13_every_class_count(dev, k):
     assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
+@pytest.mark.parametrize("k", [2, 5, 13, 17, 24, 32, 33, 48, 64, 240])
+@pytest.mark.parametrize("variant", [None, "warp", "shared", "global"])
+def test_k13_past_16_classes_on_every_variant(dev, k, variant):
+    """K13 at any class count: the warp kernel up to 32 classes, the block
+    kernel with Q in shared memory or in a global workspace (forced here at
+    small k too; 240 classes are the first that take the workspace by
+    default), bit for bit its plain version on decision values from a seed
+    with rows of NaN, inf and 0, at a batch whose last rows sum p Q p in
+    XLA's scalar loop."""
+    from warpdemux_tpu_torch.ops import svm
+
+    for refused, what in ((variant == "warp" and k > 32, "at most 32"), (variant == "shared" and k >= 240, "do not fit")):
+        if refused:
+            with pytest.raises(ValueError, match=what):
+                svm.probabilities(*k13_wide_case(dev, k, 4), variant=variant)
+            return
+    dec, params = k13_wide_case(dev, k, 65 if k <= 64 else 9)
+    got = _launched("wdx_svm_probs", lambda: svm.probabilities(dec, params, variant=variant))
+    want = svm.probabilities_plain(dec, params)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("k", [17, 24, 32, 33, 48, 64])
+def test_the_classify_chain_past_16_classes(dev, k):
+    """K1, K16, K12 and K13 on a synthetic k-class SVM (chip_smoke.svm_arrays,
+    N = 40 k support vectors) through the model's predict: each launched
+    once, pred, conf and probs bit for bit the CPU's."""
+    from chip_smoke import svm_arrays
+    from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays
+
+    arrays = svm_arrays(k, np.random.default_rng(k))
+    fpts = np.random.default_rng(k + 1).normal(0, 1, (100, 25)).astype(np.float32)
+    _cuda.reset_launches()
+    got = dtw_svm_from_arrays(arrays, dev).predict(fpts)
+    for key in ("wdx_dtw", "wdx_xla_exp_scaled", "wdx_svm_dot", "wdx_svm_probs"):
+        assert _cuda.launches[key] == 1, key
+    want = dtw_svm_from_arrays(arrays, "cpu").predict(fpts)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("shape", [(2, 2000, 799), (2, 1000, 5999), (2, 32, 799), (7,)])
 def test_k14_xla_log_at_the_step_shapes(dev, shape):
     """K14 bit for bit its plain version on the LLR cost's variances (the
@@ -959,11 +1032,41 @@ def test_k15_xla_softmax_equals_its_plain_version(dev, B, k):
 
 
 def test_k15_refuses_the_widths_it_does_not_serve(dev):
+    """K15 serves every width from 1 class up; only an empty last dim, or a
+    forced variant beyond its own widths, raises."""
     from warpdemux_tpu_torch.ops import numerics
 
-    for k in (0, 1025):
-        with pytest.raises(ValueError, match="K15 takes"):
-            numerics.xla_softmax(torch.zeros((4, k), device=dev))
+    with pytest.raises(ValueError, match="at least 1"):
+        numerics.xla_softmax(torch.zeros((4, 0), device=dev))
+    for variant, k in (("lanes", 33), ("warp", 1025)):
+        with pytest.raises(ValueError, match=f"the {variant} kernel"):
+            numerics.xla_softmax(torch.zeros((4, k), device=dev), variant=variant)
+    z = torch.as_tensor(np.random.default_rng(0).normal(0, 4, (4, 1025)).astype(np.float32), device=dev)
+    assert _same_or_both_nan(_launched("wdx_xla_softmax", lambda: numerics.xla_softmax(z)),
+                             numerics.xla_softmax_plain(z))
+
+
+K15_WIDE_SHAPES = [(1000, 5), (1000, 13), (16, 5), (1, 7), (64, 33), (3, 1), (5, 1024), (1000, 1025), (16, 12288),
+                   (4, 2000), (2, 33000), (40, 32), (9, 7), (9, 9), (9, 11), (9, 16), (9, 17), (20000, 5)]
+
+
+@pytest.mark.parametrize("B, k", K15_WIDE_SHAPES)
+def test_k15_every_variant_at_every_width(dev, B, k):
+    """Each of K15's kernels that takes k (a warp a row by lanes or by windows,
+    a block a row with its sums in shared memory or in a workspace) bit for
+    bit the plain version, NaN for NaN, on logits from a seed, on the edge
+    rows, and on a view whose rows start off the 16-byte vectors."""
+    from chip_smoke import k15_edge_rows, k15_logits
+    from warpdemux_tpu_torch.ops import numerics
+
+    flat = torch.as_tensor(k15_logits((B * k + 1,), B + k), device=dev)
+    cases = [torch.as_tensor(k15_logits((B, k), B + k), device=dev), torch.as_tensor(k15_edge_rows(k), device=dev),
+             flat[1:].view(B, k)]
+    for z in cases:
+        want = numerics.xla_softmax_plain(z)
+        for variant in k15_variants(k):
+            got = _launched("wdx_xla_softmax", lambda: numerics.xla_softmax(z, variant=variant))
+            assert _same_or_both_nan(got, want), variant
 
 
 def _llr_split_both(dev, win, ends, min_split):

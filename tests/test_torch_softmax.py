@@ -63,6 +63,16 @@ def test_xla_softmax_on_the_edge_rows(k):
     assert_bits_equal(numerics.xla_softmax_plain(torch.from_numpy(z)).numpy(), jit_softmax(z))
 
 
+@pytest.mark.parametrize("B, k", [(16, 1025), (8, 2000), (4, 12288)])
+def test_xla_softmax_past_1024_classes_equals_the_jitted_jax_softmax(B, k):
+    """Rows of more than one level of XLA's 32-wide windows (12,288: two
+    levels, the widest that test_torch_numerics pins `xla_sum` at), on logits
+    from a seed and on the edge rows padded with -inf: bit for bit, as K15's
+    block kernels on the card."""
+    for z in (k15_logits((B, k), B + k), k15_edge_rows(k)):
+        assert_bits_equal(numerics.xla_softmax_plain(torch.from_numpy(z)).numpy(), jit_softmax(z))
+
+
 def test_the_quotient_is_flushed_where_it_is_subnormal():
     """Without the flush the first two edge rows are off in 3 cells: each
     exp there is a normal float32, and its quotient by the row's sum is

@@ -36,8 +36,9 @@ WDX_SVMPROB_WARPS rows a block) alone at the models' shapes, K13 also with
 its passes cut to 0 (what the sigmoids and the launch cost) and at the
 default build's division latency. With --against, DIR holds another tree's
 svmdot.cu, svmprob.cu and common.cuh (the parent commit's, unpacked with
-`git archive`): its two kernels are built apart and timed in turns with
-this tree's default build (theirs, ours, ours, theirs).
+`git archive`), whose entry points take this tree's arguments
+(`_cuda.SIGNATURES`): its two kernels are built apart and timed in turns
+with this tree's default build (theirs, ours, ours, theirs).
 
 For each variant the script prints what ptxas reported for the kernel
 (registers, spills), checks the wrapper's output bit for bit against the
@@ -186,9 +187,9 @@ def sweep_svm(dev, ptxas, against=None):
 
     def probs_call(fn, dec, m, out, passes=None):
         B, k = dec.shape[0], m.n_classes
-        return lambda: fn(dec.data_ptr(), m.probA.data_ptr(), m.probB.data_ptr(), out.data_ptr(), B, k, 1e-7,
+        return lambda: fn(dec.data_ptr(), m.probA.data_ptr(), m.probB.data_ptr(), out.data_ptr(), None, B, k, 1e-7,
                           1 - 1e-7, 0.005 / k, max(100, k) if passes is None else passes, svm.xla_vector_rows(B),
-                          stream)
+                          svm.VARIANTS["warp"], 0, 0, stream)
 
     def dot_call(fn, K, m, out):
         B, N = K.shape

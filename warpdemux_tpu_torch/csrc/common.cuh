@@ -120,10 +120,55 @@ __device__ __forceinline__ float wdx_xla_exp(float x) {
 }
 
 // The larger of m and v as torch.amax and XLA's reduce max take it: NaN if
-// either is NaN (K13's largest error, K15's row max).
+// either is NaN (K13's largest error, K15's row max), one instruction
+// (max.NaN.f32, whose NaN is the canonical 0x7FC00000). Of +0.0 and -0.0 it
+// may return either: both callers only compare the max or subtract it from
+// a value whose exp it takes, where the two zeros give the same bits.
 __device__ __forceinline__ float wdx_nan_max(float m, float v) {
-  return (isnan(m) || isnan(v)) ? __int_as_float(0x7FC00000) : (v > m ? v : m);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(m), "f"(v));
+  return r;
 }
+
+// XLA:CPU's order for a float32 row sum of n terms (ops/numerics.py
+// xla_sum), fed one term at a time in index order to one thread: the row
+// zero-padded to windows of 32 (half the padding in front), each window
+// summed in order from 0, the window sums summed so in turn until 32 or
+// fewer are left, which are summed in order from 0; a row of one term is
+// that term. A pad adds +0.0 to a sum started from +0.0, which changes no
+// bit (such a sum is never -0.0), so the pads are skipped. K13 sums Q's
+// diagonal and p Q p with it past 32 classes.
+struct WdxXlaSum {
+  static constexpr int kMaxLevels = 7;  // 32^7 > 2^31 terms
+  int n, levels;
+  int size[kMaxLevels], front[kMaxLevels], taken[kMaxLevels];
+  float acc[kMaxLevels];
+  float top;
+
+  __device__ explicit WdxXlaSum(int n_terms) : n(n_terms), levels(0), top(0.f) {
+    for (int d = n_terms; d > 32; d = (d + 31) / 32, ++levels) {
+      size[levels] = d;
+      front[levels] = ((d + 31) / 32 * 32 - d) / 2;
+      taken[levels] = 0;
+      acc[levels] = 0.f;
+    }
+  }
+
+  __device__ void add(float v) {
+    if (n == 1) {
+      top = v;
+      return;
+    }
+    for (int l = 0; l < levels; ++l) {
+      acc[l] = __fadd_rn(acc[l], v);
+      const int i = taken[l]++;
+      if (((i + front[l]) & 31) != 31 && i != size[l] - 1) return;  // the window goes on
+      v = acc[l];
+      acc[l] = 0.f;
+    }
+    top = __fadd_rn(top, v);
+  }
+};
 
 // Shared memory (static and dynamic together) a block may take on sm_90.
 #define WDX_MAX_SHARED_BYTES 232448

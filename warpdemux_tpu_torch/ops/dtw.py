@@ -10,8 +10,9 @@ is compared with every reference fingerprint of the model:
 - result sqrt(D[m, m]).
 
 CUDA tensors go to kernel K1 (csrc/dtw.cu: a block per tile of references
-by queries, a thread per reference; a fully unrolled instance for m = 25,
-window = 15, a generic one for any m <= 32); CPU tensors go to the plain
+by queries, a thread per reference; a fully unrolled instance in registers
+for m = 25, window = 15, and at any other shape the wide kernel, each row's
+band in a loop, its DP rows in shared memory or in a global workspace); CPU tensors go to the plain
 anti-diagonal wavefront, the same recurrence as the jnp version. Each cell
 is one fused multiply-add, (q_i - r_j)^2 + best, rounded once, as XLA:CPU
 contracts it; the minimum propagates NaN; the final square root is
@@ -79,22 +80,72 @@ def _wavefront(X: torch.Tensor, Y: torch.Tensor, window: int, penalty: float) ->
     return exact_sqrt(d1[..., m - 1])
 
 
+VARIANTS = {"registers": 0, "shared": 1, "global": 2}  # K1's kernels (csrc/dtw.cu)
+QUERIES_A_TILE = 3  # WDX_DTW_TQ
+WORKSPACE_BYTES = 256 << 20  # the global variant's DP rows, at most (one block's at least)
+GLOBAL_THREADS = 128
+
+
+def wide_threads(m: int) -> int:
+    """Threads a block of the wide kernel in shared memory at fingerprints of
+    m (128, 64 or 32: the most whose references, queries and DP rows fit),
+    or 0 where even 32 do not."""
+    for threads in (128, 64, 32):
+        if 4 * (threads * (m | 1) + QUERIES_A_TILE * m + threads * (m + 1)) <= _cuda.MAX_SHARED_BYTES:
+            return threads
+    return 0
+
+
+REGISTER_SHAPE = (25, 15)  # (m, window) of the register kernel: every shipped model's
+
+
+def _k1_variant(m: int, window: int, variant):
+    """K1's kernel at fingerprints of m in a band of `window`: the register
+    kernel at REGISTER_SHAPE, else the wide kernel in shared memory where a
+    block of 32 fits, else in a global workspace; `variant` forces one.
+    ValueError for an unknown name or a forced kernel that does not take
+    the shape."""
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"dtw: variant must be one of {tuple(VARIANTS)}, got {variant!r}")
+    if variant == "registers" and (m, window) != REGISTER_SHAPE:
+        raise ValueError(f"dtw: the register kernel takes (m, window) = {REGISTER_SHAPE} alone, got ({m}, {window})")
+    if variant == "shared" and not wide_threads(m):
+        raise ValueError(f"dtw: fingerprints of {m} do not fit the shared-memory kernel")
+    if variant is not None:
+        return variant
+    if (m, window) == REGISTER_SHAPE:
+        return "registers"
+    return "shared" if wide_threads(m) else "global"
+
+
 def dtw_distance_matrix(
-    X: torch.Tensor, Y: torch.Tensor, window: int = 15, penalty: float = 0.1
+    X: torch.Tensor, Y: torch.Tensor, window: int = 15, penalty: float = 0.1, *, variant=None
 ) -> torch.Tensor:
-    """Cross DTW distance matrix; K1 on CUDA tensors, plain on CPU ones."""
+    """Cross DTW distance matrix; K1 on CUDA tensors (any m >= 1 and any
+    window: the register kernel at m = 25, window = 15, the wide kernel at
+    every other shape; `variant` forces "registers", "shared" or "global"),
+    plain on CPU ones."""
     if not _cuda.on_cuda(X, Y):
         return dtw_distance_matrix_plain(X, Y, window, penalty)
     B, m = X.shape
     N = Y.shape[0]
-    if Y.shape[1] != m:
-        raise ValueError("query and reference fingerprints must have equal length")
+    if Y.shape[1] != m or m < 1:
+        raise ValueError(f"dtw: fingerprints of equal length >= 1 wanted, got {tuple(X.shape)} and {tuple(Y.shape)}")
+    kind = _k1_variant(m, int(window), variant)
     X, Y = X.contiguous(), Y.contiguous()
     _cuda.check(X, torch.float32, 2, "dtw X")
     _cuda.check(Y, torch.float32, 2, "dtw Y")
     out = torch.empty((B, N), dtype=torch.float32, device=X.device)
+    threads, slots, ws = 0, 0, None
+    if kind == "shared":
+        threads = wide_threads(m)
+    elif kind == "global":
+        threads = GLOBAL_THREADS
+        tiles = -(-B // QUERIES_A_TILE) * -(-N // threads)
+        slots = max(1, min(tiles, WORKSPACE_BYTES // (4 * threads * (m + 1))))
+        ws = torch.empty(slots * threads * (m + 1), dtype=torch.float32, device=X.device)
     _cuda.launch(
-        "wdx_dtw", X.device, X.data_ptr(), Y.data_ptr(), out.data_ptr(),
-        B, N, m, int(window), float(penalty * penalty),
+        "wdx_dtw", X.device, X.data_ptr(), Y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        B, N, m, int(window), float(penalty * penalty), VARIANTS[kind], threads, slots,
     )
     return out

@@ -27,7 +27,7 @@ device's summation order and contraction choices:
   CUDA.
 - `xla_softmax`: jax.nn.softmax jitted on XLA:CPU: XLA's exp of z less
   the row max over the row's `xla_sum`, a subnormal quotient flushed to
-  zero. Kernel K15 on CUDA.
+  zero. Kernel K15 on CUDA, at any width.
 - `xla_rsqrt`: XLA:CPU rewrites a / sqrt(b) into a * rsqrt(b) and computes
   the rsqrt as the x86 hardware estimate (`vrsqrtps`, a table of 2 x 1024
   entries of 12 bits) refined by two Newton steps with fused
@@ -402,26 +402,66 @@ def xla_exp_plain(a: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, y)
 
 
-SOFTMAX_MAX_CLASSES = 32 * 32  # K15 sums rows of up to 32 windows of 32 (one level)
+SOFTMAX_VARIANTS = {"lanes": 0, "warp": 1, "block": 2, "global": 3}  # K15's kernels (csrc/xlasoftmax.cu)
 
 
-def xla_softmax(z: torch.Tensor) -> torch.Tensor:
+def softmax_level_floats(k: int) -> int:
+    """Window sums of every level of `xla_sum`'s tree over a row of k."""
+    n, d = 0, k
+    while d > XLA_REDUCE_WINDOW:
+        d = -(-d // XLA_REDUCE_WINDOW)
+        n += d
+    return n
+
+
+def softmax_block_shared_bytes(k: int) -> int:
+    """The block kernel's dynamic shared memory: the row's terms at their
+    padded positions (33 words a window) and every level's sums."""
+    return 4 * (-(-k // XLA_REDUCE_WINDOW) * 33 + softmax_level_floats(k))
+
+
+def _k15_variant(k: int, variant):
+    """K15's kernel for rows of k classes: a warp a row by lanes up to 32
+    classes, by windows up to 1,024; a block a row beyond (its sums in
+    shared memory where the row fits, else in a global workspace);
+    `variant` forces one."""
+    if variant not in (None, *SOFTMAX_VARIANTS):
+        raise ValueError(f"xla_softmax: variant must be one of {tuple(SOFTMAX_VARIANTS)}, got {variant!r}")
+    fits = softmax_block_shared_bytes(k) + 128 <= _cuda.MAX_SHARED_BYTES
+    if (variant == "lanes" and k > 32) or (variant == "warp" and k > 32 * 32) or (variant == "block" and not fits):
+        raise ValueError(f"xla_softmax: the {variant} kernel does not take {k} classes")
+    if variant is not None:
+        return variant
+    if k <= 32:
+        return "lanes"
+    if k <= 32 * 32:
+        return "warp"
+    return "block" if fits else "global"
+
+
+def xla_softmax(z: torch.Tensor, *, variant=None) -> torch.Tensor:
     """float32 softmax over the last dim with the bits of XLA:CPU's jitted
     `jax.nn.softmax` (`xla_softmax_plain`); kernel K15 (csrc/xlasoftmax.cu)
-    on CUDA tensors, which takes 1 to SOFTMAX_MAX_CLASSES classes and
-    raises ValueError for any other width."""
+    on CUDA tensors, at any width (`variant` forces "lanes", "warp",
+    "block" or "global")."""
     if not _cuda.on_cuda(z):
         return xla_softmax_plain(z)
     k = z.shape[-1] if z.dim() else 0
-    if not 1 <= k <= SOFTMAX_MAX_CLASSES:
-        raise ValueError(f"xla_softmax: K15 takes 1 to {SOFTMAX_MAX_CLASSES} classes, got shape {tuple(z.shape)}")
+    if k < 1:
+        raise ValueError(f"xla_softmax: a last dim of at least 1 wanted, got shape {tuple(z.shape)}")
+    kind = _k15_variant(k, variant)
     x = z.to(torch.float32).contiguous()
     rows = x.numel() // k
     if rows >= 2**31:
         raise ValueError(f"xla_softmax: {rows} rows, K15 takes fewer than 2**31")
     out = torch.empty_like(x)
     if rows:
-        _cuda.launch("wdx_xla_softmax", x.device, x.data_ptr(), out.data_ptr(), rows, k)
+        stride = softmax_level_floats(k) if kind == "global" else 0
+        ws = torch.empty(rows * stride, dtype=torch.float32, device=x.device) if stride else None
+        _cuda.launch(
+            "wdx_xla_softmax", x.device, x.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            rows, k, SOFTMAX_VARIANTS[kind], stride,
+        )
     return out
 
 

@@ -14,7 +14,8 @@ Port of warpdemux_tpu/ops/svm.py:
   with eps = 0.005 / k and max(100, k) iterations, batched with
   per-sample convergence freezing, in the float32 operations of the jitted
   JAX function (bit for bit up to seven classes); kernel K13,
-  csrc/svmprob.cu, on CUDA, one warp a row,
+  csrc/svmprob.cu, on CUDA, one warp a row up to 32 classes, one block a
+  row past them,
 - argmax -> label map -> threshold-to-noise (-1) post-processing.
 """
 
@@ -148,6 +149,9 @@ def _p_dot(p: torch.Tensor, Qp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+COUPLING_EPS = 0.005  # libsvm's stopping threshold is COUPLING_EPS / k
+
+
 def multiclass_probability(r: torch.Tensor, k: int) -> torch.Tensor:
     """libsvm multiclass_probability, batched.
 
@@ -155,11 +159,12 @@ def multiclass_probability(r: torch.Tensor, k: int) -> torch.Tensor:
     Returns (B, k) class probabilities, with the float32 operations of the
     jitted JAX function: Q p as an FMA chain over j from 0, the sums p Q p
     (`_p_dot`) and Q's diagonal in XLA's order, and the multiply-adds of the
-    update contracted into FMAs where XLA:CPU contracts them.
+    update contracted into FMAs where XLA:CPU contracts them. A row stops
+    once its largest residual |Q p - p Q p| is below COUPLING_EPS / k.
     """
     B = r.shape[0]
     max_iter = max(100, k)
-    eps = 0.005 / k
+    eps = COUPLING_EPS / k
     rT = r.transpose(1, 2)
     off_eye = 1 - torch.eye(k, dtype=r.dtype, device=r.device)
     # Q[t][t] = sum_{j != t} r[j][t]^2 ; Q[t][j] = -r[j][t] * r[t][j]
@@ -202,18 +207,41 @@ def probabilities_plain(dec: torch.Tensor, params: SVMParams, min_prob: float = 
     return multiclass_probability(r, k)
 
 
-MAX_CLASSES = 16  # K13 keeps a row's k x k matrix in a warp, a row a lane
+VARIANTS = {"warp": 0, "shared": 1, "global": 2}  # K13's kernels (csrc/svmprob.cu)
+WORKSPACE_BYTES = 256 << 20  # the global variant's workspace, at most (one slot at least)
 
 
-def probabilities(dec: torch.Tensor, params: SVMParams, min_prob: float = 1e-7) -> torch.Tensor:
+def _k13_variant(k: int, variant):
+    """K13's kernel for k classes: the warp kernel up to 32 classes, else the
+    block kernel with Q in shared memory where its k^2 + 3k floats fit
+    (k <= 239), else with Q in a global workspace; `variant` forces one.
+    ValueError for an unknown name or a forced kernel that does not take k."""
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"svm_probs: variant must be one of {tuple(VARIANTS)}, got {variant!r}")
+    fits = 4 * (k * k + 3 * k + 32) <= _cuda.MAX_SHARED_BYTES
+    if variant == "warp" and k > 32:
+        raise ValueError(f"svm_probs: the warp kernel takes at most 32 classes, got {k}")
+    if variant == "shared" and not fits:
+        raise ValueError(f"svm_probs: {k} classes do not fit the shared-memory kernel")
+    if variant is not None:
+        return variant
+    if k <= 32:
+        return "warp"
+    return "shared" if fits else "global"
+
+
+def probabilities(dec: torch.Tensor, params: SVMParams, min_prob: float = 1e-7, *, variant=None) -> torch.Tensor:
     """(B, P) decision values -> (B, k) probabilities: Platt sigmoid, clamp,
-    Wu-Lin coupling; K13 (csrc/svmprob.cu) on CUDA."""
+    Wu-Lin coupling; K13 (csrc/svmprob.cu) on CUDA, at any k: one warp a row
+    up to 32 classes, else one block a row (`variant` forces "warp",
+    "shared" or "global")."""
     k = params.n_classes
     B = dec.shape[0]
     if not _cuda.on_cuda(dec, params.probA, params.probB):
         return probabilities_plain(dec, params, min_prob)
-    if not 2 <= k <= MAX_CLASSES or dec.shape[1] != k * (k - 1) // 2:
+    if k < 2 or dec.shape[1] != k * (k - 1) // 2:
         raise ValueError(f"svm_probs: {k} classes with decision values of shape {tuple(dec.shape)}")
+    kind = _k13_variant(k, variant)
     dec = dec.contiguous()
     probA = params.probA.contiguous()
     probB = params.probB.contiguous()
@@ -222,9 +250,13 @@ def probabilities(dec: torch.Tensor, params: SVMParams, min_prob: float = 1e-7) 
     _cuda.check(probB, torch.float32, 1, "svm_probs probB")
     out = torch.empty((B, k), dtype=torch.float32, device=dec.device)
     if B:
+        threads = min(1024, -(-k // 32) * 32)
+        slots = max(1, min(B, WORKSPACE_BYTES // (4 * (k * k + 3 * k)))) if kind == "global" else 0
+        ws = torch.empty(slots * (k * k + 3 * k), dtype=torch.float32, device=dec.device) if slots else None
         _cuda.launch(
             "wdx_svm_probs", dec.device, dec.data_ptr(), probA.data_ptr(), probB.data_ptr(),
-            out.data_ptr(), B, k, min_prob, 1.0 - min_prob, 0.005 / k, max(100, k), xla_vector_rows(B),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), B, k, min_prob, 1.0 - min_prob,
+            COUPLING_EPS / k, max(100, k), xla_vector_rows(B), VARIANTS[kind], threads, slots,
         )
     return out
 
