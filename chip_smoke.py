@@ -17,7 +17,11 @@ Phases (each raises on failure; nothing is caught):
    the launches queued behind a spin kernel, which leaves the device's
    time alone); print its bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 rate, from
-   this run's inputs) and the share of it reached. K1 is also held at its
+   this run's inputs) and the share of it reached. K1's entry is the SVM's
+   kernel matrix, exp(-gamma D) stored by K1 itself (K16's element), held
+   bit for bit against its plain version and against K1 then K16 on every
+   variant at K1_EXP_GAMMAS and K1_EXP_EDGES, and timed in turns beside K1
+   then K16; K1 is also held at its
    wide kernel (every lattice but m = 25, window 15), at edge tiles, on non-finite fingerprints and at a
    cell whose sum lands on a float32 tie (`k1_tie_case`); K6 at
    lengths off the scan's block size, with windows longer than the row and
@@ -40,11 +44,15 @@ Phases (each raises on failure; nothing is caught):
    K2 is held bit for bit (its scores and the n_scores it writes) on rows
    of every width from 1 to 12, widths outside [1, w_max], rows shorter
    than two windows, windows of equal samples, a subnormal sum of squares,
-   NaN and infinite samples and lengths off its vectors and tiles. K5 is
+   NaN and infinite samples and lengths off its vectors and tiles, and at
+   K2_LONG_CASES (w_max = 8,987, past shared memory: the windows read from
+   device memory; a row of 67,108,865 samples, past 65,535 tiles), timed
+   beside its plain version there. K5 is
    held at both of the step's shapes (the refine windows, one and two a
    read from the one signal; the adapter extraction with lengths) and on
    starts that leave the row, lengths of 0 and beyond, sizes off the
-   vectors and three windows a row.
+   vectors and three windows a row, and on two windows of 67,108,865
+   samples (past 65,535 chunks), with and without lengths.
    K5 and K7 are timed beside the one PyTorch call that computes the same
    function (torch.gather, F.conv1d), as called and on the device alone.
    K8 is also held against K4 and timed beside it, at R=2 and R=1, and held
@@ -63,17 +71,21 @@ Phases (each raises on failure; nothing is caught):
    read, which longer queries take), and both are timed in turns at the
    step's shape. K11 (the masked row means and stds of the region
    statistics and the [mvs_polya] gate in XLA's order, new: no Pallas
-   counterpart) is held bit for bit, on both of its variants (one block a
+   counterpart) is held bit for bit, on its three variants (one block a
    row, the covered span staged once; one warp a range and row, which rows
-   beyond the block's shared memory take), at the step's shapes (three
+   beyond the block's shared memory take; the warp kernel with its window
+   sums in a global workspace, which rows past 431,104 samples take), at
+   the step's shapes (three
    ranges with stds over the calibrated reads, the gate's one range of
    means, float rows) and on rows of 1, 31, 32, 33, 1024, 1025, 10000,
-   10001, 10003, 15000 and 32769 samples, empty, inverted, out-of-row,
+   10001, 10003, 15000, 32769, 431,105 and 1,048,577 samples (a fourth
+   level of the sum tree), empty, inverted, out-of-row,
    identical and nested ranges, ranges at 0 and at L, a range in the last
    window alone beside whole rows, one row, rows of length 0, NaN and inf,
    constant rows, -0.0 and cancellations, with and without the
-   calibration; both variants are timed in turns at each step shape beside
-   its bound, and the wrapper beside torch.where(mask, x, 0).sum(-1). K12
+   calibration; the variants are timed in turns at each step shape beside
+   its bound, the workspace kernel at 64 reads of 431,105 and 1,048,577
+   samples, and the wrapper beside torch.where(mask, x, 0).sum(-1). K12
    (the SVM's decision values and the DTW-MLP's layers in XLA:CPU's
    summation order, new: no Pallas counterpart; a block R rows, a thread a
    chain of the order, operands staged by cp.async) is held bit for bit at
@@ -99,7 +111,8 @@ Phases (each raises on failure; nothing is caught):
    B windows of 6000 with each row's own end) on windows from a seed and
    on the edge rows of LLR_EDGES, and timed beside its bound and the
    torch operations it replaced. K16 (XLA:CPU's exp of -gamma times the
-   DTW distances, the SVM's kernel matrix, new) is held bit for bit at
+   powered DTW distances, the SVM's kernel matrix at pwr_dist != 1, new)
+   is held bit for bit at
    K16_SHAPES and K16_SCALES, on edge values, on a view off its 16-byte
    vectors and on every float32 bit pattern, and timed beside its bound
    and torch.exp. K15
@@ -125,8 +138,8 @@ Phases (each raises on failure; nothing is caught):
 3. Three main paths of the WDX4 step on the first 256 reads of
    synthetic.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
-   a. the adc feed, decision outputs: every kernel but K9, K10, K15 and
-      the elementwise log must launch;
+   a. the adc feed, decision outputs: every kernel but K9, K10, K15, K16
+      and the elementwise log must launch;
       (success, fail_code, pred) must agree with the CPU path on at least
       255 of 256 rows, and the CPU result must hit the repository's pins;
    b. the vbz feed (the reads packed into the VBZ wire by the port's numpy
@@ -147,7 +160,8 @@ Phases (each raises on failure; nothing is caught):
    the tRNA and RNA002 steps, and of one micro-batch of the live lane;
    no path may take more than before K14 (DEVICE_OPS_BEFORE_K14), every
    path fewer than before K14's redesign and K16 (DEVICE_OPS_BEFORE_K16)
-   and no more than DEVICE_OPS_PINNED. Runs
+   and than before K1 stored the SVM's exp (DEVICE_OPS_BEFORE_K1_EXP), and
+   no more than DEVICE_OPS_PINNED. Runs
    after phase 10, before phase 13: an attached profiler slows every later
    launch.
 6. The live read-until lane (warpdemux_tpu_torch/live/) on the card:
@@ -155,9 +169,9 @@ Phases (each raises on failure; nothing is caught):
       K4, K2, K3 and K1, one fetch) on 64 replay reads cut at poly(A) plus
       padding, each held in every signal-length bucket, at max_batch 32 and
       16, against the CPU lane: (ok, pred) must agree on all but one row of
-      each, and every micro-batch must launch K1-K5, K16, K12 and K13 once
-      and K6-K9 never;
-   b. each of the eight kernels at the lane's shapes (B = 16 and 32; K5 at
+      each, and every micro-batch must launch K1-K5, K12 and K13 once (K1
+      storing the kernel matrix's exp) and K6-K9 and K16 never;
+   b. each of the seven kernels at the lane's shapes (B = 16 and 32; K5 at
       L = 2048 and 12288) against its plain version, timed beside its
       bound, and the lane program a micro-batch as called;
    c. a whole session on the replay client through the port's
@@ -284,8 +298,8 @@ Phases (each raises on failure; nothing is caught):
    launches, with the calls a step of the path's LAUNCHES pin
    (LAUNCHES["pa_detect"] for the detect trace), and no other: a profiler
    that missed the ctypes launches fails here. The stage table's dtw and
-   svm proba rows must launch their kernels (K1; K16, K12 and K13) once a
-   call.
+   svm proba rows must launch their kernels (K1, which stores the kernel
+   matrix's exp itself; K12 and K13) once a call.
 14. The port's throughput tools and boundary validation
    (warpdemux_tpu_torch/tools/bench_models, sweep_minibatch, bench_trna,
    validate_boundaries) on the card, after phase 13, in a process of its
@@ -305,15 +319,23 @@ Phases (each raises on failure; nothing is caught):
    e. K12 at the WDX6 and WDX10 step shapes (B = 1000): bit for bit its
       plain version, timed beside its bound and torch.addmm (TF32 off).
 15. Shapes past the shipped models' on the card against the CPU (after
-   phase 3, before phase 4): a. the classify chain (K1, K16, K12, K13) of a
-   synthetic SVM (svm_arrays: 40 support vectors a class, RNA004's gamma)
-   at WIDE_CLASSES, one predict of CHAIN_ROWS fingerprints: the launches of
-   LAUNCHES["dtw_svm_predict"], pred, conf and probs bit for bit the CPU's;
+   phase 3, before phase 4): a. the classify chain (K1 with the kernel
+   matrix's exp, K12, K13) of a synthetic SVM (svm_arrays: 40 support
+   vectors a class, RNA004's gamma) at WIDE_CLASSES, one predict of
+   CHAIN_ROWS fingerprints: the launches of LAUNCHES["dtw_svm_predict"],
+   pred, conf and probs bit for bit the CPU's; the same of a 5-class SVM of
+   pwr_dist 2 (K1, then K16 over the squared distances: the one path K16
+   keeps) at LAUNCHES["dtw_svm_pwr_dist_2_predict"];
    b. the adc step, full outputs, on phase 3's N_ROWS reads with a
    24-class SVM, then with fingerprints of 40 events (the config's
    barcode_num_events and barcode_seg_num_events) and a 5-class SVM of
    40-event support vectors: each at its LAUNCHES pin, every row agreeing
-   as phase 3b compares them, (success, pred) equal on every row.
+   as phase 3b compares them, (success, pred) equal on every row;
+   c. the WDX4 adc step, full outputs, with the chemistry's
+   sig_preload_size at LONG_ROW_SAMPLES (450,000, past K11's warp kernel)
+   on synth_minibatch(default_rng(0), 16, 450,000): at
+   LAUNCHES["long_rows_adc_full"], all 16 rows agreeing as in b, the step's
+   ms as called printed.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -378,19 +400,21 @@ DEVICE_OPS_BEFORE = {"adc_decision": 1747, "vbz_full": 1862, "fused_decision": 1
 # launches a step of each path, in KERNELS' order (K1 .. K13, the
 # elementwise log, K15, K14, K16); K11 once for the [mvs_polya] gate's
 # poly(A) mean of each detect pass (the CNN's and the LLR fallback's) and
-# once for the region statistics of full outputs; K16, K12 and K13 once a
-# classified SVM batch (the kernel matrix's exp, the decision values, the
-# probabilities); K14 once a detect pass for the LLR refinement's split
-# (the tRNA paths: the refinement and the adapter's split window); the
+# once for the region statistics of full outputs; K12 and K13 once a
+# classified SVM batch (the decision values, the probabilities), K1 storing
+# the kernel matrix's exp itself at pwr_dist = 1 (every shipped bundle's),
+# K16 the exp only for an SVM of another pwr_dist (phase 15a); K14 once
+# a detect pass for the LLR refinement's split (the tRNA paths: the
+# refinement and the adapter's split window); the
 # elementwise log nowhere since K14 took the whole cost; K15 once a
 # classified batch of the DTW-MLP or Fpt-Boost families (their softmax)
-LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
-            "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
-            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1, 0, 0, 2, 1),
-            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1),  # one micro-batch of the lane program
+LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 0),
+            "vbz_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "fused_decision": (1, 1, 1, 1, 3, 0, 0, 3, 1, 0, 2, 1, 1, 0, 0, 2, 0),
+            "live_lane": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 0),  # one micro-batch of the lane program
             # the offline run loop's steps (phase 7): the vbz decode is torch
             # ops, and prep classifies nothing
-            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
+            "vbz_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 0),
             "vbz_prep": (0, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 0, 0, 0, 0, 2, 0),
             # the tRNA paths (phase 8): K3 twice (the adapter's events, then
             # the barcode's from its start), K4 for the clip and the gates
@@ -398,21 +422,21 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
             # refine windows, the split window and the adapter, K8 for the
             # adapter-level proxy, K10 for the consensus match, K11 for the
             # region statistics of full outputs (no [mvs_polya] gate)
-            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1, 0, 0, 2, 1),
-            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 2, 1),
+            "trna_adc_decision": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 0, 1, 1, 0, 0, 2, 0),
+            "trna_vbz_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 2, 0),
             # phase 9: the model families' predict (K1 for DTW-MLP's
             # distances, K12 for each of its two layers, K15 for either
             # family's softmax) and the predict run over one fingerprint file; the
             # RNA002 steps (LLR detect, no CNN: one detect pass, one gate)
             "dtw_mlp_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0, 1, 0, 0),
             "fpt_boost_predict": (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0),
-            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1, 0, 0, 1, 1),
-            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1, 0, 0, 1, 1),
+            "rna002_adc_decision": (1, 1, 1, 1, 2, 1, 1, 2, 0, 0, 1, 1, 1, 0, 0, 1, 0),
+            "rna002_vbz_full": (1, 1, 1, 2, 2, 1, 1, 1, 0, 0, 2, 1, 1, 0, 0, 1, 0),
             # phase 12: the tRNA trainer's prep step (the pa feed, full
             # outputs, no model: K4 for the proxy median where the adc feeds
             # take K8, no K1); the mRNA step served by the trained CNN
             "trna_prep": (0, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 2, 0),
-            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
+            "trained_cnn_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 0),
             # phase 13's detect trace: detect_boundaries_with_fallback alone
             # on calibrated float signals (no adc: K4 where the adc feeds
             # take K8), with its region statistics, no fingerprint
@@ -421,16 +445,19 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 1),
             # outputs: K4 for the adapter-level proxy where the adc feeds
             # take K8); one minibatch of validate_boundaries.validate (four
             # detect configurations on float signals, the three fingerprinted
-            # ones through K1, K16, K12 and K13)
-            "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 0, 0, 2, 1),
-            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 0, 0, 6, 3),
-            # phase 15: the adc step, full outputs, with a 24-class SVM and
-            # with 40-event fingerprints (each a vbz full step's launches);
-            # one predict of a synthetic SVM (K1, then the SVM's K16, K12
-            # and K13)
-            "wide_classes_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
-            "long_fingerprints_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 1),
-            "dtw_svm_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1)}
+            # ones through K1, K12 and K13)
+            "trna_pa_full": (1, 1, 2, 3, 3, 1, 1, 0, 0, 1, 1, 1, 1, 0, 0, 2, 0),
+            "validate_boundaries": (3, 3, 3, 13, 9, 4, 5, 0, 0, 0, 9, 3, 3, 0, 0, 6, 0),
+            # phase 15: the adc step, full outputs, with a 24-class SVM, with
+            # 40-event fingerprints and on rows of LONG_ROW_SAMPLES (each a
+            # vbz full step's launches); one predict of a synthetic SVM (K1
+            # with the kernel matrix's exp, K12 and K13), and of one of
+            # pwr_dist 2 (K1, then K16 over the squared distances)
+            "wide_classes_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "long_fingerprints_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "long_rows_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "dtw_svm_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 0),
+            "dtw_svm_pwr_dist_2_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -450,11 +477,17 @@ DEVICE_OPS_BEFORE_K14 = {"adc_decision": 1740, "vbz_full": 1790, "fused_decision
 DEVICE_OPS_BEFORE_K16 = {"adc_decision": 1600, "vbz_full": 1650, "fused_decision": 1599,
                          "trna_adc_decision": 1739, "trna_vbz_full": 1777,
                          "rna002_adc_decision": 1113, "rna002_vbz_full": 1153, "live_lane": 758}
-# ... and since (`count_device_ops` with K14 the whole LLR split and K16,
-# torch 2.11.0 on the card, PERF.md section 5): no later change may add any
-DEVICE_OPS_PINNED = {"adc_decision": 1129, "vbz_full": 1179, "fused_decision": 1128,
+# ... and before K1 stored the SVM's exp itself (`count_device_ops` with
+# K14 the whole LLR split and K16, torch 2.11.0 on the card, PERF.md
+# section 5): every path classifies, so every path must now take fewer
+DEVICE_OPS_BEFORE_K1_EXP = {"adc_decision": 1129, "vbz_full": 1179, "fused_decision": 1128,
                      "trna_adc_decision": 1257, "trna_vbz_full": 1295,
                      "rna002_adc_decision": 744, "rna002_vbz_full": 784, "live_lane": 491}
+# ... and since (`count_device_ops` with K1 storing the SVM's exp, torch
+# 2.11.0 on the card, PERF.md section 5): no later change may add any
+DEVICE_OPS_PINNED = {"adc_decision": 1128, "vbz_full": 1178, "fused_decision": 1127,
+                     "trna_adc_decision": 1256, "trna_vbz_full": 1294,
+                     "rna002_adc_decision": 743, "rna002_vbz_full": 783, "live_lane": 490}
 TRNA_PATHS = ("trna_adc_decision", "trna_vbz_full")
 # phase 8's run of the offline loop: the vbz wire, predictions and boundaries
 TRNA_OFFLINE_RUN = "trna_offline_vbz_boundaries"
@@ -846,6 +879,51 @@ def k2_edge_cases():
     return cases
 
 
+# K2 past the grid and shared-memory limits it had (faults J and the grid
+# cap): t-test windows past 8,986 samples, whose tile and halo outgrow
+# shared memory; a row past 65,535 tiles of 1,024 positions
+K2_LONG_CASES = ("w_max = 8,987, w drawn from [1, 8,987]", "B = 1, L = 67,108,865")
+K2_WIDE_W = 8987
+K2_LONG_ROW = 67_108_865
+
+
+def k2_long_case(name):
+    """(x (B, L) float32, n_valid (B,) int32, w (B,) int32, w_max) of the
+    K2_LONG_CASES case `name`: at w_max = K2_WIDE_W, 24 rows of 40,000
+    samples with w from [1, K2_WIDE_W] (row 0 at K2_WIDE_W with every
+    sample valid, some rows too short to score) and NaN past n_valid where
+    nothing may read it; at K2_LONG_ROW, one full row of w = 12."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    if name == K2_LONG_CASES[0]:
+        B, L = 24, 40_000
+        x = (rng.standard_normal((B, L), dtype=np.float32) * 12 + 80).astype(np.float32)
+        w = rng.integers(1, K2_WIDE_W + 1, B).astype(np.int32)
+        n = rng.integers(L // 2, L + 1, B).astype(np.int32)
+        w[0], n[0] = K2_WIDE_W, L
+        for r in range(1, 6):
+            x[r, n[r]:] = np.nan
+        return x, n, w, K2_WIDE_W
+    x = (rng.standard_normal((1, K2_LONG_ROW), dtype=np.float32) * 12 + 80).astype(np.float32)
+    return x, np.array([K2_LONG_ROW], np.int32), np.array([12], np.int32), 12
+
+
+K5_LONG_WINDOW = 67_108_865  # past 65,535 chunks of 1,024 samples
+
+
+def k5_long_case():
+    """(x (1, L) float32, starts (2,) int32, out_len, lengths (2,) int32):
+    two windows of K5_LONG_WINDOW samples from one row a few samples
+    longer, one starting before the row."""
+    import numpy as np
+
+    rng = np.random.default_rng(55)
+    x = (rng.standard_normal((1, K5_LONG_WINDOW + 5), dtype=np.float32) * 12 + 80).astype(np.float32)
+    return (x, np.array([-3, 4], np.int32), K5_LONG_WINDOW,
+            np.array([K5_LONG_WINDOW, 50_000_001], np.int32))
+
+
 def k5_edge_cases():
     """[(name, x (B, L) float32, starts (K * B,) int32, out_len, lengths
     (K * B,) int32 or None)]: the windows that K5 and its plain version are
@@ -939,6 +1017,10 @@ def k10_edge_cases():
     q85 = np.append(q, np.float32(np.nan))  # m = 85 (R = 8): row 85 in the last lane, rows past it copying it
     cases.append(("NaN only in the last lane's query row (m=85)", q85, s[:6], full[:6], (5, 0, 40, 0)))
     return cases
+
+
+K11_LONG_ROWS = (431_105, 1_048_577)  # past the warp kernel's 431,104 samples; a fourth level past 1,048,576
+K11_LONG_TIMED_ROWS = 64  # reads of K11_LONG_ROWS samples its workspace kernel is timed on
 
 
 def k11_step_ranges(rng, b, length):
@@ -1037,6 +1119,13 @@ def k11_edge_cases():
     cases.append(("the same, on the float feed", x, None, st, en))
     x = rng.normal(80, 15, (6, 15000)).astype(np.float32)
     cases.append(("pa L=15000, step ranges", x, None, *k11_step_ranges(rng, 6, 15000)))
+    # rows past the warp kernel's shared memory (fault I), the workspace
+    # kernel's: at 431,105 samples, and at 1,048,577, where the sum tree
+    # takes a fourth level; two rows, three ranges, both feeds
+    for length in K11_LONG_ROWS:
+        x, cal = calibrated(2, length)
+        cases.append((f"adc L={length:,}, step ranges", x, cal, *k11_step_ranges(rng, 2, length)))
+        cases.append((f"pa L={length:,}, whole row, halves, edges", x, None, *ranges(2, length)))
     return cases
 
 
@@ -1052,15 +1141,17 @@ def k11_work(st, en, width, with_std, calibrated):
 
 def check_k11(dev, card):
     """Phase 2, K11: the masked row means and stds against their plain
-    version bit for bit, on both variants (the block kernel, the wrapper's
-    choice at the step's shapes; the warp kernel, forced), at the step's
-    shapes (the region statistics of full outputs: three ranges with stds
-    over the calibrated reads; the [mvs_polya] gate: the poly(A) mean
-    alone; the pa feed: float rows) and on k11_edge_cases(); both variants
-    timed in turns at each step shape beside that shape's bound; the
-    wrapper timed beside the one PyTorch call of the same sums in another
-    order, torch.where(mask, x, 0).sum(-1). Returns the kernel's entry of
-    the `kernels` line."""
+    version bit for bit, on every variant (the block kernel, the wrapper's
+    choice at the step's shapes; the warp kernel and the workspace kernel,
+    forced), at the step's shapes (the region statistics of full outputs:
+    three ranges with stds over the calibrated reads; the [mvs_polya] gate:
+    the poly(A) mean alone; the pa feed: float rows) and on
+    k11_edge_cases() (the wrapper's choice and every kernel that takes the
+    rows: the workspace kernel alone past 431,104 samples); the variants
+    timed in turns at each step shape beside that shape's bound, and the
+    workspace kernel at K11_LONG_ROWS; the wrapper timed beside the one
+    PyTorch call of the same sums in another order, torch.where(mask, x,
+    0).sum(-1). Returns the kernel's entry of the `kernels` line."""
     import numpy as np
     import torch
 
@@ -1094,13 +1185,13 @@ def check_k11(dev, card):
     }
     for name, (xs, cals, sts, ens, with_std) in shapes.items():
         chosen = rowstats._variant(L, sts.shape[0], cals is not None, None)[0]
-        for variant in rowstats.VARIANTS:
+        for variant in rowstats.VARIANTS:  # every kernel takes the step's rows
             require(run(xs, cals, sts, ens, with_std, variant)[2], f"K11 {name} ({variant} kernel): differs from the plain version")
         n_bytes, n_ops = k11_work(sts, ens, L, with_std, cals is not None)
         bound_ms, bound_by = bound(n_bytes, n_ops)
-        print(f"K11 {name} B={B} L={L}: both kernels bit-equal to the plain version; the wrapper takes the "
+        print(f"K11 {name} B={B} L={L}: every kernel bit-equal to the plain version; the wrapper takes the "
               f"{chosen} kernel; bound_ms={bound_ms!r} by {bound_by} ({n_bytes} bytes, {n_ops} operations) on {card}")
-        for variant in ("block", "warp", "warp", "block"):  # in turns
+        for variant in ("block", "warp", "global", "global", "warp", "block"):  # in turns
             fn = lambda: rowstats.range_mean_std(xs, sts, ens, with_std, cals, variant=variant)
             ms, device_ms = time_ms(fn), time_ms(fn, queued=True)
             print(f"K11 {name}, {variant} kernel: kernel_ms={ms!r} device_ms={device_ms!r} "
@@ -1108,11 +1199,35 @@ def check_k11(dev, card):
     for name, xe, cale, ste, ene in k11_edge_cases():
         xe_t = t(xe)
         cale_t = None if cale is None else tuple(t(a) for a in cale)
-        for variant in rowstats.VARIANTS:
+        kinds = [v for v in rowstats.VARIANTS if rowstats.takes(xe.shape[1], ste.shape[0], cale is not None, v)]
+        for variant in (None, *kinds):
             for with_std in (True, False):
                 require(run(xe_t, cale_t, t(ste), t(ene), with_std, variant)[2],
-                        f"K11 {name} ({variant} kernel, with_std={with_std}): differs from the plain version")
-        print(f"K11 {name}: means and stds bit-equal to the plain version, both kernels")
+                        f"K11 {name} ({variant or 'default'} kernel, with_std={with_std}): "
+                        "differs from the plain version")
+        print(f"K11 {name}: means and stds bit-equal to the plain version, the wrapper's choice "
+              f"({rowstats._variant(xe.shape[1], ste.shape[0], cale is not None, None)[0]}) and every kernel that "
+              f"takes the rows ({', '.join(kinds)})")
+    # the workspace kernel timed at rows past the warp kernel's, the three
+    # region ranges with stds over calibrated reads
+    for length in K11_LONG_ROWS:
+        adc_l = t(rng.integers(-1500, 2500, (K11_LONG_TIMED_ROWS, length)).astype(np.int16))
+        cal_l = (adc_l, cal[1][:K11_LONG_TIMED_ROWS], cal[2][:K11_LONG_TIMED_ROWS])
+        x_l = (adc_l.to(torch.float32) + cal_l[1][:, None]) * cal_l[2][:, None]
+        st_l, en_l = (t(a) for a in k11_step_ranges(rng, K11_LONG_TIMED_ROWS, length))
+        chosen = rowstats._variant(length, 3, True, None)[0]
+        k_l, p_l, ok = run(x_l, cal_l, st_l, en_l, True)
+        require(ok and chosen == "global", f"K11 B={K11_LONG_TIMED_ROWS} L={length}: differs from the plain version")
+        n_bytes, n_ops = k11_work(st_l, en_l, length, True, True)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        fn = lambda: rowstats.range_mean_std(x_l, st_l, en_l, True, cal_l)
+        device_ms = time_ms(fn, queued=True)
+        print(f"K11 region statistics, calibrated R=3 with stds, B={K11_LONG_TIMED_ROWS} L={length}: the wrapper takes "
+              f"the {chosen} kernel, bit-equal to the plain version; kernel_ms={time_ms(fn)!r} "
+              f"device_ms={device_ms!r} plain_device_ms="
+              f"{time_ms(lambda: rowstats.range_mean_std_plain(x_l, st_l, en_l, True, cal_l), reps=2, queued=True)!r} "
+              f"bound_ms={bound_ms!r} by {bound_by} share={bound_ms / device_ms!r} on {card}")
+        del adc_l, cal_l, x_l, k_l, p_l
     pos = torch.arange(L, device=dev)
     masks = (pos >= st[:, :, None]) & (pos < en[:, :, None])
     return time_kernel(
@@ -1147,6 +1262,11 @@ LONG_FINGERPRINTS = (25, 32, 33, 40, 64, 100)
 LONG_FINGERPRINT_ROWS = 256  # queries of phase 2's K1 checks past 32 events, against 851 references
 WIDE_STEP_CLASSES, LONG_STEP_EVENTS = 24, 40  # phase 15's steps
 CHAIN_ROWS = 128  # fingerprints through phase 15's classify chain
+# phase 15a's SVM of pwr_dist 2, the one path left to K16: 5 classes, a
+# gamma at which exp(-gamma D**2) of its distances spans (0, 1)
+PWR_DIST_2_CLASSES, PWR_DIST_2_GAMMA = 5, 0.05
+# phase 15c: the step at a sig_preload_size past K11's warp kernel (fault I)
+LONG_ROW_READS, LONG_ROW_SAMPLES = 16, 450_000
 # K12's and K13's device ms before their redesign (commit 2a0ac67's
 # kernels: one thread an output; one thread a row) at WDX4's shapes:
 # PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
@@ -1548,6 +1668,10 @@ K16_EDGES = (0.0, -0.0, 1e-45, -1e-45, 1e-40, -1.0, 1.0, 0.5, 72.9, 73.2, 87.8, 
              -103.0, 1e30, -1e30, 3.4e38, float("inf"), float("-inf"), float("nan"))
 K16_OPS = 36  # an element: the product, XLA's exp (its clamps at 2, eight multiply-adds at 2, floor, the shift and scale, the flush)
 K16_SWEEP_CHUNKS = 64  # the 2**32 float32 bit patterns in chunks of 2**26
+# K1 storing the SVM's kernel matrix: RNA004's and RNA002's gamma; the
+# wide kernel's shapes (m, window, penalty, B, N) it is also held at
+K1_EXP_GAMMAS = (1.0, 1.2)
+K1_EXP_EDGES = ((25, 15, 0.1, 37, 131), (40, 15, 0.1, 37, 131), (32, 32, 0.5, 9, 300))
 
 
 def svm_distances(shape, seed):
@@ -1802,14 +1926,15 @@ def family_arrays(kind, rng, X_ref=None, trees=FOREST_TREES, depth=FOREST_DEPTH,
     )
 
 
-def svm_arrays(k, rng, m=25, per_class=40):
+def svm_arrays(k, rng, m=25, per_class=40, pwr_dist=1):
     """A DTW-SVM bundle's arrays of k classes from `rng`: per_class support
     vectors a class (N = per_class k fingerprints of m events, normal), the
     libsvm dual coefficients (k - 1, N; U(-8, 8), so that the reads' kernel
     rows, not the intercepts, pick the class), intercepts and Platt
-    parameters of the shipped models' ranges, RNA004's gamma (1.0), the last
-    class the noise class, thresholds of 0.2 / k (a mix of noise calls and
-    classes on the bench reads); what the port's
+    parameters of the shipped models' ranges, RNA004's gamma (1.0), the
+    kernel's power of the distances `pwr_dist` (every shipped bundle's is
+    1), the last class the noise class, thresholds of 0.2 / k (a mix of
+    noise calls and classes on the bench reads); what the port's
     registry.dtw_svm_from_arrays and the JAX DTWSVMModel.from_arrays both
     read."""
     import numpy as np
@@ -1823,7 +1948,7 @@ def svm_arrays(k, rng, m=25, per_class=40):
         intercept=rng.normal(0, 0.3, P), probA=rng.uniform(-6, -4, P), probB=rng.normal(0, 0.3, P),
         classes=np.arange(k, dtype=np.int64), label_map=np.array([*range(k - 1), -1], np.int32),
         thresholds=np.array([0.2 / k] * (k - 1) + [1.01]), window=np.int64(15), penalty=np.float64(0.1),
-        gamma=np.float64(1.0), pwr_dist=np.int64(1), block_size=np.int64(500), noise_class=np.bool_(True),
+        gamma=np.float64(1.0), pwr_dist=np.int64(pwr_dist), block_size=np.int64(500), noise_class=np.bool_(True),
         n_classes=np.int64(k),
     )
 
@@ -1872,10 +1997,11 @@ def dtw_band_cells(m, window):
 # the function and not of the kernel's own algorithm
 
 
-def k1_work(b, n, m=25, window=15):
+def k1_work(b, n, m=25, window=15, exp=False):
     """(b, m) against (n, m): the in-band cells, 6 operations each (sub,
-    min, add, min, fma (2))."""
-    return (b + n) * m * 4 + b * n * 4, b * n * dtw_band_cells(m, window) * 6
+    min, add, min, fma (2)); with `exp` (the SVM's kernel matrix), K16_OPS
+    more an output."""
+    return (b + n) * m * 4 + b * n * 4, b * n * (dtw_band_cells(m, window) * 6 + K16_OPS * exp)
 
 
 def k2_work(n_valid, w, width):
@@ -1960,7 +2086,7 @@ def check_kernels(dev, card):
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.detect import boundaries as bd
     from warpdemux_tpu_torch.models.registry import load_model_arrays
-    from warpdemux_tpu_torch.ops import dtw, peaks, segmentation, select, subsequence, window_gather
+    from warpdemux_tpu_torch.ops import dtw, numerics, peaks, segmentation, select, subsequence, window_gather
 
     rng = np.random.default_rng(1)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -2017,9 +2143,44 @@ def check_kernels(dev, card):
         ms = time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1))
         print(f"K1 N={Y.shape[0]}: max_abs_err={max_abs(k, p)!r} kernel_ms={ms!r} "
               f"bound_ms={bound(n_bytes, n_ops)[0]!r} on {card}")
+    k1_ms = time_ms(lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1), queued=True)
+    print(f"K1 N={Y.shape[0]}, distances alone: device_ms={k1_ms!r} on {card}")
+    # the SVM's kernel matrix (the main path's K1): exp(-gamma * D) stored
+    # by K1 itself, the bits of K1 then K16 and of the plain version, on
+    # every variant that takes the shape, at RNA004's and RNA002's gamma
+    for gamma in K1_EXP_GAMMAS:
+        kx = dtw.dtw_kernel_matrix(X, Y, 15, 0.1, gamma)
+        px = dtw.dtw_kernel_matrix_plain(X, Y, 15, 0.1, gamma)
+        require(bits_equal(kx, px), f"K1 kernel matrix gamma={gamma}: differs from the plain version")
+        for v in k1_variants(25, 15):
+            got = dtw.dtw_kernel_matrix(X, Y, 15, 0.1, gamma, variant=v)
+            two = numerics.xla_exp(dtw.dtw_distance_matrix(X, Y, 15, 0.1, variant=v), -gamma)
+            require(bits_equal(got, two) and bits_equal(got, px),
+                    f"K1 kernel matrix gamma={gamma} ({v} kernel): differs from K1 then K16")
+        print(f"K1 kernel matrix B={B} N={Y.shape[0]} gamma={gamma}: max_abs_err={max_abs(kx, px)!r}, bits equal to "
+              f"the plain version and to K1 then K16 on {', '.join(k1_variants(25, 15))}")
+    gamma = K1_EXP_GAMMAS[0]
+    fused = lambda: dtw.dtw_kernel_matrix(X, Y, 15, 0.1, gamma)
+    unfused = lambda: numerics.xla_exp(dtw.dtw_distance_matrix(X, Y, 15, 0.1), -gamma)
+    for turn in ("fused", "K1 then K16", "K1 then K16", "fused"):  # in turns
+        fn = fused if turn == "fused" else unfused
+        print(f"K1 kernel matrix B={B} N={Y.shape[0]}, {turn}: kernel_ms={time_ms(fn)!r} "
+              f"device_ms={time_ms(fn, queued=True)!r} on {card}")
+    rx = np.random.default_rng(16)  # its own draws: the later kernels' inputs stay as they were
+    for m, window, penalty, b, n in K1_EXP_EDGES:  # the wide kernel, non-finite fingerprints
+        Xe = rx.normal(0, 1, (b, m)).astype(np.float32)
+        Ye = rx.normal(0, 1, (n, m)).astype(np.float32)
+        Xe[1, 3], Xe[2, m - 1], Xe[3, 0], Ye[n - 1, 2] = np.nan, np.inf, -np.inf, np.nan
+        want = dtw.dtw_kernel_matrix_plain(t(Xe), t(Ye), window, penalty, gamma)
+        for v in k1_variants(m, window):
+            got = dtw.dtw_kernel_matrix(t(Xe), t(Ye), window, penalty, gamma, variant=v)
+            require(bits_equal(got, want), f"K1 kernel matrix m={m} window={window} ({v} kernel): differs")
+        print(f"K1 kernel matrix m={m} window={window} B={b} N={n} (non-finite rows included): bits equal on "
+              f"{', '.join(k1_variants(m, window))}")
+    n_bytes, n_ops = k1_work(B, Y.shape[0], exp=True)
     record(
-        "wdx_dtw", max_abs(k, p), lambda: dtw.dtw_distance_matrix(X, Y, 15, 0.1),
-        lambda: dtw.dtw_distance_matrix_plain(X, Y, 15, 0.1), n_bytes, n_ops, plain_reps=2,
+        "wdx_dtw", max_abs(kx, px), fused, lambda: dtw.dtw_kernel_matrix_plain(X, Y, 15, 0.1, gamma),
+        n_bytes, n_ops, plain_reps=2,
     )
     for m, window, penalty, b, n in ((25, 15, 0.1, 37, 131), (20, 8, 0.1, 37, 131), (32, 32, 0.5, 9, 300), (25, 1, 0.0, 5, 7)):
         Xe = rng.normal(0, 1, (b, m)).astype(np.float32)
@@ -2055,6 +2216,18 @@ def check_kernels(dev, card):
         require(torch.equal(ke_scores, torch.clamp_min(args[1] - 2 * args[2], 0)), f"K2 {name}: n_scores differ")
         print(f"K2 {name}: max_abs_err={max_abs(ke, want)!r}, {int(want.isnan().sum())} NaN and "
               f"{int(want.isinf().sum())} infinite scores, bits equal")
+    for name in K2_LONG_CASES:
+        xe, ne, we, w_max = (c if isinstance(c, int) else t(c) for c in k2_long_case(name))
+        ke, ke_scores = segmentation.windowed_t_test(xe, ne, we, w_max)
+        want = segmentation.windowed_t_test_plain(xe, ne, we, w_max)
+        require(bits_equal(ke, want), f"K2 {name}: differs from the plain version")
+        require(torch.equal(ke_scores, torch.clamp_min(ne - 2 * we, 0)), f"K2 {name}: n_scores differ")
+        lb, lo = k2_work(ne, we, xe.shape[1])
+        print(f"K2 {name}: max_abs_err={max_abs(ke, want)!r}, {int((want > 0).sum())} scores, bits equal; "
+              f"{both_ms(lambda: segmentation.windowed_t_test(xe, ne, we, w_max))} plain_device_ms="
+              f"{time_ms(lambda: segmentation.windowed_t_test_plain(xe, ne, we, w_max), reps=2, queued=True)!r} "
+              f"bound_ms={bound(lb, lo)[0]!r} by {bound(lb, lo)[1]} on {card}")
+        del xe, ke, want
     n_bytes, n_ops = k2_work(n_valid, w, A)
     record(
         "wdx_ttest", max_abs(k, p),
@@ -2264,6 +2437,20 @@ def check_kernels(dev, card):
         require(torch.equal(bits(window_gather.shift_rows(*args)), bits(window_gather.shift_rows_plain(*args))),
                 f"K5 {name}: differs from the plain version")
         print(f"K5 {name}: max_abs_err=0.0")
+    xe, se, n, le = k5_long_case()
+    xe, se = t(xe), t(se)
+    for lengths in (None, t(le)):
+        ke = window_gather.shift_rows(xe, se, n, lengths)
+        want = window_gather.shift_rows_plain(xe, se, n, lengths)
+        require(torch.equal(bits(ke), bits(want)), f"K5 a window of {n} samples: differs from the plain version")
+        lens = torch.full_like(se, n) if lengths is None else lengths
+        print(f"K5 windows of {n} samples ({se.shape[0]} of one row of {xe.shape[1]}, "
+              f"{'clamped' if lengths is None else 'with lengths'}): max_abs_err={max_abs(ke, want)!r}; "
+              f"{both_ms(lambda: window_gather.shift_rows(xe, se, n, lengths))} plain_device_ms="
+              f"{time_ms(lambda: window_gather.shift_rows_plain(xe, se, n, lengths), reps=2, queued=True)!r} "
+              f"bound_ms={bound(*k5_work(lens, n))[0]!r} on {card}")
+        del ke, want
+    del xe, se
     xo = torch.cat([x.new_zeros(1), x[:33].reshape(-1)])[1:].view(33, L)  # rows off 16 bytes
     require(xo.data_ptr() % 16 != 0 and xo.is_contiguous(), "K5: the view is aligned")
     require(torch.equal(window_gather.shift_rows(xo, s800[:33], 800), window_gather.shift_rows_plain(xo, s800[:33], 800)),
@@ -2608,21 +2795,19 @@ def count_device_ops(step, args):
 
 @contextlib.contextmanager
 def captured_kernel_calls():
-    """Inside, every call of the live lane's eight kernel wrappers is
+    """Inside, every call of the live lane's seven kernel wrappers is
     recorded as {launch-count key: (wrapper, args, plain version)}: the
-    arguments the lane program gives each kernel."""
+    arguments the lane program gives each kernel (K1's: the SVM's kernel
+    matrix, which it stores with its exp)."""
     from warpdemux_tpu_torch.models import dtw_svm
-    from warpdemux_tpu_torch.ops import (
-        dtw, fingerprint, normalize, numerics, peaks, segmentation, select, svm, window_gather,
-    )
+    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, svm, window_gather
 
     sites = (  # (module that calls it, name there, key, plain version)
         (fingerprint, "shift_rows", "wdx_shift_rows", window_gather.shift_rows_plain),
         (normalize, "range_median_mad", "wdx_range_median_mad", select.range_median_mad_plain),
         (segmentation, "windowed_t_test", "wdx_ttest", segmentation.windowed_t_test_plain),
         (peaks, "suppress_by_distance", "wdx_suppress", peaks.suppress_by_distance_plain),
-        (dtw_svm, "dtw_distance_matrix", "wdx_dtw", dtw.dtw_distance_matrix_plain),
-        (numerics, "xla_exp", "wdx_xla_exp_scaled", numerics.xla_exp_plain),
+        (dtw_svm, "dtw_kernel_matrix", "wdx_dtw", dtw.dtw_kernel_matrix_plain),
         (svm, "decision_values", "wdx_svm_dot", svm.decision_values_plain),
         (svm, "probabilities", "wdx_svm_probs", svm.probabilities_plain),
     )
@@ -2662,10 +2847,8 @@ def lane_kernel_work(key, args):
         return k12_work(K.shape[0], *params.coef.shape)
     if key == "wdx_svm_probs":
         return k13_work(*args[:2])[:2]
-    if key == "wdx_xla_exp_scaled":
-        return 8 * args[0].numel(), K16_OPS * args[0].numel()
     X, Y = args[:2]
-    return k1_work(X.shape[0], Y.shape[0], X.shape[1], args[2])
+    return k1_work(X.shape[0], Y.shape[0], X.shape[1], args[2], exp=True)
 
 
 def run_live_lane(dev, card):
@@ -2737,7 +2920,7 @@ def run_live_lane(dev, card):
         cpu.reporter.close()
     print(f"launches of one micro-batch of the live lane: {one_batch}")
 
-    # 6b. the eight kernels at the lane's shapes, held against their plain
+    # 6b. the seven kernels at the lane's shapes, held against their plain
     # versions; then the lane program as a whole
     for (max_batch, bucket), captured in sorted(calls.items()):
         require(set(captured) == {k for k, n in zip(KERNELS, LAUNCHES["live_lane"]) if n},
@@ -2851,12 +3034,14 @@ def count_step_ops(steps, lane_program, offline_run, trna, rna002):
     rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
     def check(path, what, n_ops):
         require(n_ops > 0, f"{path}: the profiler recorded no device operation")
-        print(f"{what}: {n_ops} device operations ({DEVICE_OPS_PINNED[path]} pinned, {DEVICE_OPS_BEFORE_K16[path]} "
+        print(f"{what}: {n_ops} device operations ({DEVICE_OPS_PINNED[path]} pinned, {DEVICE_OPS_BEFORE_K1_EXP[path]} "
+              f"before K1 stored the SVM's exp, {DEVICE_OPS_BEFORE_K16[path]} "
               f"before K14's redesign and K16, {DEVICE_OPS_BEFORE_K14[path]} before K14"
               + (f", {DEVICE_OPS_BEFORE_K11[path]} before K11" if path in DEVICE_OPS_BEFORE_K11 else "")
               + (f", {DEVICE_OPS_BEFORE[path]} on commit 7cdf228)" if path in DEVICE_OPS_BEFORE else ")"))
         require(n_ops <= DEVICE_OPS_BEFORE_K14[path], f"{path}: more device operations than before K14")
         require(n_ops < DEVICE_OPS_BEFORE_K16[path], f"{path}: no fewer device operations than before K16")
+        require(n_ops < DEVICE_OPS_BEFORE_K1_EXP[path], f"{path}: no fewer device operations than before K1's exp")
         require(n_ops <= DEVICE_OPS_PINNED[path], f"{path}: more device operations than pinned")
 
     for path in PATHS:
@@ -2918,7 +3103,7 @@ def run_profiling_tools(dev, card):
     print("\n".join(table.table()))
     launches = {stage.name: stage.launches for stage in table.stages}
     require(launches["dtw (B x 851)"] == {"wdx_dtw": 1}, f"phase 13 stage dtw: {launches['dtw (B x 851)']}")
-    require(launches["svm proba"] == {"wdx_svm_dot": 1, "wdx_svm_probs": 1, "wdx_xla_exp_scaled": 1},
+    require(launches["svm proba"] == {"wdx_svm_dot": 1, "wdx_svm_probs": 1},
             f"phase 13 stage svm proba: {launches['svm proba']}")
 
 
@@ -2938,9 +3123,11 @@ def run_main_paths(dev, steps):
     # a. adc feed, decision outputs
     out, by_path["adc_decision"] = _drive("adc_decision", steps["adc_decision"], rows)
     for key, n in by_path["adc_decision"].items():
-        # the fused and the tRNA paths' kernels, the DTW-MLP / Fpt-Boost softmax (phase 9)
-        # and the elementwise log, which no step launches
-        if key not in ("wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log"):
+        # the fused and the tRNA paths' kernels, the DTW-MLP / Fpt-Boost softmax (phase 9),
+        # the elementwise log, which no step launches, and K16, which K1's stored exp
+        # replaces at every shipped bundle's pwr_dist (phase 15a)
+        if key not in ("wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log",
+                       "wdx_xla_exp_scaled"):
             require(n > 0, f"{key} was never launched by the adc decision path")
     ref = cpu_steps["adc_decision"](*rows)
     probs = out.probs.cpu()
@@ -3749,21 +3936,39 @@ def wide_spc(spc, m):
         seg_extra=dataclasses.replace(spc.seg_extra, barcode_seg_num_events=m))
 
 
+def long_row_spc(spc, length):
+    """`spc` with reads of `length` samples (the chemistry's
+    sig_preload_size, and the detector's max_obs_trace it comes from)."""
+    import dataclasses
+
+    return dataclasses.replace(spc, sig_preload_size=length,
+                               detect=dataclasses.replace(spc.detect, max_obs_trace=length))
+
+
 def run_wide_shapes(dev, card):
     """Phase 15: the shapes past the shipped models' on the card against the
-    CPU. a. the classify chain (K1, K16, K12, K13) of a synthetic SVM
-    (`svm_arrays`, 40 support vectors a class) at WIDE_CLASSES, one predict
-    of CHAIN_ROWS fingerprints from a seed: each kernel launched once, pred,
-    conf and probs bit for bit the CPU's; b. the adc step, full outputs, on
-    the first N_ROWS seed-0 bench reads with a WIDE_STEP_CLASSES-class SVM,
-    then with fingerprints of LONG_STEP_EVENTS events (a 5-class SVM of such
-    support vectors): the launches of the path's pin, every row agreeing as
-    phase 3b compares them, and (success, pred) equal on every row."""
+    CPU. a. the classify chain (K1 with the kernel matrix's exp, K12, K13)
+    of a synthetic SVM (`svm_arrays`, 40 support vectors a class) at
+    WIDE_CLASSES, one predict of CHAIN_ROWS fingerprints from a seed: each
+    kernel launched once, pred, conf and probs bit for bit the CPU's; then
+    the same of an SVM of pwr_dist 2 (K1, K16 over the squared distances,
+    K12, K13); b. the adc step, full outputs, on the first N_ROWS seed-0
+    bench reads with a WIDE_STEP_CLASSES-class SVM, then with fingerprints
+    of LONG_STEP_EVENTS events (a 5-class SVM of such support vectors): the
+    launches of the path's pin, every row agreeing as phase 3b compares
+    them, and (success, pred) equal on every row; c. the WDX4 adc step,
+    full outputs, at a sig_preload_size of LONG_ROW_SAMPLES (past K11's
+    warp kernel: its workspace kernel, K4's and K8's streaming and K6's
+    device-scratch variants in one step) on LONG_ROW_READS seed-0 bench
+    reads of that length, checked as b, timed as called."""
     import numpy as np
+
+    import torch
 
     from warpdemux_tpu_torch import _cuda
     from warpdemux_tpu_torch.config.utils import get_model_spc_config
-    from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays
+    from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays, load_model
+    from warpdemux_tpu_torch.ops import rowstats
     from warpdemux_tpu_torch.pipeline.step import make_demux_step
     from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
 
@@ -3783,9 +3988,25 @@ def run_wide_shapes(dev, card):
         for _ in range(5):
             model.predict(fpts)
         print(f"classify chain k={k} (N={40 * k} support vectors, P={k * (k - 1) // 2} pairs), {CHAIN_ROWS} "
-              f"fingerprints: K1, K16, K12 and K13 each launched once; pred, conf and probs bit for bit the CPU's; "
-              f"{(time.perf_counter() - t0) / 5 * 1e3!r} ms a predict as called on {card}")
+              f"fingerprints: K1 (with the exp), K12 and K13 each launched once; pred, conf and probs bit for bit "
+              f"the CPU's; {(time.perf_counter() - t0) / 5 * 1e3!r} ms a predict as called on {card}")
     by_path["dtw_svm_predict"] = chain
+    path = "dtw_svm_pwr_dist_2_predict"
+    arrays = {**svm_arrays(PWR_DIST_2_CLASSES, np.random.default_rng(2), pwr_dist=2),
+              "gamma": np.float64(PWR_DIST_2_GAMMA)}
+    fpts = np.random.default_rng(3).normal(0, 1, (CHAIN_ROWS, 25)).astype(np.float32)
+    model = dtw_svm_from_arrays(arrays, dev)
+    _cuda.reset_launches()
+    got = model.predict(fpts)
+    by_path[path] = dict(_cuda.launches)
+    require(by_path[path] == dict(zip(KERNELS, LAUNCHES[path])), f"{path}: launches {by_path[path]}")
+    want = dtw_svm_from_arrays(arrays, "cpu").predict(fpts)
+    require(all(np.array_equal(g.view(np.int32), w.view(np.int32)) for g, w in zip(got, want)),
+            f"{path}: pred, conf or probs differ from the CPU's")
+    K = model.kernel_matrix(torch.as_tensor(fpts, device=dev))
+    print(f"classify chain of pwr_dist 2 ({PWR_DIST_2_CLASSES} classes, gamma {PWR_DIST_2_GAMMA}), {CHAIN_ROWS} "
+          f"fingerprints: K1, K16, K12 and K13 each launched once; pred, conf and probs bit for bit the CPU's; "
+          f"kernel matrix in [{float(K.min())!r}, {float(K.max())!r}]; calls {dict(Counter(want[0].tolist()))}")
     adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), B, L)
     rows = (adc[:N_ROWS], off[:N_ROWS], sc[:N_ROWS], lens[:N_ROWS])
     spc = get_model_spc_config(MODEL)
@@ -3805,6 +4026,25 @@ def run_wide_shapes(dev, card):
               f"and std column: {same}/{N_ROWS}; (success, pred) equal on every row: {decided}; calls "
               f"{dict(Counter(ref.pred.numpy().tolist()))}")
         require(same == N_ROWS and decided, f"{path}: GPU and CPU steps disagree")
+    path = "long_rows_adc_full"
+    rows = synth_minibatch(np.random.default_rng(0), LONG_ROW_READS, LONG_ROW_SAMPLES)
+    spc_l = long_row_spc(spc, LONG_ROW_SAMPLES)
+    steps = [make_demux_step(load_model(MODEL, d), spc_l, input_format="adc", outputs="full", device=d)
+             for d in (dev, "cpu")]
+    out, by_path[path] = _drive(path, steps[0], rows)
+    ref = steps[1](*rows)
+    same = _compare_full(out, ref)
+    decided = all(np.array_equal(getattr(out, c).cpu().numpy(), getattr(ref, c).numpy()) for c in ("success", "pred"))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        steps[0](*rows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"{path} (sig_preload_size {LONG_ROW_SAMPLES:,}, B={LONG_ROW_READS}; K11's "
+          f"{rowstats._variant(LONG_ROW_SAMPLES, 3, True, None)[0]} kernel): rows agreeing GPU vs CPU on every int, "
+          f"median, MAD, mean and std column: {same}/{LONG_ROW_READS}; (success, pred) equal on every row: {decided}; "
+          f"calls {dict(Counter(ref.pred.numpy().tolist()))}; {ms!r} ms a step as called on {card}")
+    require(same == LONG_ROW_READS and decided, f"{path}: GPU and CPU steps disagree")
     return by_path
 
 
@@ -4015,7 +4255,7 @@ def run_trainers(dev, card):
     by_path["trna_trainer_holdout"] = dict(_cuda.launches)
     hold_steps = 2 * -(-(len(barcodes) + 1) * args.holdout_per_bc // train_trna_model.CHUNK)
     want_hold = {k: hold_steps * n for k, n in prep.items()}
-    for key in ("wdx_dtw", "wdx_xla_exp_scaled", "wdx_svm_dot", "wdx_svm_probs"):  # each predict: K1, then the SVM's K16, K12 and K13
+    for key in ("wdx_dtw", "wdx_svm_dot", "wdx_svm_probs"):  # each predict: K1 with the kernel matrix's exp, K12, K13
         want_hold[key] += 2
     print(f"launches in the trna_trainer_holdout run: {by_path['trna_trainer_holdout']}")
     require(by_path["trna_trainer_holdout"] == want_hold,

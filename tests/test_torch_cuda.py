@@ -22,8 +22,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from bench import synth_minibatch  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    K1_EXP_GAMMAS,
+    K11_LONG_ROWS,
     K12_SHAPES,
+    K2_LONG_CASES,
     LAUNCHES,
+    k1_variants,
+    k2_long_case,
+    k5_long_case,
     k13_wide_case,
     k15_variants,
     k1_tie_case,
@@ -555,8 +561,9 @@ def test_decision_step_gpu_matches_cpu(dev):
     gpu = make_demux_step(load_model(MODEL, dev), spc, device=dev, **kw)(adc, off, sc, lens)
     torch.cuda.synchronize()
     # K9 replaces K6 + K7; K10 is the tRNA path's; K15 the DTW-MLP's and Fpt-Boost's softmax;
-    # the elementwise log no step launches since K14 took the LLR cost whole
-    idle = {"wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log"}
+    # the elementwise log no step launches since K14 took the LLR cost whole, nor K16 since
+    # K1 stores the SVM's exp itself (at pwr_dist 1, every shipped bundle's)
+    idle = {"wdx_rolling_detect", "wdx_subseq_dtw", "wdx_xla_softmax", "wdx_xla_log", "wdx_xla_exp_scaled"}
     assert all(n > 0 for k, n in _cuda.launches.items() if k not in idle), _cuda.launches
     cpu = make_demux_step(load_model(MODEL, "cpu"), spc, device="cpu", **kw)(adc, off, sc, lens)
     for name in ("success", "fail_code", "pred"):
@@ -708,12 +715,17 @@ def _k11_bits_equal(got, want):
 
 
 def _k11_equal(x, calibration, st, en, with_std):
-    """The wrapper's choice and both variants, each bit-equal to the plain
-    version."""
+    """The wrapper's choice and every variant that takes the rows, each
+    bit-equal to the plain version; a variant forced beyond its rows
+    raises."""
     p = rowstats.range_mean_std_plain(x, st, en, with_std, calibration)
     _k11_bits_equal(_launched("wdx_rowstats", lambda: rowstats.range_mean_std(x, st, en, with_std, calibration)), p)
     for variant in rowstats.VARIANTS:
-        _k11_bits_equal(rowstats.range_mean_std(x, st, en, with_std, calibration, variant=variant), p)
+        if rowstats.takes(x.shape[1], st.shape[0], calibration is not None, variant):
+            _k11_bits_equal(rowstats.range_mean_std(x, st, en, with_std, calibration, variant=variant), p)
+        else:
+            with pytest.raises(ValueError, match="K11"):
+                rowstats.range_mean_std(x, st, en, with_std, calibration, variant=variant)
 
 
 @pytest.mark.parametrize("with_std", [True, False])
@@ -747,11 +759,40 @@ def test_k11_variants_agree_at_the_gate_shape(dev):
 
 
 def test_k11_rows_outside_its_domain_raise(dev):
+    """A row of no samples, and the block and warp kernels forced at a row
+    whose window sums exceed their shared memory, raise; the wrapper serves
+    that row with the workspace kernel."""
     L = 1_000_000  # the window sums of four warps exceed shared memory
     x = torch.zeros((1, L), device=dev)
     st = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    for variant in ("block", "warp"):
+        with pytest.raises(ValueError, match="K11"):
+            rowstats.range_mean_std(x, st, st + 5, variant=variant)
     with pytest.raises(ValueError, match="K11"):
-        rowstats.range_mean_std(x, st, st + 5)
+        rowstats.range_mean_std(torch.zeros((1, 0), device=dev), st, st)
+    means, stds = _launched("wdx_rowstats", lambda: rowstats.range_mean_std(x, st, st + 5))
+    assert rowstats._variant(L, 1, False, None)[0] == "global"
+    assert float(means[0, 0]) == 0.0 and float(stds[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("with_std", [True, False])
+@pytest.mark.parametrize("calibrated", [True, False])
+@pytest.mark.parametrize("L", K11_LONG_ROWS)
+def test_k11_rows_past_the_warp_kernel(dev, L, calibrated, with_std):
+    """Fault I: reads of 431,105 and 1,048,577 samples (a fourth level of
+    the sum tree), the step's three ranges and whole rows: the workspace
+    kernel, the wrapper's choice, bit-equal to the plain version; the
+    block and warp kernels forced there raise."""
+    rng = np.random.default_rng(L)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    adc = t(rng.integers(-2000, 3000, (8, L)).astype(np.int16))
+    off, sc = t(rng.uniform(-5, 20, 8).astype(np.float32)), t(rng.uniform(0.1, 0.3, 8).astype(np.float32))
+    x = (adc.float() + off[:, None]) * sc[:, None]
+    st, en = k11_step_ranges(rng, 8, L)
+    st[:, 0], en[:, 0] = (0, 0, L // 2), (L, L // 2, L)
+    st, en = torch.as_tensor(st, device=dev), torch.as_tensor(en, device=dev)
+    assert rowstats._variant(L, 3, calibrated, None)[0] == "global"
+    _k11_equal(x, (adc, off, sc) if calibrated else None, st, en, with_std)
 
 
 @pytest.mark.parametrize("kind", ["dtw_mlp", "fpt_boost"])
@@ -971,9 +1012,10 @@ def test_k13_past_16_classes_on_every_variant(dev, k, variant):
 
 @pytest.mark.parametrize("k", [17, 24, 32, 33, 48, 64])
 def test_the_classify_chain_past_16_classes(dev, k):
-    """K1, K16, K12 and K13 on a synthetic k-class SVM (chip_smoke.svm_arrays,
-    N = 40 k support vectors) through the model's predict: each launched
-    once, pred, conf and probs bit for bit the CPU's."""
+    """K1 (storing the kernel matrix's exp), K12 and K13 on a synthetic
+    k-class SVM (chip_smoke.svm_arrays, N = 40 k support vectors) through
+    the model's predict: each launched once and K16 never, pred, conf and
+    probs bit for bit the CPU's."""
     from chip_smoke import svm_arrays
     from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays
 
@@ -981,11 +1023,75 @@ def test_the_classify_chain_past_16_classes(dev, k):
     fpts = np.random.default_rng(k + 1).normal(0, 1, (100, 25)).astype(np.float32)
     _cuda.reset_launches()
     got = dtw_svm_from_arrays(arrays, dev).predict(fpts)
-    for key in ("wdx_dtw", "wdx_xla_exp_scaled", "wdx_svm_dot", "wdx_svm_probs"):
+    for key in ("wdx_dtw", "wdx_svm_dot", "wdx_svm_probs"):
         assert _cuda.launches[key] == 1, key
+    assert _cuda.launches["wdx_xla_exp_scaled"] == 0
     want = dtw_svm_from_arrays(arrays, "cpu").predict(fpts)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_the_classify_chain_of_pwr_dist_2(dev):
+    """An SVM of pwr_dist 2 (chip_smoke's phase 15a): K1, then K16 over the
+    squared distances, K12 and K13, each launched once; pred, conf and
+    probs bit for bit the CPU's."""
+    from chip_smoke import PWR_DIST_2_CLASSES, PWR_DIST_2_GAMMA, svm_arrays
+    from warpdemux_tpu_torch.models.registry import dtw_svm_from_arrays
+
+    arrays = {**svm_arrays(PWR_DIST_2_CLASSES, np.random.default_rng(2), pwr_dist=2),
+              "gamma": np.float64(PWR_DIST_2_GAMMA)}
+    fpts = np.random.default_rng(3).normal(0, 1, (128, 25)).astype(np.float32)
+    _cuda.reset_launches()
+    got = dtw_svm_from_arrays(arrays, dev).predict(fpts)
+    assert tuple(_cuda.launches.values()) == LAUNCHES["dtw_svm_pwr_dist_2_predict"], _cuda.launches
+    want = dtw_svm_from_arrays(arrays, "cpu").predict(fpts)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g).view(np.int32), np.asarray(w).view(np.int32))
+
+
+@pytest.mark.parametrize("gamma", K1_EXP_GAMMAS)
+@pytest.mark.parametrize("m, window, b, n",
+                         [(25, 15, 1000, 851), (25, 15, 37, 131), (40, 15, 37, 131), (32, 32, 9, 300)])
+def test_k1_stores_the_svm_kernel_matrix(dev, m, window, b, n, gamma):
+    """K1 with the exp stored in place of D, on every variant that takes the
+    shape (NaN and infinite samples planted): the bits of K1 then K16 and of
+    the plain version, in one launch."""
+    from warpdemux_tpu_torch.ops import numerics
+
+    rng = np.random.default_rng(m + b)
+    X = rng.normal(0, 1, (b, m)).astype(np.float32)
+    Y = rng.normal(0, 1, (n, m)).astype(np.float32)
+    X[1, 3], X[2, m - 1], X[3, 0], Y[n - 1, 2] = np.nan, np.inf, -np.inf, np.nan
+    X, Y = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    want = dtw.dtw_kernel_matrix_plain(X, Y, window, 0.1, gamma)
+    for v in k1_variants(m, window):
+        got = _launched("wdx_dtw", lambda: dtw.dtw_kernel_matrix(X, Y, window, 0.1, gamma, variant=v))
+        two = numerics.xla_exp(dtw.dtw_distance_matrix(X, Y, window, 0.1, variant=v), -gamma)
+        assert _same_bits(got, want) and _same_bits(got, two), v
+
+
+@pytest.mark.parametrize("name", K2_LONG_CASES)
+def test_k2_past_shared_memory_and_the_grid(dev, name):
+    """Fault J and K2's grid: t-test windows of up to 8,987 samples (the
+    windows read from device memory) and a row of 67,108,865 samples: the
+    bits of the plain version and its n_scores."""
+    x, n, w, w_max = k2_long_case(name)
+    x, n, w = (torch.as_tensor(a, device=dev) for a in (x, n, w))
+    got, n_scores = _launched("wdx_ttest", lambda: segmentation.windowed_t_test(x, n, w, w_max))
+    assert _same_bits(got, segmentation.windowed_t_test_plain(x, n, w, w_max))
+    assert torch.equal(n_scores, torch.clamp_min(n - 2 * w, 0))
+    assert bool((got > 0).any())
+
+
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_k5_windows_past_the_grid(dev, with_lengths):
+    """K5's grid: two windows of 67,108,865 samples from one row, with and
+    without lengths, bit for bit the plain version."""
+    x, starts, out_len, lengths = k5_long_case()
+    args = (torch.as_tensor(x, device=dev), torch.as_tensor(starts, device=dev), out_len,
+            torch.as_tensor(lengths, device=dev) if with_lengths else None)
+    got = _launched("wdx_shift_rows", lambda: window_gather.shift_rows(*args))
+    assert torch.equal(got.view(torch.int32), window_gather.shift_rows_plain(*args).view(torch.int32))
 
 
 @pytest.mark.parametrize("shape", [(2, 2000, 799), (2, 1000, 5999), (2, 32, 799), (7,)])

@@ -118,8 +118,8 @@ def test_lane_program_launches_each_kernel_of_its_path_once(monkeypatch, tmp_pat
                         spy("wdx_ttest", lambda *a: (segmentation.windowed_t_test_plain(*a),
                                                       torch.clamp_min(a[1] - 2 * a[2], 0))))
     monkeypatch.setattr(peaks, "suppress_by_distance", spy("wdx_suppress", peaks.suppress_by_distance_plain))
-    monkeypatch.setattr("warpdemux_tpu_torch.models.dtw_svm.dtw_distance_matrix",
-                        spy("wdx_dtw", dtw.dtw_distance_matrix_plain))
+    monkeypatch.setattr("warpdemux_tpu_torch.models.dtw_svm.dtw_kernel_matrix",
+                        spy("wdx_dtw", dtw.dtw_kernel_matrix_plain))
     session = Session(
         None, SessionConfig(model_name=MODEL, save_path=str(tmp_path), run_id="spy", max_batch=8),
         BarcodeBalancers.from_configs(4, [BalancerConfig()], [1.0], n_channels=4),

@@ -160,7 +160,9 @@ def test_range_mean_std_dispatch_and_shape_checks():
 def test_k11_variant_switch_shapes():
     """K11's block kernel takes rows up to the stated lengths (calibrated /
     float, three ranges and one), the warp kernel the rows above to 431,104
-    samples; beyond both, or a forced kernel beyond its own, ValueError."""
+    samples, the workspace kernel every longer row (a fourth level of the
+    sum tree past 1,048,576); a row of no samples, a forced kernel beyond
+    its own rows or an unknown kernel, ValueError."""
     from warpdemux_tpu_torch.ops.rowstats import _variant
 
     for R, calibrated, longest in ((3, True, 92480), (3, False, 51456), (1, True, 103072), (1, False, 54624)):
@@ -168,7 +170,12 @@ def test_k11_variant_switch_shapes():
         assert _variant(longest + 1, R, calibrated, None)[0] == "warp"
     assert _variant(10000, 3, True, None) == ("block", 25284)
     assert _variant(10000, 3, True, "warp")[0] == "warp"
+    assert _variant(10000, 3, True, "global") == ("global", 4 * 4 * 32 * 33)
     assert _variant(431104, 3, True, None)[0] == "warp"
-    for args in ((431105, 3, True, None), (92481, 3, True, "block"), (0, 3, True, None), (100, 3, True, "tile")):
+    for L in (431105, 1048577):
+        for calibrated in (True, False):
+            assert _variant(L, 3, calibrated, None) == ("global", 4 * 4 * 32 * 33)
+    for args in ((431105, 3, True, "warp"), (1048577, 3, False, "block"), (92481, 3, True, "block"),
+                 (0, 3, True, None), (0, 3, True, "global"), (100, 3, True, "tile")):
         with pytest.raises(ValueError):
             _variant(*args)

@@ -46,7 +46,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry point -> argument types (every entry point ends with the stream)
 SIGNATURES = {
-    "wdx_dtw": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I),
+    "wdx_dtw": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F),
     "wdx_ttest": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
     "wdx_suppress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     "wdx_range_median_mad": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I),
@@ -58,7 +58,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
     ),
     "wdx_subseq_dtw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I),
-    "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    "wdx_rowstats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     "wdx_svm_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
     "wdx_svm_probs": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I),
     "wdx_xla_log": (_P, _P, _L),

@@ -119,6 +119,14 @@ __device__ __forceinline__ float wdx_xla_exp(float x) {
   return y < 1.17549435e-38f ? 0.f : y;
 }
 
+// XLA:CPU's float32 exp(scale * x): the product rounded once (__fmul_rn, as
+// torch and a jitted JAX function multiply a Python float by a float32
+// array), then wdx_xla_exp. K16's element, and K1's store of the SVM's
+// kernel matrix exp(-gamma * D), so the two give the same bits.
+__device__ __forceinline__ float wdx_xla_exp_scaled1(float x, float scale) {
+  return wdx_xla_exp(__fmul_rn(scale, x));
+}
+
 // The larger of m and v as torch.amax and XLA's reduce max take it: NaN if
 // either is NaN (K13's largest error, K15's row max), one instruction
 // (max.NaN.f32, whose NaN is the canonical 0x7FC00000). Of +0.0 and -0.0 it

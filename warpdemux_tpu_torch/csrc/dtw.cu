@@ -45,6 +45,13 @@
 // fminf would drop it), and sqrtf is correctly rounded, so the result is
 // bit-identical to the plain version and to the jnp wavefront in float32,
 // non-finite fingerprints included.
+//
+// The SVM's kernel matrix (ops/dtw.py dtw_kernel_matrix): with `exp_out`,
+// every variant stores XLA's exp(scale * D) (wdx_xla_exp_scaled1 of
+// common.cuh, K16's element; scale = -gamma) where it would store D, so
+// the exp costs ~36 operations on a value already in a register and no
+// pass over the (B, N) matrix of its own: K16's read of D and its launch
+// leave the path.
 #include "common.cuh"
 
 #ifndef WDX_DTW_THREADS
@@ -53,6 +60,11 @@
 #ifndef WDX_DTW_TQ
 #define WDX_DTW_TQ 3  // queries of a tile
 #endif
+
+// The value stored for a distance: D, or (exp_out) XLA's exp(scale * D).
+__device__ __forceinline__ float wdx_dtw_store(float dist, bool exp_out, float scale) {
+  return exp_out ? wdx_xla_exp_scaled1(dist, scale) : dist;
+}
 
 __device__ __forceinline__ float wdx_min_nan(float a, float b) {
   float r;
@@ -103,7 +115,7 @@ __device__ __forceinline__ float wdx_dtw_static(const float (&r)[M], const float
 template <int M, int W>
 __global__ void __launch_bounds__(WDX_DTW_THREADS)
     wdx_dtw_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                   float* __restrict__ out, int B, int N, float p) {
+                   float* __restrict__ out, int B, int N, float p, bool exp_out, float scale) {
   extern __shared__ float wdx_dtw_smem[];
   constexpr int stride = M | 1;  // odd: references 32 apart fall in 32 banks
   float* ys = wdx_dtw_smem;                          // [WDX_DTW_THREADS][stride]
@@ -126,7 +138,8 @@ __global__ void __launch_bounds__(WDX_DTW_THREADS)
 #pragma unroll
   for (int j = 0; j < M; ++j) r[j] = ys[threadIdx.x * stride + j];
   float* o = out + (long long)b0 * N + n0 + threadIdx.x;
-  for (int g = 0; g < q_tile; ++g) o[(long long)g * N] = wdx_dtw_static<M, W>(r, qs + g * M, p);
+  for (int g = 0; g < q_tile; ++g)
+    o[(long long)g * N] = wdx_dtw_store(wdx_dtw_static<M, W>(r, qs + g * M, p), exp_out, scale);
 }
 
 // The wide kernels, any m: a block (T = blockDim.x threads, a reference a
@@ -140,7 +153,8 @@ __global__ void __launch_bounds__(WDX_DTW_THREADS)
 template <bool GLOBAL>
 __global__ void __launch_bounds__(128)
     wdx_dtw_wide_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                        float* __restrict__ out, float* ws, int B, int N, int m, int window, float p) {
+                        float* __restrict__ out, float* ws, int B, int N, int m, int window, float p,
+                        bool exp_out, float scale) {
   extern __shared__ float wdx_dtw_wide_smem[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int stride = m | 1;
@@ -185,7 +199,7 @@ __global__ void __launch_bounds__(128)
           left = val;
         }
       }
-      out[(long long)(b0 + g) * N + n0 + tid] = sqrtf(row[(long long)m * T]);
+      out[(long long)(b0 + g) * N + n0 + tid] = wdx_dtw_store(sqrtf(row[(long long)m * T]), exp_out, scale);
     }
   }
 }
@@ -198,8 +212,10 @@ static size_t wdx_dtw_wide_bytes(int m, int T) {
 // variant 0: the register kernel (m = 25, window = 15); 1: the wide kernel
 // in shared memory, `threads` a block; 2: the wide kernel over `slots`
 // blocks of `threads`, its DP rows in `ws` (slots x threads x (m + 1) floats).
+// exp_out: store exp(scale * D) (the SVM's kernel matrix) instead of D.
 WDX_API int wdx_dtw(const float* X, const float* Y, float* out, float* ws, int B, int N, int m,
-                    int window, float p, int variant, int threads, int slots, cudaStream_t stream) {
+                    int window, float p, int variant, int threads, int slots, int exp_out,
+                    float scale, cudaStream_t stream) {
   if (m < 1 || B < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return 0;
   if (variant == 0) {
@@ -208,7 +224,8 @@ WDX_API int wdx_dtw(const float* X, const float* Y, float* out, float* ws, int B
         (long long)((B + WDX_DTW_TQ - 1) / WDX_DTW_TQ) * ((N + WDX_DTW_THREADS - 1) / WDX_DTW_THREADS);
     if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;  // an output of more than 3 TB
     const size_t smem = (size_t)(WDX_DTW_THREADS * (25 | 1) + WDX_DTW_TQ * 25) * sizeof(float);
-    wdx_dtw_kernel<25, 15><<<(int)tiles, WDX_DTW_THREADS, smem, stream>>>(X, Y, out, B, N, p);
+    wdx_dtw_kernel<25, 15><<<(int)tiles, WDX_DTW_THREADS, smem, stream>>>(X, Y, out, B, N, p,
+                                                                          exp_out != 0, scale);
     return (int)cudaGetLastError();
   }
   if (threads < 32 || threads > 128 || threads % 32) return (int)cudaErrorInvalidValue;
@@ -222,10 +239,12 @@ WDX_API int wdx_dtw(const float* X, const float* Y, float* out, float* ws, int B
       if (err) return err;
     }
     const int blocks = (int)(tiles < INT_MAX ? tiles : INT_MAX);
-    wdx_dtw_wide_kernel<false><<<blocks, threads, smem, stream>>>(X, Y, out, nullptr, B, N, m, window, p);
+    wdx_dtw_wide_kernel<false><<<blocks, threads, smem, stream>>>(X, Y, out, nullptr, B, N, m, window,
+                                                                  p, exp_out != 0, scale);
     return (int)cudaGetLastError();
   }
   if (variant != 2 || ws == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
-  wdx_dtw_wide_kernel<true><<<slots, threads, 0, stream>>>(X, Y, out, ws, B, N, m, window, p);
+  wdx_dtw_wide_kernel<true><<<slots, threads, 0, stream>>>(X, Y, out, ws, B, N, m, window, p,
+                                                            exp_out != 0, scale);
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@
 // the windows a range touches, and above them only the entries of the
 // levels that hold one, are summed, each in XLA's order.
 //
-// Two variants behind the one entry point wdx_rowstats.
+// Three variants behind the one entry point wdx_rowstats.
 //
 // The block kernel (the default): one block a row, every range of the row in
 // that block. The block stages the span of the row that any range covers
@@ -54,6 +54,17 @@
 // ceil(L / 32) floats; the levels above are summed from there the same way,
 // a lane a window. The same is done a second time for d * d.
 //
+// The workspace kernel, for rows whose window sums outgrow the warp
+// kernel's shared memory (past 431,104 samples): the warp kernel with each
+// warp's window sums, level 1 and every level above, in a global workspace
+// of ceil(L / 32) floats a (range, row) that the wrapper allocates; only
+// the staged tile stays in shared memory. The tree's top is the same loop
+// over however many levels the row needs (a fourth past 1,048,576
+// samples), each in XLA's order. A warp writes and reads back its own
+// sums alone, ordered by __syncwarp, so the sums stay in L1 and L2 at the
+// rows it serves: the extra traffic is a write and a read of 4 bytes a
+// window of 32 samples.
+//
 // With the calibration, x = (adc + offset) * scale is formed from the
 // int16 preimage in the kernel, as the step forms it (two roundings).
 //
@@ -63,7 +74,8 @@
 // (ops/rowstats.range_mean_std) takes the block kernel where its shared
 // memory (wdx_rowstats_block_bytes) fits a block: rows of up to 92,480
 // samples on the calibrated feed and 51,456 on the float feed at three
-// ranges (103,072 and 54,624 at one); the warp kernel above, to 431,104.
+// ranges (103,072 and 54,624 at one); the warp kernel above, to 431,104;
+// the workspace kernel at any longer row.
 #include "common.cuh"
 
 #define WDX_ROWSTATS_WARPS 4  // warps a block of the warp kernel; ops/rowstats.WARPS
@@ -192,15 +204,18 @@ __global__ void __launch_bounds__(WDX_ROWSTATS_WARPS * 32)
     wdx_rowstats_kernel(const float* __restrict__ x, const int16_t* __restrict__ adc,
                         const float* __restrict__ offset, const float* __restrict__ scale,
                         const int* __restrict__ starts, const int* __restrict__ ends,
-                        float* __restrict__ means, float* __restrict__ stds, int R, int B, int L) {
+                        float* __restrict__ means, float* __restrict__ stds, float* ws, int R,
+                        int B, int L) {
   extern __shared__ float wdx_rowstats_shared[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long g = (long long)blockIdx.x * WDX_ROWSTATS_WARPS + warp;
   if (g >= (long long)R * B) return;  // the whole warp
   const int b = (int)(g % B);
   const int n_win = (L + 31) / 32;
-  float* sums = wdx_rowstats_shared + warp * (n_win + WDX_ROWSTATS_TILE);
-  float* tile = sums + n_win;
+  // the window sums in shared memory before the warp's tile, or (the
+  // workspace kernel) at the warp's slot of ws
+  float* sums = ws ? ws + g * n_win : wdx_rowstats_shared + warp * (n_win + WDX_ROWSTATS_TILE);
+  float* tile = ws ? wdx_rowstats_shared + warp * WDX_ROWSTATS_TILE : sums + n_win;
   const int s = min(max(starts[g], 0), L), e = min(max(ends[g], 0), L);
   const float count = (float)max(e - s, 1);
   WdxRowSource src{x, adc, x ? 0.f : offset[b], x ? 0.f : scale[b]};
@@ -537,11 +552,13 @@ __global__ void __launch_bounds__(WDX_ROWSTATS_BLOCK_WARPS * 32, WDX_ROWSTATS_MI
 // and scale (B,); starts, ends (R, B) int32; means (and stds, or null)
 // (R, B) float32. variant 0: the block kernel, shared_bytes at least
 // wdx_rowstats_block_bytes(R, L, calibrated); 1: the warp kernel,
-// shared_bytes WDX_ROWSTATS_WARPS x (ceil(L / 32) + 32 x 33) floats.
+// shared_bytes WDX_ROWSTATS_WARPS x (ceil(L / 32) + 32 x 33) floats; 2: the
+// workspace kernel, shared_bytes WDX_ROWSTATS_WARPS x 32 x 33 floats and ws
+// R x B x ceil(L / 32) floats (null for the other variants).
 WDX_API int wdx_rowstats(const float* x, const int16_t* adc, const float* offset,
                          const float* scale, const int* starts, const int* ends, float* means,
-                         float* stds, int R, int B, int L, int variant, int shared_bytes,
-                         cudaStream_t stream) {
+                         float* stds, float* ws, int R, int B, int L, int variant,
+                         int shared_bytes, cudaStream_t stream) {
   if (R == 0 || B == 0) return 0;
   const bool calibrated = x == nullptr;
   if (L <= 0 || (calibrated && (adc == nullptr || offset == nullptr || scale == nullptr)) ||
@@ -568,8 +585,9 @@ WDX_API int wdx_rowstats(const float* x, const int16_t* adc, const float* offset
     }
     return (int)cudaGetLastError();
   }
-  if (variant != 1 ||
-      (long long)shared_bytes < 4LL * WDX_ROWSTATS_WARPS * ((L + 31) / 32 + WDX_ROWSTATS_TILE))
+  const long long window_floats = variant == 2 ? 0 : (L + 31) / 32;
+  if ((variant != 1 && variant != 2) || (variant == 2) != (ws != nullptr) ||
+      (long long)shared_bytes < 4LL * WDX_ROWSTATS_WARPS * (window_floats + WDX_ROWSTATS_TILE))
     return (int)cudaErrorInvalidValue;
   if (shared_bytes > 48 * 1024) {
     const int err = wdx_allow_shared(wdx_rowstats_kernel, shared_bytes);
@@ -578,6 +596,6 @@ WDX_API int wdx_rowstats(const float* x, const int16_t* adc, const float* offset
   const long long warps = (long long)R * B;
   const int blocks = (int)((warps + WDX_ROWSTATS_WARPS - 1) / WDX_ROWSTATS_WARPS);
   wdx_rowstats_kernel<<<blocks, WDX_ROWSTATS_WARPS * 32, shared_bytes, stream>>>(
-      x, adc, offset, scale, starts, ends, means, stds, R, B, L);
+      x, adc, offset, scale, starts, ends, means, stds, ws, R, B, L);
   return (int)cudaGetLastError();
 }

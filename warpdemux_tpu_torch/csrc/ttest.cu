@@ -5,8 +5,9 @@
 //
 // The function needs one read of a row's valid samples and one write of its
 // L scores. A block owns a tile of WDX_TTEST_TILE positions of one row (a
-// grid of rows by tiles: the tiles of a row are independent, many blocks
-// share an SM, and a row of any length runs the same kernel). The tile's
+// grid of every tile of every row, the rows' first tiles first: the tiles
+// of a row are independent, many blocks share an SM, and a row of any
+// length runs the same kernel). The tile's
 // samples below n_valid, with the reach of its last windows, are staged once
 // into shared memory by 16-byte loads (zeros past n_valid, no read there),
 // then
@@ -25,6 +26,14 @@
 // [1, w_max] the jnp path's meaning: the second window's statistics are 0
 // and min(w, w_max) samples are summed. The kernel also writes each row's
 // n_scores = max(n_valid - 2w, 0), which the caller needs beside the scores.
+//
+// Where a tile and its halo of 2 w_max samples do not fit in shared memory
+// (w_max past 8,986), the block stages only the rsqrt table and scores each
+// position by the loop above, reading its windows from device memory (from
+// L1 and L2: a tile's neighbouring positions share all but one sample of
+// each window). The reads stay below n_valid: a scored position's windows
+// end at p + 2w <= n_valid. Both paths sum each window in the same order,
+// so they give the same bits.
 //
 // Bound: memory. 4 bytes read per valid sample and 4 written per position.
 //
@@ -212,25 +221,26 @@ __device__ __forceinline__ void wdx_ttest_tile(const float* xs, float* mean, flo
   }
 }
 
-// Block (b, t) owns the WDX_TTEST_TILE positions from t * WDX_TTEST_TILE on
-// of row b: tiles are independent, so a row's tiles run side by side and
-// many blocks share an SM. Shared memory: the rsqrt table, then xs, mean and
-// ssd of a tile plus halo floats each (halo: what the windows of a tile's
-// last positions reach; their statistics are computed by both neighbours).
-// The first tile's block also writes the row's n_scores = max(n_valid - 2w, 0).
+// Block t * B + b owns the WDX_TTEST_TILE positions from t * WDX_TTEST_TILE
+// on of row b: tiles are independent, so a row's tiles run side by side and
+// many blocks share an SM. Shared memory: the rsqrt table, then (staged)
+// xs, mean and ssd of a tile plus halo floats each (halo: what the windows
+// of a tile's last positions reach; their statistics are computed by both
+// neighbours). The first tile's block also writes the row's n_scores =
+// max(n_valid - 2w, 0).
 __global__ void __launch_bounds__(WDX_TTEST_THREADS)
     wdx_ttest_kernel(const float* __restrict__ x, const int* __restrict__ n_valid,
                      const int* __restrict__ width, const uint16_t* __restrict__ table,
-                     float* __restrict__ out, int* __restrict__ n_scores_out, int L, int w_max,
-                     int halo, int vector_access) {
+                     float* __restrict__ out, int* __restrict__ n_scores_out, int B, int L,
+                     int w_max, int halo, int staged, int vector_access) {
   extern __shared__ __align__(16) unsigned char wdx_ttest_shared[];
   uint16_t* tab = reinterpret_cast<uint16_t*>(wdx_ttest_shared);
   float* xs = reinterpret_cast<float*>(wdx_ttest_shared + WDX_TTEST_TABLE * sizeof(uint16_t));
   float* mean = xs + WDX_TTEST_TILE + halo;
   float* ssd = mean + WDX_TTEST_TILE + halo;
 
-  const int b = blockIdx.x;
-  const int base = blockIdx.y * WDX_TTEST_TILE;
+  const int b = (int)(blockIdx.x % (unsigned)B);
+  const int base = (int)(blockIdx.x / (unsigned)B) * WDX_TTEST_TILE;
   const float* x_tile = x + (long long)b * L + base;
   float* out_tile = out + (long long)b * L + base;
   const int n_out = min(WDX_TTEST_TILE, L - base);
@@ -251,6 +261,12 @@ __global__ void __launch_bounds__(WDX_TTEST_THREADS)
   }
 
   wdx_stage_rsqrt_table(table, tab);
+  if (!staged) {  // windows too wide for shared memory: read from device memory
+    __syncthreads();
+    for (int p = threadIdx.x; p < n_out; p += blockDim.x)
+      out_tile[p] = wdx_score_any_width(x_tile, p, w, w_max, n_scores, tab);
+    return;
+  }
   // the samples below the valid length, zeros up to what the windows of
   // the tile's scored positions can touch
   const int nv = max(row_valid - base, 0);
@@ -291,19 +307,26 @@ __global__ void __launch_bounds__(WDX_TTEST_THREADS)
 }
 
 // x, out: (B, L); n_valid, width, n_scores: (B,); table: the 2048 entries of
-// ops/_rsqrt_table.py.
+// ops/_rsqrt_table.py. Any w_max >= 0 and L: the tile staged in shared
+// memory where it fits with its halo, else the windows read from device
+// memory.
 WDX_API int wdx_ttest(const float* x, const int* n_valid, const int* width, const uint16_t* table,
                       float* out, int* n_scores, int B, int L, int w_max, cudaStream_t stream) {
   if ((long long)B * L == 0) return 0;
-  if (w_max < 0) return (int)cudaErrorInvalidValue;
-  const int halo = (2 * w_max + 3) / 4 * 4 + WDX_TTEST_PAD;
-  const long long shared_bytes = WDX_TTEST_TABLE * 2 + 4LL * 3 * (WDX_TTEST_TILE + halo);
-  const dim3 grid(B, (L + WDX_TTEST_TILE - 1) / WDX_TTEST_TILE);
-  if (shared_bytes > WDX_MAX_SHARED_BYTES || grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const int err = wdx_allow_shared(wdx_ttest_kernel, (int)shared_bytes);
-  if (err != 0) return err;
+  if (w_max < 0 || B < 0 || L < 0) return (int)cudaErrorInvalidValue;
+  const long long halo = (2LL * w_max + 3) / 4 * 4 + WDX_TTEST_PAD;
+  const long long staged_bytes = WDX_TTEST_TABLE * 2 + 4LL * 3 * (WDX_TTEST_TILE + halo);
+  const int staged = staged_bytes <= WDX_MAX_SHARED_BYTES;
+  const int shared_bytes = staged ? (int)staged_bytes : WDX_TTEST_TABLE * 2;
+  const long long blocks = (long long)B * (((long long)L + WDX_TTEST_TILE - 1) / WDX_TTEST_TILE);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;  // x and out of more than 8 TB each
+  if (staged) {
+    const int err = wdx_allow_shared(wdx_ttest_kernel, shared_bytes);
+    if (err != 0) return err;
+  }
   const int vector_access = L % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
-  wdx_ttest_kernel<<<grid, WDX_TTEST_THREADS, (int)shared_bytes, stream>>>(
-      x, n_valid, width, table, out, n_scores, L, w_max, halo, vector_access);
+  wdx_ttest_kernel<<<(unsigned)blocks, WDX_TTEST_THREADS, shared_bytes, stream>>>(
+      x, n_valid, width, table, out, n_scores, B, L, w_max, staged ? (int)halo : 0, staged,
+      vector_access);
   return (int)cudaGetLastError();
 }

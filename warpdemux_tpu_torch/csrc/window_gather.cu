@@ -12,7 +12,9 @@
 // 128-aligned superset window per row and rotates it in registers because
 // Mosaic needs aligned dynamic lane offsets.
 //
-// A 2-D grid (row, chunk of the window), no division an element. A thread
+// A grid of every chunk of every output row (row r's chunk c is block c *
+// B_out + r: the rows' first chunks first), so a window of any length runs
+// the same kernel; no division an element. A thread
 // writes WDX_GATHER_VECTORS vectors of 16 bytes, a block's threads
 // neighbouring vectors. Where the four samples of a vector lie inside the
 // row and below the length, they come from the two aligned 16-byte loads
@@ -35,7 +37,7 @@
 // One output element by the definition above (n_keep: the row's length,
 // or out_len without lengths; zero_fill: lengths were given).
 __device__ __forceinline__ float wdx_window_sample(const float* __restrict__ xr, int L,
-                                                   long long src, int j, int n_keep,
+                                                   long long src, long long j, int n_keep,
                                                    bool zero_fill) {
   if (zero_fill) return j < n_keep && src >= 0 && src < L ? xr[src] : 0.f;
   return xr[src < 0 ? 0 : (src > L - 1 ? L - 1 : src)];
@@ -44,18 +46,19 @@ __device__ __forceinline__ float wdx_window_sample(const float* __restrict__ xr,
 template <bool VEC>
 __global__ void __launch_bounds__(WDX_GATHER_THREADS)
     wdx_shift_rows_kernel(const float* __restrict__ x, const int* __restrict__ starts,
-                          const int* __restrict__ lengths, float* __restrict__ out, int B_x, int L,
-                          int out_len) {
-  const int r = blockIdx.x;
+                          const int* __restrict__ lengths, float* __restrict__ out, int B_x, int B_out,
+                          int L, int out_len) {
+  const int r = (int)(blockIdx.x % (unsigned)B_out);
+  const unsigned chunk = blockIdx.x / (unsigned)B_out;
   const float* xr = x + (long long)(r % B_x) * L;
   float* out_row = out + (long long)r * out_len;
   const int start = starts[r];
   const bool zero_fill = lengths != nullptr;
   const int n_keep = zero_fill ? min(lengths[r], out_len) : out_len;
-  const int first = blockIdx.y * (WDX_GATHER_THREADS * WDX_GATHER_VECTORS) + threadIdx.x;
+  const long long first = (long long)chunk * (WDX_GATHER_THREADS * WDX_GATHER_VECTORS) + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < WDX_GATHER_VECTORS; ++k) {
-    const int j0 = (first + k * WDX_GATHER_THREADS) * 4;
+    const long long j0 = (first + k * WDX_GATHER_THREADS) * 4;
     if (j0 >= out_len) return;
     const long long src = (long long)start + j0;
     if (VEC) {
@@ -94,15 +97,15 @@ WDX_API int wdx_shift_rows(const float* x, const int* starts, const int* lengths
                            int B_x, int B_out, int L, int out_len, cudaStream_t stream) {
   if ((long long)B_out * out_len == 0) return 0;
   if (L <= 0 || B_x <= 0 || B_out % B_x != 0) return (int)cudaErrorInvalidValue;
-  const int per_block = WDX_GATHER_THREADS * WDX_GATHER_VECTORS * 4;
-  const dim3 grid(B_out, (out_len + per_block - 1) / per_block);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const long long per_block = WDX_GATHER_THREADS * WDX_GATHER_VECTORS * 4;
+  const long long blocks = (long long)B_out * ((out_len + per_block - 1) / per_block);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;  // an output of more than 8 TB
   const bool vec = L % 4 == 0 && out_len % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
   if (vec)
-    wdx_shift_rows_kernel<true><<<grid, WDX_GATHER_THREADS, 0, stream>>>(x, starts, lengths, out,
-                                                                        B_x, L, out_len);
+    wdx_shift_rows_kernel<true><<<(unsigned)blocks, WDX_GATHER_THREADS, 0, stream>>>(
+        x, starts, lengths, out, B_x, B_out, L, out_len);
   else
-    wdx_shift_rows_kernel<false><<<grid, WDX_GATHER_THREADS, 0, stream>>>(x, starts, lengths, out,
-                                                                         B_x, L, out_len);
+    wdx_shift_rows_kernel<false><<<(unsigned)blocks, WDX_GATHER_THREADS, 0, stream>>>(
+        x, starts, lengths, out, B_x, B_out, L, out_len);
   return (int)cudaGetLastError();
 }

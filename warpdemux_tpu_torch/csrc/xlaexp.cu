@@ -4,8 +4,11 @@
 // rounded once (__fmul_rn, as torch and a jitted JAX function multiply a
 // Python float by a float32 array), then `wdx_xla_exp` of common.cuh,
 // Cephes with its multiply-adds as __fmaf_rn and subnormal results flushed
-// to zero. The SVM's kernel matrix exp(-gamma * D) is one launch a
-// classified batch (ops/svm.py `pdist_kernel`).
+// to zero (`wdx_xla_exp_scaled1`, common.cuh). The SVM's kernel matrix
+// exp(-gamma * D**pwr_dist) is one launch a classified batch where
+// pwr_dist != 1 (ops/svm.py `pdist_kernel`); at pwr_dist = 1, every shipped
+// bundle's, K1 stores exp(-gamma * D) itself with the same function
+// (ops/dtw.py `dtw_kernel_matrix`).
 //
 // Replaces no Pallas kernel: the JAX package leaves the exp to XLA
 // (warpdemux_tpu/ops/svm.py:184-189, jnp.exp(-gamma * Dp)); in torch
@@ -20,10 +23,6 @@
 
 constexpr int WDX_XLAEXP_THREADS = 256;
 constexpr int WDX_XLAEXP_ITEMS = 4;
-
-__device__ __forceinline__ float wdx_xla_exp_scaled1(float x, float scale) {
-  return wdx_xla_exp(__fmul_rn(scale, x));
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(WDX_XLAEXP_THREADS)

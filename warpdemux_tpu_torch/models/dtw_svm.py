@@ -2,9 +2,10 @@
 
 Port of warpdemux_tpu/models/dtw_svm.py as an nn.Module whose arrays are
 buffers: DTW distances against the support-vector fingerprints (kernel K1
-on CUDA), the exp kernel, one-vs-one decision values, Platt + Wu-Lin
-probabilities and the argmax / margin / threshold post-processing, for a
-whole minibatch at once.
+on CUDA), the exp kernel (stored by K1 itself at pwr_dist = 1, every
+shipped bundle's; K16 over the powered distances otherwise), one-vs-one
+decision values, Platt + Wu-Lin probabilities and the argmax / margin /
+threshold post-processing, for a whole minibatch at once.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from warpdemux_tpu_torch.models.base import Classifier
 from warpdemux_tpu_torch.ops import svm as svm_ops
-from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
+from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix, dtw_kernel_matrix
 
 
 class DTWSVMModel(Classifier):
@@ -55,10 +56,17 @@ class DTWSVMModel(Classifier):
     def fingerprint_len(self) -> int:
         return int(self.X_sv.shape[1])
 
+    def kernel_matrix(self, fpts: torch.Tensor) -> torch.Tensor:
+        """(B, m) fingerprints -> (B, n_sv) exp(-gamma * D**pwr_dist): one
+        launch of K1 at pwr_dist = 1, else K1 and K16 (`svm.pdist_kernel`)."""
+        if self.pwr_dist == 1:
+            return dtw_kernel_matrix(fpts, self.X_sv, self.window, self.penalty, self.gamma)
+        D = dtw_distance_matrix(fpts, self.X_sv, self.window, self.penalty)
+        return svm_ops.pdist_kernel(D, self.gamma, self.pwr_dist)
+
     def forward(self, fpts: torch.Tensor):
         """(B, m) fingerprints -> (pred (B,) int32, conf (B,), probs (B, k))."""
-        D = dtw_distance_matrix(fpts, self.X_sv, self.window, self.penalty)
-        K = svm_ops.pdist_kernel(D, self.gamma, self.pwr_dist)
+        K = self.kernel_matrix(fpts)
         probs = svm_ops.predict_proba(K, self.params)
         pred, conf = svm_ops.process_probs(probs, self.label_map, self.thresholds)
         return pred, conf, probs

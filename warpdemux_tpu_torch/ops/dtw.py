@@ -17,6 +17,11 @@ anti-diagonal wavefront, the same recurrence as the jnp version. Each cell
 is one fused multiply-add, (q_i - r_j)^2 + best, rounded once, as XLA:CPU
 contracts it; the minimum propagates NaN; the final square root is
 correctly rounded.
+
+`dtw_kernel_matrix` gives the SVM's kernel matrix exp(-gamma * D) of the
+same distances (pwr_dist = 1, every shipped bundle's), K1 storing XLA's
+exp (K16's element, csrc/common.cuh `wdx_xla_exp_scaled1`) in place of D:
+one launch, and no (B, N) pass of its own.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from warpdemux_tpu_torch import _cuda
-from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma
+from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma, xla_exp_plain
 
 
 # bytes of one block of query rows' (rows, N, m) float64 intermediates in
@@ -127,6 +132,27 @@ def dtw_distance_matrix(
     plain on CPU ones."""
     if not _cuda.on_cuda(X, Y):
         return dtw_distance_matrix_plain(X, Y, window, penalty)
+    return _k1(X, Y, window, penalty, variant, None)
+
+
+def dtw_kernel_matrix_plain(X, Y, window: int, penalty: float, gamma: float) -> torch.Tensor:
+    """The plain version of `dtw_kernel_matrix` (any device)."""
+    return xla_exp_plain(dtw_distance_matrix_plain(X, Y, window, penalty), -gamma)
+
+
+def dtw_kernel_matrix(X, Y, window: int, penalty: float, gamma: float, *, variant=None) -> torch.Tensor:
+    """The SVM's kernel matrix exp(-gamma * D) of the DTW distances, with
+    the bits of `svm.pdist_kernel(dtw_distance_matrix(...), gamma)`: on
+    CUDA tensors one launch of K1, which stores XLA's exp where it would
+    store D (`variant` as in `dtw_distance_matrix`); plain on CPU ones."""
+    if not _cuda.on_cuda(X, Y):
+        return dtw_kernel_matrix_plain(X, Y, window, penalty, gamma)
+    return _k1(X, Y, window, penalty, variant, -gamma)
+
+
+def _k1(X, Y, window, penalty, variant, exp_scale):
+    """One launch of K1 on CUDA tensors: the distances, or exp(exp_scale *
+    D) where exp_scale is not None."""
     B, m = X.shape
     N = Y.shape[0]
     if Y.shape[1] != m or m < 1:
@@ -147,5 +173,6 @@ def dtw_distance_matrix(
     _cuda.launch(
         "wdx_dtw", X.device, X.data_ptr(), Y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
         B, N, m, int(window), float(penalty * penalty), VARIANTS[kind], threads, slots,
+        exp_scale is not None, 0.0 if exp_scale is None else float(exp_scale),
     )
     return out

@@ -13,7 +13,7 @@ sums in the same association. K11 has no Pallas counterpart: the JAX
 package leaves these sums to XLA.
 
 K11 is bound by bytes: the span of a row its ranges cover, read once. It
-has two variants:
+has three variants:
 
 - the block kernel: one block a row, the span staged once in shared
   memory (int16 where the step calibrated, else float32), every touched
@@ -25,13 +25,17 @@ has two variants:
   and a second read of device memory for the squares.
 - the warp kernel (the first design): one warp a range and row, 32 windows
   staged at a time, for rows beyond the block kernel's shared memory.
+- the workspace kernel: the warp kernel with its window sums (level 1 and
+  every level above, as many as the row needs) in a global workspace the
+  wrapper allocates, for rows whose sums outgrow shared memory.
 
 The wrapper takes the block kernel where `block_shared_bytes(L, R,
 calibrated)` fits a block (`_cuda.MAX_SHARED_BYTES`): rows of up to 92,480
 samples calibrated and 51,456 float at three ranges (103,072 and 54,624 at
-one), and the warp kernel above, to 431,104 samples; a CUDA call beyond
-both raises ValueError. `variant="warp"` or `"block"` forces one (for
-timing both and holding both to the plain version).
+one); the warp kernel above, to 431,104 samples; the workspace kernel at
+any longer row. `variant="block"`, `"warp"` or `"global"` forces one (for
+timing them and holding each to the plain version); a forced kernel beyond
+its own rows, or a row of no samples, raises ValueError.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ _TILE_FLOATS = 32 * 33
 # ints a range of the block kernel keeps in shared memory (its bounds and
 # the touched entries of three levels), and its mean
 _RANGE_WORDS = 8 + 1
-VARIANTS = {"block": 0, "warp": 1}
+VARIANTS = {"block": 0, "warp": 1, "global": 2}
 
 
 def _check(x, starts, ends, calibration):
@@ -103,29 +107,40 @@ def block_shared_bytes(L: int, R: int, calibrated: bool) -> int:
     return a16(4 * R * _RANGE_WORDS) + a16(4 * R * (n1 + n2 + n3)) + 4 * n1 * (17 if calibrated else 33)
 
 
+def _kernel_shared_bytes(kind: str, L: int, R: int, calibrated: bool) -> int:
+    """Dynamic shared memory of K11's kernel `kind` at rows of L and R
+    ranges (0: the block kernel's tree would need a fourth level)."""
+    if kind == "block":
+        return block_shared_bytes(L, R, calibrated)
+    return shared_bytes(L) if kind == "warp" else WARPS * 4 * _TILE_FLOATS
+
+
+def takes(L: int, R: int, calibrated: bool, variant: str) -> bool:
+    """Whether K11's kernel `variant` serves rows of L samples at R ranges."""
+    return L > 0 and 0 < _kernel_shared_bytes(variant, L, R, calibrated) <= _cuda.MAX_SHARED_BYTES
+
+
 def _variant(L: int, R: int, calibrated: bool, variant):
     """(variant, shared bytes) of K11 for rows of L and R ranges: the block
-    kernel where its shared memory fits, else the warp kernel; `variant`
-    forces one. ValueError outside the domain."""
+    kernel where its shared memory fits, else the warp kernel where its
+    window sums fit, else the workspace kernel; `variant` forces one.
+    ValueError outside the domain."""
     if variant not in (None, *VARIANTS):
         raise ValueError(f"range_mean_std: variant must be one of {tuple(VARIANTS)}, got {variant!r}")
-    if L > 0:
-        block = block_shared_bytes(L, R, calibrated)
-        if variant in (None, "block") and 0 < block <= _cuda.MAX_SHARED_BYTES:
-            return "block", block
-        if variant in (None, "warp") and shared_bytes(L) <= _cuda.MAX_SHARED_BYTES:
-            return "warp", shared_bytes(L)
+    for kind in VARIANTS if variant is None else (variant,):
+        if takes(L, R, calibrated, kind):
+            return kind, _kernel_shared_bytes(kind, L, R, calibrated)
     raise ValueError(f"range_mean_std: rows of {L} samples are outside K11's domain"
                      + (f" ({variant} kernel)" if variant else ""))
 
 
 def range_mean_std(x, starts, ends, with_std: bool = True, calibration=None, *, variant=None):
     """`range_mean_std_plain`; K11 on CUDA, one launch for every range: the
-    block kernel where its shared memory fits, else the warp kernel
-    (`variant` forces one).
+    block kernel where its shared memory fits, else the warp kernel, else
+    the workspace kernel (`variant` forces one).
 
-    A CUDA call outside K11's domain (a row too long for the shared memory
-    of either) raises ValueError."""
+    A CUDA call with rows of no samples, or a forced kernel beyond its own
+    rows, raises ValueError."""
     tensors = (x, starts, ends) if calibration is None else (x, starts, ends, *calibration)
     if not _cuda.on_cuda(*tensors):
         return range_mean_std_plain(x, starts, ends, with_std, calibration)
@@ -146,10 +161,12 @@ def range_mean_std(x, starts, ends, with_std: bool = True, calibration=None, *, 
         scale = scale.to(torch.float32).contiguous()
     means = torch.empty((R, B), dtype=torch.float32, device=x.device)
     stds = torch.empty((R, B), dtype=torch.float32, device=x.device) if with_std else None
+    # the workspace kernel's window sums: ceil(L / 32) floats a range and row
+    ws = torch.empty(R * B * -(-L // 32), dtype=torch.float32, device=x.device) if kind == "global" else None
     ptr = lambda t: None if t is None else t.data_ptr()
     _cuda.launch(
         "wdx_rowstats", x.device, ptr(None if calibration is not None else x), ptr(adc), ptr(offset),
-        ptr(scale), starts.data_ptr(), ends.data_ptr(), means.data_ptr(), ptr(stds), R, B, L,
+        ptr(scale), starts.data_ptr(), ends.data_ptr(), means.data_ptr(), ptr(stds), ptr(ws), R, B, L,
         VARIANTS[kind], smem,
     )
     return means, stds

@@ -3,7 +3,9 @@
 Port of warpdemux_tpu/ops/svm.py:
 
 - kernel K = exp(-gamma * D**pwr_dist) over DTW distances, with XLA:CPU's
-  exp (`numerics.xla_exp`; kernel K16, csrc/xlaexp.cu, on CUDA),
+  exp (`numerics.xla_exp`; kernel K16, csrc/xlaexp.cu, on CUDA; at
+  pwr_dist = 1 the model's `kernel_matrix` has K1 store it instead,
+  `dtw.dtw_kernel_matrix`),
 - one-vs-one decision values: one (B, n_SV) x (n_SV, n_pairs) product
   against a coefficient matrix assembled from libsvm's dual coefficients,
   summed in the order of the jitted JAX product where that order is known,
@@ -66,7 +68,9 @@ def build_pair_coef(dual_coef: np.ndarray, n_support: np.ndarray) -> np.ndarray:
 
 def pdist_kernel(D: torch.Tensor, gamma: float = 1.0, pwr_dist: int = 1):
     """K = exp(-gamma * D**pwr_dist), XLA:CPU's exp; K16 (the product and
-    the exp, csrc/xlaexp.cu) on CUDA."""
+    the exp, csrc/xlaexp.cu) on CUDA. The SVM takes it at pwr_dist != 1
+    alone: at 1, `dtw.dtw_kernel_matrix` gives the same bits in K1's
+    launch."""
     Dp = D if pwr_dist == 1 else D**pwr_dist
     return numerics.xla_exp(Dp, -gamma)
 

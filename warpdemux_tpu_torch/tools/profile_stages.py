@@ -6,8 +6,9 @@ REPS = 8 calls after a warm-up, between two torch.cuda.synchronize() on the
 card, on utils/synthetic.synth_minibatch(default_rng(0), B, 10000):
 
 - vbz decode (ops/vbz_device, the reads packed with its numpy helpers),
-  detect (with the step's adc and calibration), fingerprint, dtw (B x 851),
-  svm proba (the exp kernel, the decision values and the probabilities);
+  detect (with the step's adc and calibration), fingerprint, dtw (B x 851:
+  the SVM's kernel matrix, the distances and their exp in one launch of K1
+  at pwr_dist = 1), svm proba (the decision values and the probabilities);
 - the fingerprint's sub-operations: extract_adapter_batch,
   clip_outliers_prefix, windowed_t_test, peak_mask_batch,
   suppress_by_distance, select_top_peaks, segment_means;
@@ -73,7 +74,6 @@ def stage_table(B: int = 1000, device=None, reps: int = REPS) -> StageTable:
     from warpdemux_tpu_torch.detect.boundaries import detect_boundaries_with_fallback
     from warpdemux_tpu_torch.models.registry import load_cnn, load_model
     from warpdemux_tpu_torch.ops import svm
-    from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
     from warpdemux_tpu_torch.ops.fingerprint import extract_adapter_batch, fingerprints_from_boundaries
     from warpdemux_tpu_torch.ops.normalize import clip_outliers_prefix
     from warpdemux_tpu_torch.ops.peaks import peak_mask_batch, select_top_peaks, suppress_by_distance
@@ -115,10 +115,8 @@ def stage_table(B: int = 1000, device=None, reps: int = REPS) -> StageTable:
     fail = torch.where(passed & ~fpt.ok, torch.full_like(det.fail_code, 10), det.fail_code)
     success = fail == 0
     fpts = torch.where(success[:, None], fpt.fpt, torch.zeros_like(fpt.fpt))
-    D = timeit(f"dtw (B x {model.X_sv.shape[0]})", dtw_distance_matrix, fpts, model.X_sv, model.window,
-               model.penalty)
-    probs = timeit("svm proba", lambda D: svm.predict_proba(svm.pdist_kernel(D, model.gamma, model.pwr_dist),
-                                                            model.params), D)
+    K = timeit(f"dtw (B x {model.X_sv.shape[0]})", model.kernel_matrix, fpts)
+    probs = timeit("svm proba", svm.predict_proba, K, model.params)
     pred, conf = svm.process_probs(probs, model.label_map, model.thresholds)
 
     # the fingerprint's sub-operations, on what the stage hands each
@@ -145,7 +143,6 @@ def stage_table(B: int = 1000, device=None, reps: int = REPS) -> StageTable:
 
     # the SVM's two kernels
     stages.append(Stage("---", 0.0, {}))
-    K = svm.pdist_kernel(D, model.gamma, model.pwr_dist)
     dec = timeit("  svm decision_values", svm.decision_values, K, model.params)
     timeit("  svm probabilities", svm.probabilities, dec, model.params)
     outputs = dict(pred=pred, conf=conf, probs=probs, fpt=fpt.fpt, fpt_ok=fpt.ok, success=success)

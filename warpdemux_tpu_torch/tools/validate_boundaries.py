@@ -95,7 +95,6 @@ def validate(batches, spc, model, cnn) -> Validation:
     and `cnn` (the BoundaryCNN of the `cnn` methods)."""
     from warpdemux_tpu_torch.detect.boundaries import detect_boundaries_batch, detect_boundaries_with_fallback
     from warpdemux_tpu_torch.ops import svm as svm_ops
-    from warpdemux_tpu_torch.ops.dtw import dtw_distance_matrix
     from warpdemux_tpu_torch.ops.fingerprint import fingerprints_from_boundaries
 
     device = model.X_sv.device
@@ -120,8 +119,7 @@ def validate(batches, spc, model, cnn) -> Validation:
                 fpt = fingerprints_from_boundaries(x, n, det.adapter_start, det.adapter_end, spc.fingerprint)
                 ok = det.success & fpt.ok
                 f = torch.where(ok[:, None], fpt.fpt, torch.zeros_like(fpt.fpt)).to(torch.float32)
-                D = dtw_distance_matrix(f, model.X_sv, model.window, model.penalty)
-                probs = svm_ops.predict_proba(svm_ops.pdist_kernel(D, model.gamma, model.pwr_dist), model.params)
+                probs = svm_ops.predict_proba(model.kernel_matrix(f), model.params)
                 p, _c = svm_ops.process_probs(probs, model.label_map, model.thresholds)
                 p = host(p).copy()
                 p[~host(ok)] = -2
