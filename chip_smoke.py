@@ -134,7 +134,13 @@ Phases (each raises on failure; nothing is caught):
    13 classes, at 1,000 and 100,000 rows). An
    empty launch is timed as called
    through `_cuda.launch` and through a launch that resolves the entry
-   point, the device context and the stream object every time.
+   point, the device context and the stream object every time. Fault K:
+   K11 (the mean and std) and K4 (the median and MAD) at one range a row
+   on the adapter buffer of B reads and NORM_EDGES (constant, MAD 0,
+   lengths 0-2, a single inf, -inf or NaN sample), bit for bit their
+   plain versions, NaN for NaN, timed beside them and their bounds; the
+   pre-normalization whole (`fingerprint.normalize_prefix`) against the
+   CPU.
 3. Three main paths of the WDX4 step on the first 256 reads of
    synthetic.synth_minibatch(default_rng(0), 1000, 10000), each run on the GPU
    with every launch count at 0 beforehand and read right after:
@@ -335,7 +341,20 @@ Phases (each raises on failure; nothing is caught):
    sig_preload_size at LONG_ROW_SAMPLES (450,000, past K11's warp kernel)
    on synth_minibatch(default_rng(0), 16, 450,000): at
    LAUNCHES["long_rows_adc_full"], all 16 rows agreeing as in b, the step's
-   ms as called printed.
+   ms as called printed;
+   d. sig_extract.normalization = "mean" and "median" (fault K), each
+   through: the WDX4 step, full outputs, on the adc feed (the B seed-0
+   reads and NORM_ADC_EDGES) and on the pa feed (NORM_ROWS reads ending in
+   NORM_EDGES: a single inf, -inf or NaN sample among them), every column
+   as in b, NaN for NaN, (success, pred) on every row; the tRNA step (adc,
+   full) on NORM_TRNA_ROWS reads of trna_minibatch; one micro-batch of the
+   live lane (NORM_LANE_ROWS reads, a constant one and one with a NaN
+   sample among them): ok, pred and fingerprints equal; one offline run of
+   one adc minibatch with the setting as `--export` gives it: its CSV
+   text the CPU run's. Each at its LAUNCHES pin (one more K11 or K4 a
+   fingerprint call than the path's "none" pin), the step's ms as called
+   printed; phase 5 counts each step's device operations beside the
+   "none" step's on the same rows.
 
 The line before last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -457,7 +476,22 @@ LAUNCHES = {"adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 0),
             "long_fingerprints_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
             "long_rows_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
             "dtw_svm_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 0),
-            "dtw_svm_pwr_dist_2_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1)}
+            "dtw_svm_pwr_dist_2_predict": (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1),
+            # phase 15d: sig_extract.normalization = "mean" / "median" (fault
+            # K): the paths' pins above with one more K11 ("mean") or K4
+            # ("median") a fingerprint call: the mRNA step on the adc and pa
+            # feeds (full outputs), the tRNA step (adc, full), a micro-batch of
+            # the live lane, the offline run's adc decision step
+            "mean_adc_full": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 4, 1, 1, 0, 0, 2, 0),
+            "median_adc_full": (1, 1, 1, 3, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "mean_pa_full": (1, 1, 1, 5, 3, 1, 2, 0, 0, 0, 4, 1, 1, 0, 0, 2, 0),
+            "median_pa_full": (1, 1, 1, 6, 3, 1, 2, 0, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "trna_mean_adc_full": (1, 1, 2, 2, 3, 1, 1, 1, 0, 1, 2, 1, 1, 0, 0, 2, 0),
+            "trna_median_adc_full": (1, 1, 2, 3, 3, 1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 2, 0),
+            "live_lane_mean": (1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0),
+            "live_lane_median": (1, 1, 1, 2, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 0),
+            "offline_mean_adc_decision": (1, 1, 1, 1, 3, 1, 2, 3, 0, 0, 3, 1, 1, 0, 0, 2, 0),
+            "offline_median_adc_decision": (1, 1, 1, 2, 3, 1, 2, 3, 0, 0, 2, 1, 1, 0, 0, 2, 0)}
 FAMILIES = ("dtw_mlp", "fpt_boost")
 RNA002_PATHS = ("rna002_adc_decision", "rna002_vbz_full")
 # device operations a step before K11 (`count_device_ops` on commit
@@ -740,6 +774,8 @@ def k4_edge_cases(with_nan=True):
         x[2, 7] = np.copysign(np.float32(np.nan), np.float32(-1))  # sorts below -inf
         x[3, 2], x[3, 3] = np.nan, -np.inf
         cases.append(("inf and NaN", x, i32([0, 1, 4], 6), i32([32, 31, 9], 6)))
+        x, n = norm_buffer(4)
+        cases.append(("the adapter buffer's edge rows, R = 1 (fault K)", x, np.zeros((1, len(n)), np.int32), n[None]))
     return cases
 
 
@@ -1126,7 +1162,87 @@ def k11_edge_cases():
         x, cal = calibrated(2, length)
         cases.append((f"adc L={length:,}, step ranges", x, cal, *k11_step_ranges(rng, 2, length)))
         cases.append((f"pa L={length:,}, whole row, halves, edges", x, None, *ranges(2, length)))
+    x, n = norm_buffer(4)
+    cases.append(("the adapter buffer's edge rows, R = 1 (fault K)", x, None, np.zeros((1, len(n)), np.int32), n[None]))
     return cases
+
+
+# fault K: sig_extract.normalization = "mean" / "median" (phase 2's K11
+# and K4 at R = 1 on the adapter buffer, phase 15d, the CPU tests against
+# JAX): edge rows made from a float read of the seed-0 batch: a constant
+# read, one whose samples are three quarters equal (MAD 0), reads of 0, 1
+# and 2 samples, and a single inf, -inf or NaN sample at NORM_SAMPLE, which
+# every synth_minibatch adapter covers (it spans [0, >= 2800)). The adc
+# feed carries no single non-finite sample: its edge rows (NORM_ADC_EDGES)
+# are a constant read, MAD 0, lengths 0, 1 and 2, a spike to -32768, half
+# the read saturated at 32767 and a read of two alternating levels
+NORM_METHODS = ("mean", "median")
+NORM_EDGES = ("constant", "MAD 0", "length 0", "length 1", "length 2", "inf sample", "-inf sample", "NaN sample")
+NORM_ADC_EDGES = ("constant", "MAD 0", "length 0", "length 1", "length 2", "spike", "saturated", "two levels")
+NORM_SAMPLE = 1500
+NORM_WIDTH = 6272  # the RNA004 adapter buffer (FingerprintConfig.buffer_len)
+NORM_ROWS = 256  # phase 15d's pa-feed step: the first NORM_ROWS - len(NORM_EDGES) reads, then NORM_EDGES
+NORM_TRNA_ROWS = 64  # phase 15d's tRNA step: reads of trna_minibatch
+NORM_LANE_ROWS = 32  # phase 15d's live-lane micro-batch (max_batch)
+NORM_OFFLINE_ROWS = 256  # phase 15d's offline run: one minibatch
+
+
+def norm_edge_row(kind, row, n):
+    """(row, length) of the float edge row `kind` made from `row` of n
+    samples."""
+    import numpy as np
+
+    row = np.array(row, np.float32)
+    if kind == "constant":
+        row[:] = 85.0
+    elif kind == "MAD 0":
+        row[np.arange(row.size) % 4 != 0] = 85.0
+    elif kind.startswith("length"):
+        n = int(kind.split()[1])
+    else:
+        row[NORM_SAMPLE] = {"inf sample": np.inf, "-inf sample": -np.inf, "NaN sample": np.nan}[kind]
+    return row, n
+
+
+def norm_edge_adc(kind, adc, n):
+    """(adc row, length) of the adc-feed edge row `kind` made from the int16
+    row `adc` of n samples."""
+    import numpy as np
+
+    adc = np.array(adc, np.int16)
+    if kind == "constant":
+        adc[:] = 724
+    elif kind == "MAD 0":
+        adc[np.arange(adc.size) % 4 != 0] = 724
+    elif kind.startswith("length"):
+        n = int(kind.split()[1])
+    elif kind == "spike":
+        adc[NORM_SAMPLE] = -32768
+    elif kind == "saturated":
+        adc[: adc.size // 2] = 32767
+    else:  # two levels
+        adc[:] = np.where(np.arange(adc.size) % 2 == 0, 700, 760)
+    return adc, n
+
+
+def norm_buffer(b, seed=0):
+    """(x (b + len(NORM_EDGES), NORM_WIDTH) float32, lengths int32): the
+    adapter buffer that K11 ("mean") and K4 ("median") take at R = 1, the
+    range [0, length) a row: the first NORM_WIDTH calibrated samples of b
+    seed reads at lengths from the seed (the whole buffer in the first),
+    then a row of each of NORM_EDGES made from the first read."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
+
+    rng = np.random.default_rng(seed)
+    adc, off, sc, _ = synth_minibatch(rng, b, L)
+    x = ((adc[:, :NORM_WIDTH].astype(np.float32) + off[:, None]) * sc[:, None]).astype(np.float32)
+    n = rng.integers(1, NORM_WIDTH + 1, b)
+    n[0] = NORM_WIDTH
+    edges = [norm_edge_row(kind, x[0], NORM_WIDTH) for kind in NORM_EDGES]
+    rows = np.concatenate([x, np.stack([r for r, _ in edges])])
+    return rows, np.concatenate([n, [k for _, k in edges]]).astype(np.int32)
 
 
 def k11_work(st, en, width, with_std, calibrated):
@@ -1237,6 +1353,54 @@ def check_k11(dev, card):
         *k11_work(st, en, L, True, True),
         library=lambda: torch.where(masks, x, 0.0).sum(-1),
     )
+
+
+def check_prenormalization(dev, card):
+    """Phase 2, fault K: K11 ("mean": the mean and std) and K4 ("median":
+    the median and MAD) at R = 1 on the adapter buffer of B seed reads and
+    NORM_EDGES (`norm_buffer(B)`), the range [0, length) a row, each bit for
+    bit its plain version on the card, NaN for NaN (K11 on every kernel that
+    takes the rows); each timed beside its plain version and its bound; then
+    `fingerprint.normalize_prefix` whole (the statistics and the
+    elementwise pass) on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch.ops import fingerprint, rowstats, select
+
+    x_np, n_np = norm_buffer(B)
+    x, n = torch.as_tensor(x_np, device=dev), torch.as_tensor(n_np, device=dev)
+    st, en = torch.zeros_like(n)[None], n[None]
+    rows, width = x.shape
+    stats = {
+        "K11 R=1, mean and std": (lambda v=None: rowstats.range_mean_std(x, st, en, variant=v),
+                                  lambda: rowstats.range_mean_std_plain(x, st, en), k11_work(st, en, width, True, False)),
+        "K4 R=1, median and MAD": (lambda v=None: select.range_median_mad(x, st, en),
+                                   lambda: select.range_median_mad_plain(x, st, en),
+                                   k4_work(st, en, width, (True,), True, False)),
+    }
+    for name, (kernel, plain, work) in stats.items():
+        want = plain()
+        variants = [v for v in rowstats.VARIANTS if rowstats.takes(width, 1, False, v)] if name.startswith("K11") else [None]
+        for v in variants:
+            got = kernel(v)
+            require(all(bits_equal(a, b) for a, b in zip(got, want)),
+                    f"fault K, {name} ({v or 'default'} kernel): differs from the plain version")
+        err = max(max_abs(a, b) for a, b in zip(kernel(), want))
+        ms, device_ms, plain_ms = time_ms(kernel), time_ms(kernel, queued=True), time_ms(plain, reps=3)
+        bound_ms, bound_by = bound(*work)
+        print(f"fault K, {name} on the adapter buffer ({rows} x {width}: {B} reads and {', '.join(NORM_EDGES)}): "
+              f"max_abs_err={err!r} (NaN where the plain version has NaN: {int(want[0].isnan().sum())} NaN "
+              f"statistics) on {', '.join(v or 'the default' for v in variants)} kernel(s); kernel_ms={ms!r} "
+              f"device_ms={device_ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} by {bound_by} "
+              f"share={bound_ms / device_ms!r} on {card}")
+    for method in NORM_METHODS:
+        got = fingerprint.normalize_prefix(x, n, method).cpu()
+        want = fingerprint.normalize_prefix(x.cpu(), n.cpu(), method)
+        require(bits_equal(got, want), f"fault K: normalize_prefix({method!r}) on the card differs from the CPU")
+        print(f"fault K, normalize_prefix({method!r}) on the adapter buffer: the card's bits the CPU's, "
+              f"{int(got.isnan().any(1).sum())} rows with NaN, {int(got.isinf().any(1).sum())} with inf; "
+              f"{time_ms(lambda: fingerprint.normalize_prefix(x, n, method))!r} ms as called on {card}")
 
 
 # the model families' widths (phase 9): no bundle ships, so their arrays
@@ -2630,6 +2794,7 @@ def check_kernels(dev, card):
     results["wdx_xla_softmax"] = check_k15(dev, card)
     results["wdx_llr_split"] = check_llr_split(dev, card)
     results["wdx_xla_exp_scaled"] = check_k16(dev, card)
+    check_prenormalization(dev, card)
     return results
 
 
@@ -2751,9 +2916,9 @@ def _tolerance(name, is_int):
 def _compare_full(gpu, cpu, exact_rows=None):
     """Rows agreeing exactly on every integer, median and MAD column (and
     where `exact_rows`, a (B,) bool of rows agreeing on other columns, says
-    so); the other floats must be within tolerance. The fingerprint columns
-    are held where the fingerprint succeeded (an empty adapter's
-    changepoints are unspecified)."""
+    so), NaN for NaN; the other floats must be within tolerance, NaN where
+    the CPU has NaN. The fingerprint columns are held where the fingerprint
+    succeeded (an empty adapter's changepoints are unspecified)."""
     import numpy as np
 
     from warpdemux_tpu_torch.pipeline.schema import PackSchema
@@ -2770,10 +2935,12 @@ def _compare_full(gpu, cpu, exact_rows=None):
         g = gpu_cols[name]
         rows = ok if name == "dwell" or name.startswith(("fpt", "adapter_dt_", "adapter_event_")) else np.ones(n, bool)
         tol = _tolerance(name, name in schema.int_slices)
+        both_nan = np.isnan(g) & np.isnan(c)
         if tol is None:
-            same &= ~((g != c).reshape(n, -1).any(1) & rows)
+            same &= ~(((g != c) & ~both_nan).reshape(n, -1).any(1) & rows)
         else:
-            bad = (np.abs(g - c) > tol[1] + tol[0] * np.abs(c)).reshape(n, -1).any(1) & rows
+            off = (np.abs(g - c) > tol[1] + tol[0] * np.abs(c)) | (np.isnan(g) != np.isnan(c))
+            bad = off.reshape(n, -1).any(1) & rows
             require(not bad.any(), f"vbz full: column {name} off tolerance on rows {np.nonzero(bad)[0][:10]}")
     return int(same.sum())
 
@@ -2799,9 +2966,13 @@ def captured_kernel_calls():
     recorded as {launch-count key: (wrapper, args, plain version)}: the
     arguments the lane program gives each kernel (K1's: the SVM's kernel
     matrix, which it stores with its exp)."""
-    from warpdemux_tpu_torch.models import dtw_svm
-    from warpdemux_tpu_torch.ops import dtw, fingerprint, normalize, peaks, segmentation, select, svm, window_gather
+    import importlib
 
+    from warpdemux_tpu_torch.models import dtw_svm
+    from warpdemux_tpu_torch.ops import dtw, fingerprint, peaks, segmentation, select, svm, window_gather
+
+    # the module: the package exports the function `normalize` under its name
+    normalize = importlib.import_module("warpdemux_tpu_torch.ops.normalize")
     sites = (  # (module that calls it, name there, key, plain version)
         (fingerprint, "shift_rows", "wdx_shift_rows", window_gather.shift_rows_plain),
         (normalize, "range_median_mad", "wdx_range_median_mad", select.range_median_mad_plain),
@@ -3019,11 +3190,13 @@ def device_busy_ms(fn):
     return busy_us(prof.events()) / 1e3
 
 
-def count_step_ops(steps, lane_program, offline_run, trna, rna002):
+def count_step_ops(steps, lane_program, offline_run, trna, rna002, norm):
     """Device operations a step of each path on phase 3's rows, of each
     tRNA path on phase 8's (`trna`: (steps, rows)), of each RNA002 path on
-    phase 9's (`rna002`), and of one micro-batch of the live lane; the
-    device's busy time in phase 7's run a. Run last:
+    phase 9's (`rna002`), of each step of phase 15d (`norm`: {path: (step,
+    rows, the step of "none")}) beside the step of "none" on its rows, and
+    of one micro-batch of the live lane; the device's busy time in phase
+    7's run a. Run last:
     once the profiler has been attached, every launch costs the host
     more."""
     import numpy as np
@@ -3055,6 +3228,11 @@ def count_step_ops(steps, lane_program, offline_run, trna, rna002):
         check(path, f"{RNA002_MODELS[0]} {path} step",
               count_device_ops(rna002_steps[path], vbz_batch(*rna002_rows) if "vbz" in path else rna002_rows))
     check("live_lane", "live lane program, B=16 (a micro-batch)", count_device_ops(lane_program, ()))
+    for path, (step, rows, base) in norm.items():
+        n_ops, n_base = count_device_ops(step, rows), count_device_ops(base, rows)
+        require(n_ops > 0, f"{path}: the profiler recorded no device operation")
+        print(f"{path} step, B={len(rows[-1])}: {n_ops} device operations, {n_base} with "
+              f"sig_extract.normalization='none' on the same rows ({n_ops - n_base:+d})")
     run, wall_ms = offline_run
     busy = device_busy_ms(run)
     require(busy > 0, "offline run: the profiler recorded no device operation")
@@ -4048,6 +4226,151 @@ def run_wide_shapes(dev, card):
     return by_path
 
 
+def norm_spc(spc, method):
+    """`spc` with sig_extract.normalization = `method`."""
+    import dataclasses
+
+    return dataclasses.replace(spc, fingerprint=dataclasses.replace(spc.fingerprint, extract_normalization=method))
+
+
+def norm_rows(b=None, n_pa=None):
+    """Phase 15d's rows: the adc feed's (b seed-0 reads, B by default, then
+    NORM_ADC_EDGES made from the first) and the pa feed's (the first n_pa -
+    len(NORM_EDGES) reads calibrated, n_pa NORM_ROWS by default, then
+    NORM_EDGES)."""
+    import numpy as np
+
+    from warpdemux_tpu_torch.utils.synthetic import synth_minibatch
+
+    b, n_pa = b or B, n_pa or NORM_ROWS
+    adc, off, sc, lens = synth_minibatch(np.random.default_rng(0), b, L)
+    edges = [norm_edge_adc(kind, adc[0], L) for kind in NORM_ADC_EDGES]
+    k = len(edges)
+    adc_rows = (np.concatenate([adc, np.stack([a for a, _ in edges])]), np.concatenate([off, np.repeat(off[:1], k)]),
+                np.concatenate([sc, np.repeat(sc[:1], k)]),
+                np.concatenate([lens, [n for _, n in edges]]).astype(np.int32))
+    m = n_pa - len(NORM_EDGES)
+    x = ((adc[:m].astype(np.float32) + off[:m, None]) * sc[:m, None]).astype(np.float32)
+    rows = [norm_edge_row(kind, x[0], L) for kind in NORM_EDGES]
+    pa_rows = (np.concatenate([x, np.stack([r for r, _ in rows])]),
+               np.concatenate([lens[:m], [n for _, n in rows]]).astype(np.int32))
+    return adc_rows, pa_rows
+
+
+def run_prenormalization(dev, card):
+    """Phase 15d: sig_extract.normalization = "mean" and "median" (fault
+    K) through every path on the card against the CPU, each path at its
+    LAUNCHES pin: the WDX4 step on the adc feed, full outputs, on the B
+    seed-0 reads and NORM_ADC_EDGES, and on the pa feed on NORM_ROWS reads
+    ending in NORM_EDGES (every column as phase 3b compares it, NaN for
+    NaN, and (success, pred) on every row); the tRNA step (adc feed, full
+    outputs) on NORM_TRNA_ROWS reads of trna_minibatch; one micro-batch of
+    the live lane at max_batch NORM_LANE_ROWS (the replay reads, a constant
+    read and one with a NaN sample); one offline run of one adc minibatch
+    (NORM_OFFLINE_ROWS rows ending in NORM_ADC_EDGES) with the setting
+    given as `--export` takes it, its CSV text equal to a CPU run's.
+    Returns (launch counts by path, {path: (card step, its rows, the card
+    step of sig_extract.normalization = "none")} for phase 5)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from warpdemux_tpu_torch import _cuda
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config, parse_export_overrides
+    from warpdemux_tpu_torch.live.balancer import BalancerConfig, BarcodeBalancers
+    from warpdemux_tpu_torch.live.session import Session, SessionConfig
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.run import demux_minibatches
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    adc_rows, pa_rows = norm_rows()
+    trna = trna_minibatch(np.random.default_rng(0), NORM_TRNA_ROWS)[:4]
+    models = {d: {m: load_model(m, d) for m in (MODEL, TRNA_MODEL)} for d in (dev, "cpu")}
+    lane_reads = [cut for _, cut in live_lane_reads(models["cpu"][MODEL].X_sv.numpy(), NORM_LANE_ROWS - 2)]
+    lane_reads += [np.full_like(lane_reads[0], 85.0), lane_reads[0].copy()]
+    lane_reads[-1][NORM_SAMPLE % len(lane_reads[-1])] = np.nan
+    by_path, timed = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    for method in NORM_METHODS:
+        for path, model, feed, rows in ((f"{method}_adc_full", MODEL, "adc", adc_rows),
+                                        (f"{method}_pa_full", MODEL, "pa", pa_rows),
+                                        (f"trna_{method}_adc_full", TRNA_MODEL, "adc", trna)):
+            spc = norm_spc(get_model_spc_config(model), method)
+            steps = [make_demux_step(models[d][model], spc, input_format=feed, outputs="full", device=d)
+                     for d in (dev, "cpu")]
+            out, by_path[path] = _drive(path, steps[0], rows)
+            ref = steps[1](*rows)
+            n = len(rows[-1])
+            exact = (out.cons_i.cpu() == ref.cons_i).all(1).numpy() if out.cons_i is not None else None
+            same = _compare_full(out, ref, exact_rows=exact)
+            decided = all(np.array_equal(getattr(out, c).cpu().numpy(), getattr(ref, c).numpy())
+                          for c in ("success", "pred"))
+            t0 = time.perf_counter()
+            for _ in range(5):
+                steps[0](*rows)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            print(f"{path} (sig_extract.normalization={method!r}, B={n}): rows agreeing GPU vs CPU on every int, "
+                  f"median, MAD, mean and std column, NaN for NaN, {same}/{n}; (success, pred) equal on "
+                  f"every row: {decided}; passes {int(ref.success.sum())}, fingerprints ok "
+                  f"{int(ref.unpack().fpt.ok.sum())}; {ms!r} ms a step as called on {card}")
+            require(same == n and decided, f"{path}: GPU and CPU steps disagree")
+            base = make_demux_step(models[dev][model], get_model_spc_config(model), input_format=feed,
+                                   outputs="full", device=dev)
+            timed[path] = (steps[0], rows, base)
+
+        path = f"live_lane_{method}"
+        sessions = []
+        for d in (dev, "cpu"):
+            cfg = SessionConfig(model_name=MODEL, save_path=tmp.name, run_id=f"{method}{d}", max_batch=NORM_LANE_ROWS)
+            balancers = BarcodeBalancers.from_configs(4, [BalancerConfig(balance_type="adapter_count")], [1.0],
+                                                      n_channels=126)
+            sessions.append(Session(None, cfg, balancers, model=models[d][MODEL], device=d,
+                                    spc=norm_spc(get_model_spc_config(MODEL), method)))
+        _cuda.reset_launches()
+        got = sessions[0]._classify_on_device(lane_reads)
+        torch.cuda.synchronize()
+        by_path[path] = dict(_cuda.launches)
+        require(by_path[path] == dict(zip(KERNELS, LAUNCHES[path])), f"{path}: launches {by_path[path]}")
+        want = sessions[1]._classify_on_device(lane_reads)
+        for s in sessions:
+            s.reporter.close()
+        k = int(want.ok.sum())
+        lane_same = (np.array_equal(got.ok, want.ok) and np.array_equal(got.pred[:k], want.pred[:k])
+                     and bits_equal(torch.from_numpy(got.fpt), torch.from_numpy(want.fpt)))
+        print(f"{path}: one micro-batch of {len(lane_reads)} reads (a constant read and a NaN sample among them): "
+              f"launches {by_path[path]}; ok, pred and fingerprints (NaN for NaN) equal GPU vs CPU: {lane_same}; "
+              f"{k} kept; max |conf gpu - cpu| {float(np.abs(got.conf[:k] - want.conf[:k]).max(initial=0.0))!r}")
+        require(lane_same, f"{path}: GPU and CPU disagree")
+
+        path = f"offline_{method}_adc_decision"
+        m = NORM_OFFLINE_ROWS - len(NORM_ADC_EDGES)
+        rows = tuple(np.concatenate([a[:m], a[B:]]) for a in adc_rows)
+        read_ids = np.array([f"read{i:04d}" for i in range(NORM_OFFLINE_ROWS)], object)
+        spc = get_model_spc_config(MODEL, parse_export_overrides([f"sig_extract.normalization={method}"]))
+        require(spc.fingerprint.extract_normalization == method, f"{path}: --export did not reach the config")
+        dirs = {}
+        for d in (dev, "cpu"):
+            dirs[d] = f"{tmp.name}/{path}_{d}"
+            cfg = dataclasses.replace(offline_config(dirs[d], "adc", False, NORM_OFFLINE_ROWS), sig_proc=spc)
+            _cuda.reset_launches()
+            stats = demux_minibatches(cfg, models[d][MODEL], offline_batches([rows], read_ids, "adc"), device=d)
+            if d == dev:
+                torch.cuda.synchronize()
+                by_path[path] = dict(_cuda.launches)
+            check_offline_run(dirs[d], stats, read_ids, False)
+        require(by_path[path] == dict(zip(KERNELS, LAUNCHES[path])), f"{path}: launches {by_path[path]}")
+        texts = [shard_texts(dirs[d]) for d in (dev, "cpu")]
+        print(f"{path} (--export sig_extract.normalization={method}): {NORM_OFFLINE_ROWS} reads in one minibatch, "
+              f"{stats.passed} pass, {stats.failed} fail; launches {by_path[path]}; its {len(texts[0])} CSV shards "
+              f"equal the CPU run's as text: {texts[0] == texts[1]}")
+        require(texts[0] == texts[1], f"{path}: the card's CSV text differs from the CPU run's")
+    tmp.cleanup()
+    return by_path, timed
+
+
 def run_trainers(dev, card):
     """Phase 12: the trainers of warpdemux_tpu_torch/tools/ on the card.
     Returns the launch counts by path. Writes nothing under the repository
@@ -4498,6 +4821,8 @@ def main() -> int:
     steps = _steps(dev)
     by_path = run_main_paths(dev, steps)
     by_path.update(run_wide_shapes(dev, card))
+    norm_counts, norm_steps = run_prenormalization(dev, card)
+    by_path.update(norm_counts)
     rng = np.random.default_rng(0)
     step_rates = time_throughput(steps, card, PATHS, [synth_minibatch(rng, B, L) for _ in range(4)])
     offline_counts, offline_run = run_offline_loop(dev, card, step_rates)
@@ -4510,7 +4835,7 @@ def main() -> int:
     by_path.update(run_trainers(dev, card))
     by_path["live_lane"], lane_program = run_live_lane(dev, card)
     by_path.update(run_worker_processes(card))
-    count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows))
+    count_step_ops(steps, lane_program, offline_run, (trna_steps, trna_rows), (rna002_steps, rna002_rows), norm_steps)
     run_profiling_tools(dev, card)
     by_path.update(run_tool_process(card))
 

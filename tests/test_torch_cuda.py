@@ -27,6 +27,8 @@ from chip_smoke import (  # noqa: E402
     K12_SHAPES,
     K2_LONG_CASES,
     LAUNCHES,
+    NORM_METHODS,
+    _compare_full,
     k1_variants,
     k2_long_case,
     k5_long_case,
@@ -48,6 +50,9 @@ from chip_smoke import (  # noqa: E402
     RNA002_MODELS,
     live_bucket_batches,
     live_lane_reads,
+    norm_buffer,
+    norm_rows,
+    norm_spc,
     check_worker_runs,
     offline_batches,
     offline_config,
@@ -1247,3 +1252,62 @@ def test_k16_on_every_float32_bit_pattern(dev):
     for c in range(64):
         x = torch.arange(c << 26, (c + 1) << 26, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
         assert _same_or_both_nan(numerics.xla_exp(x, -1.0), numerics.xla_exp_plain(x, -1.0)), c
+
+
+@pytest.mark.parametrize("method", NORM_METHODS)
+def test_k11_and_k4_at_one_range_on_the_adapter_buffer(dev, method):
+    """Fault K: the statistics of sig_extract.normalization at R = 1 on the
+    (B, 6272) adapter buffer of 64 bench reads and chip_smoke.NORM_EDGES
+    (constant, MAD 0, lengths 0-2, a single inf, -inf or NaN sample), the
+    kernel bit for bit its plain version, NaN for NaN (K11 on every kernel
+    that takes the rows); normalize_prefix whole against the CPU."""
+    from warpdemux_tpu_torch.ops import fingerprint
+
+    x_np, n_np = norm_buffer(64)
+    x, n = torch.as_tensor(x_np, device=dev), torch.as_tensor(n_np, device=dev)
+    st, en = torch.zeros_like(n)[None], n[None]
+    if method == "mean":
+        want = rowstats.range_mean_std_plain(x, st, en)
+        key = "wdx_rowstats"
+        variants = [v for v in rowstats.VARIANTS if rowstats.takes(x.shape[1], 1, False, v)]
+        runs = [lambda v=v: rowstats.range_mean_std(x, st, en, variant=v) for v in (None, *variants)]
+    else:
+        want = select.range_median_mad_plain(x, st, en)
+        key = "wdx_range_median_mad"
+        runs = [lambda: select.range_median_mad(x, st, en)]
+    for run in runs:
+        got = _launched(key, run)
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan())
+            assert torch.equal(g.nan_to_num().view(torch.int32), w.nan_to_num().view(torch.int32))
+    assert want[0].isnan().any() and not want[0].isnan().all()
+    got = fingerprint.normalize_prefix(x, n, method).cpu()
+    ref = fingerprint.normalize_prefix(x.cpu(), n.cpu(), method)
+    assert torch.equal(got.isnan(), ref.isnan()) and torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+@pytest.mark.parametrize("feed", ["adc", "pa"])
+@pytest.mark.parametrize("method", NORM_METHODS)
+def test_the_step_with_sig_extract_normalization(dev, method, feed):
+    """Fault K: the WDX4 step, full outputs, with sig_extract.normalization
+    = "mean" / "median" on 56 bench reads and the feed's edge rows
+    (chip_smoke.NORM_ADC_EDGES, NORM_EDGES), card against CPU as
+    chip_smoke.py phase 15d compares them, at its launch pin."""
+    from warpdemux_tpu_torch.config.utils import get_model_spc_config
+    from warpdemux_tpu_torch.models.registry import load_model
+    from warpdemux_tpu_torch.pipeline.step import make_demux_step
+
+    adc_rows, pa_rows = norm_rows(56, 64)
+    rows = adc_rows if feed == "adc" else pa_rows
+    spc = norm_spc(get_model_spc_config(MODEL), method)
+    gpu, cpu = (make_demux_step(load_model(MODEL, d), spc, input_format=feed, outputs="full", device=d)
+                for d in (dev, "cpu"))
+    _cuda.reset_launches()
+    out = gpu(*rows)
+    torch.cuda.synchronize()
+    path = f"{method}_{feed}_full"
+    assert _cuda.launches == dict(zip(_cuda.launches, LAUNCHES[path]))
+    ref = cpu(*rows)
+    assert _compare_full(out, ref) == len(rows[-1])
+    for name in ("success", "pred"):
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name))

@@ -15,6 +15,7 @@ the tests skip where that is not the table the port carries (as
 tests/test_torch_xla_rsqrt.py does).
 """
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -112,7 +113,8 @@ def test_lane_program_launches_each_kernel_of_its_path_once(monkeypatch, tmp_pat
 
     monkeypatch.setattr("warpdemux_tpu_torch.ops.fingerprint.shift_rows",
                         spy("wdx_shift_rows", window_gather.shift_rows_plain))
-    monkeypatch.setattr("warpdemux_tpu_torch.ops.normalize.range_median_mad",
+    # the module: the package exports the function `normalize` under its name
+    monkeypatch.setattr(importlib.import_module("warpdemux_tpu_torch.ops.normalize"), "range_median_mad",
                         spy("wdx_range_median_mad", select.range_median_mad_plain))
     monkeypatch.setattr(segmentation, "windowed_t_test",
                         spy("wdx_ttest", lambda *a: (segmentation.windowed_t_test_plain(*a),

@@ -1,9 +1,13 @@
 """The PyTorch port stands alone: no module of warpdemux_tpu_torch, and
 neither of the GPU scripts at the repository root, imports jax, the JAX
 package or the JAX package's benchmark (the root bench.py), and the
-package loads with jax unavailable."""
+package loads with jax unavailable. Importing a subpackage (and with it
+the names its __init__.py exports) pulls in neither jax, the JAX package
+nor the optional dependencies that the pod5 reader, the VBZ codec and the
+CSV writers import inside their functions."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +18,8 @@ PKG = Path(__file__).resolve().parents[1] / "warpdemux_tpu_torch"
 SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "tune_kernels.py"]
 MODULES = sorted(PKG.rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "warpdemux_tpu", "bench")
+SUBPACKAGES = sorted(".".join(p.parent.relative_to(PKG.parent).parts) for p in PKG.rglob("__init__.py"))
+NOT_AT_IMPORT = ("jax", "warpdemux_tpu", "pyarrow", "pandas", "zstandard")
 
 
 def _imported_roots(path):
@@ -31,6 +37,28 @@ def _imported_roots(path):
 def test_module_imports_neither_jax_nor_the_jax_package(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.fixture(scope="module")
+def pulled_in():
+    """{subpackage: the modules of NOT_AT_IMPORT loaded once it and those
+    before it are imported}, in one fresh interpreter."""
+    code = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for sub in {SUBPACKAGES!r}:\n"
+        "    importlib.import_module(sub)\n"
+        f"    out[sub] = [m for m in {NOT_AT_IMPORT!r} if m in sys.modules]\n"
+        "print(json.dumps(out))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_importing_a_subpackage_pulls_in_no_optional_dependency(pulled_in, sub):
+    assert pulled_in[sub] == [], f"importing {sub} loads {pulled_in[sub]}"
 
 
 # what the GPU host lacks: jax and the JAX package, the optional

@@ -7,3 +7,5 @@ PyTorch version, CUDA tensors take the kernel. The package never imports
 jax or warpdemux_tpu; it reads the reference package's data files (model
 bundles, CNN weights, chemistry TOMLs) by path.
 """
+
+__version__ = "0.1.0"

@@ -71,6 +71,11 @@ def _deep_merge(base: dict, overlay: dict) -> dict:
     return out
 
 
+def apply_overrides(spc_dict: dict, overrides: dict) -> dict:
+    """A chemistry dict with `overrides` merged in, section by section."""
+    return _deep_merge(spc_dict, overrides)
+
+
 def _read_toml(path: Path) -> dict:
     with open(path, "rb") as f:
         return tomllib.load(f)

@@ -59,7 +59,7 @@ from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.config.sig_proc import DetectConfig
 from warpdemux_tpu_torch.detect import cnn as cnn_mod
 from warpdemux_tpu_torch.detect.containers import DetectArrays
-from warpdemux_tpu_torch.ops.normalize import masked_median
+from warpdemux_tpu_torch.ops.normalize import sorted_median
 from warpdemux_tpu_torch.ops.numerics import BLOCK, fma, prefix_sums, xla_log_plain
 from warpdemux_tpu_torch.ops.rowstats import range_mean_std
 from warpdemux_tpu_torch.ops.select import range_median_mad, range_medians_adc
@@ -682,7 +682,7 @@ def _local_range_median(xds, adapter_start, adapter_end, cfg: DetectConfig):
     lo = -pool(torch.where(admask, -xds, ninf))
     ok = admask[:, : hi.shape[1]] & admask[:, wds - 1 :]
     local = torch.where(ok, hi - lo, torch.full_like(hi, float("nan"))).nan_to_num(nan=0.0)
-    return masked_median(local, ok)
+    return sorted_median(local, ok)
 
 
 def check_resolve_limit(cfg: DetectConfig, limit: int) -> None:

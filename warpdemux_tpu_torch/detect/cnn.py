@@ -31,7 +31,7 @@ from torch import nn
 
 from warpdemux_tpu_torch._cuda import resolve_device
 from warpdemux_tpu_torch.config import utils as config_utils
-from warpdemux_tpu_torch.ops.normalize import masked_median
+from warpdemux_tpu_torch.ops.normalize import sorted_median
 from warpdemux_tpu_torch.ops.numerics import _sequential_sum, fma, full_float32
 
 
@@ -164,9 +164,9 @@ def preprocess(signals: torch.Tensor, in_lens: torch.Tensor, ds: int):
     inv = torch.tensor(_inverse(ds), dtype=torch.float32, device=signals.device)
     pos = torch.arange(sums.shape[1], device=signals.device)
     valid = pos[None, :] < (in_lens // ds)[:, None]
-    med = masked_median(sums * inv, valid)
+    med = sorted_median(sums * inv, valid)
     dev = fma(sums, inv, -med[:, None])
-    mad = masked_median(dev.abs(), valid)
+    mad = sorted_median(dev.abs(), valid)
     xn = dev / torch.clamp_min(mad[:, None], 1e-3)
     return torch.where(valid, xn, torch.zeros_like(xn)), valid
 

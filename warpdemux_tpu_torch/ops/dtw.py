@@ -22,14 +22,36 @@ correctly rounded.
 same distances (pwr_dist = 1, every shipped bundle's), K1 storing XLA's
 exp (K16's element, csrc/common.cuh `wdx_xla_exp_scaled1`) in place of D:
 one launch, and no (B, N) pass of its own.
+
+`distance_matrix_to` is the reference's drop-in (numpy in, numpy out);
+`dtw_distance_ref` / `dtw_distance_matrix_ref` the scalar float64 golden
+reference of the same recurrence.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from warpdemux_tpu_torch import _cuda
 from warpdemux_tpu_torch.ops.numerics import exact_sqrt, fma, xla_exp_plain
+
+
+def dtw_distance_ref(s1: np.ndarray, s2: np.ndarray, window: int, penalty: float) -> float:
+    """Scalar golden-reference banded DTW (numpy, float64)."""
+    r, c = len(s1), len(s2)
+    p = penalty * penalty
+    D = np.full((r + 1, c + 1), np.inf)
+    D[0, 0] = 0.0
+    for i in range(r):
+        for j in range(max(0, i - max(0, r - c) - window + 1), min(c, i + max(0, c - r) + window)):
+            D[i + 1, j + 1] = (s1[i] - s2[j]) ** 2 + min(D[i, j], D[i, j + 1] + p, D[i + 1, j] + p)
+    return float(np.sqrt(D[r, c]))
+
+
+def dtw_distance_matrix_ref(X: np.ndarray, Y: np.ndarray, window: int, penalty: float) -> np.ndarray:
+    """Golden-reference cross distance matrix (numpy float64, slow)."""
+    return np.array([[dtw_distance_ref(x, y, window, penalty) for y in Y] for x in X], np.float64).reshape(len(X), len(Y))
 
 
 # bytes of one block of query rows' (rows, N, m) float64 intermediates in
@@ -176,3 +198,15 @@ def _k1(X, Y, window, penalty, variant, exp_scale):
         exp_scale is not None, 0.0 if exp_scale is None else float(exp_scale),
     )
     return out
+
+
+def distance_matrix_to(X, Y, window: int = 15, penalty: float = 0.1, block_size=None, n_jobs=None,
+                       device=None, **_ignored) -> np.ndarray:
+    """The reference's `distance_matrix_to` (warpdemux/parallel_distances.py):
+    the (len(X), len(Y)) float32 banded DTW distances as a numpy array. One
+    launch of K1 on the card unless `device` names another ("cpu": the
+    plain version); block_size and n_jobs are taken for the reference's
+    signature and not used."""
+    dev = _cuda.resolve_device(device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return dtw_distance_matrix(as_t(X), as_t(Y), window, penalty).cpu().numpy()

@@ -5,10 +5,13 @@ Port of warpdemux_tpu/ops/fingerprint.py. `fingerprints_from_boundaries`:
 1. adapter extraction with padding into a fixed (B, buffer_len) buffer
    (kernel K5 on CUDA),
 2. outlier clipping to median +/- thresh * MAD (kernel K4),
-3. event segmentation into num_events changepoints (kernels K2, K3),
-4. mean/std normalization of the event means,
-5. fingerprint = the last barcode_num_events normalized event means,
-6. adapter event statistics.
+3. the pre-normalization of sig_extract.normalization ("none" in the
+   shipped chemistries): (x - mean) / std of the valid samples ("mean",
+   kernel K11) or (x - median) / MAD ("median", kernel K4),
+4. event segmentation into num_events changepoints (kernels K2, K3),
+5. mean/std normalization of the event means,
+6. fingerprint = the last barcode_num_events normalized event means,
+7. adapter event statistics.
 
 `fingerprints_consensus_refined` (the tRNA path) segments the whole
 adapter the same way, then finds where the barcode starts by matching the
@@ -26,12 +29,15 @@ import torch
 
 from warpdemux_tpu_torch.config.sig_proc import FingerprintConfig
 from warpdemux_tpu_torch.ops.normalize import (
+    check_method,
     clip_outliers_prefix,
     masked_mad,
     masked_median,
     mean_std,
 )
 from warpdemux_tpu_torch.ops.peaks import find_peaks_batch, select_top_peaks
+from warpdemux_tpu_torch.ops.rowstats import range_mean_std
+from warpdemux_tpu_torch.ops.select import range_median_mad
 from warpdemux_tpu_torch.ops.segmentation import segment_means, segment_signal_batch
 from warpdemux_tpu_torch.ops.subsequence import subsequence_dtw
 from warpdemux_tpu_torch.ops.window_gather import shift_rows
@@ -65,13 +71,25 @@ def extract_adapter_batch(
     return shift_rows(signals, start, buffer_len, length), length
 
 
+def normalize_prefix(x, n_valid, method: str):
+    """`normalize.normalize(x, mask, method)` for "mean" or "median" where
+    the valid lanes of each row are the prefix [0, n_valid): the statistics
+    of the one range in one launch (K11's mean and std, K4's median and
+    MAD on CUDA), then (x - shift) / scale, a true division (NaN or inf
+    where the scale is 0, as in JAX)."""
+    starts = torch.zeros((1, x.shape[0]), dtype=torch.int32, device=x.device)
+    ends = n_valid.to(torch.int32)[None]
+    stats = range_mean_std if method == "mean" else range_median_mad
+    shift, scale = stats(x, starts, ends)
+    return (x - shift[0][:, None]) / scale[0][:, None]
+
+
 def _segmented_adapter(signals, in_lens, adapter_start, adapter_end, cfg: FingerprintConfig):
-    """The clipped adapter buffer, its lengths, and its segmentation into
-    num_events + 1 events (segment_signal_batch's six outputs)."""
-    if cfg.extract_normalization != "none":
-        raise NotImplementedError(
-            "sig_extract.normalization other than 'none' is not ported"
-        )
+    """The clipped (and pre-normalized) adapter buffer, its lengths, and
+    its segmentation into num_events + 1 events (segment_signal_batch's
+    six outputs). ValueError for an unknown sig_extract.normalization."""
+    method = cfg.extract_normalization
+    check_method(method)
     adapter, a_len = extract_adapter_batch(
         signals,
         in_lens.to(torch.int32),
@@ -82,8 +100,10 @@ def _segmented_adapter(signals, in_lens, adapter_start, adapter_end, cfg: Finger
     )
     A = adapter.shape[1]
     amask = torch.arange(A, device=signals.device)[None, :] < a_len[:, None]
-    adapter = clip_outliers_prefix(adapter, a_len, cfg.sig_norm_outlier_thresh)
-    adapter = torch.where(amask, adapter, torch.zeros_like(adapter))
+    zeros = torch.zeros_like(adapter)
+    adapter = torch.where(amask, clip_outliers_prefix(adapter, a_len, cfg.sig_norm_outlier_thresh), zeros)
+    if method != "none":
+        adapter = torch.where(amask, normalize_prefix(adapter, a_len, method), zeros)
     seg = segment_signal_batch(
         adapter,
         a_len,

@@ -1,10 +1,17 @@
 """Masked, batched normalization primitives.
 
-Port of the parts of warpdemux_tpu/ops/normalize.py on the decision path.
-Every op takes an explicit validity mask over fixed-shape (B, L) batches.
-Medians follow numpy (mean of the two middle order statistics; NaN when
-nothing is valid). The masked median sorts: it is exact, so it equals the
-JAX package's radix-select result bit for bit.
+Port of warpdemux_tpu/ops/normalize.py. Every op takes an explicit
+validity mask over fixed-shape (..., L) batches. Medians follow numpy
+(mean of the two middle order statistics; NaN when nothing is valid).
+
+`masked_median` takes the JAX function's two forms: float32 rows of 512
+lanes or more read the order statistics off the order keys, as the JAX
+package's radix select does (`select.median_from_keys`: NaN and inf in
+their key order, the midpoint only for an even count); shorter rows sort
+with the invalid lanes pushed to float32's max (`sorted_median`), as
+JAX's sort does. `mean_normalize`, `mad_normalize`, `normalize`,
+`normalize_wrt` and `clip_outliers` are the JAX functions of the same
+name, bit for bit on the CPU, non-finite rows included.
 """
 
 from __future__ import annotations
@@ -13,11 +20,21 @@ import numpy as np
 import torch
 
 from warpdemux_tpu_torch.ops.numerics import XLA_REDUCE_WINDOW, exact_sqrt, fma, xla_sum
-from warpdemux_tpu_torch.ops.select import range_median_mad
+from warpdemux_tpu_torch.ops.select import median_from_keys, order_keys, range_median_mad
+
+# the row width from which the JAX package's float32 median selects by
+# order keys instead of sorting
+SELECT_MIN_WIDTH = 512
+METHODS = ("mean", "median", "none")
 
 
-def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Median over the valid lanes of the last axis: x[..., L] -> x[...]."""
+def sorted_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median over the valid lanes of the last axis by one sort, the
+    invalid lanes pushed to float32's max, midpoint 0.5 * (lo + hi): the
+    JAX function's bits at any width on finite rows (an order statistic
+    takes no arithmetic). Where a row of 512 or more holds +inf or NaN
+    beside invalid lanes, the JAX package's select differs: use
+    `masked_median` there."""
     n = mask.sum(-1)
     big = torch.finfo(x.dtype).max
     s = torch.sort(torch.where(mask, x, torch.full_like(x, big)), dim=-1).values
@@ -25,6 +42,14 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     hi = s.gather(-1, torch.clamp_min(n // 2, 0)[..., None])
     med = 0.5 * (lo[..., 0] + hi[..., 0])
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median over the valid lanes of the last axis: x[..., L] -> x[...],
+    in the JAX function's form for the row's width and dtype."""
+    if x.dtype == torch.float32 and x.shape[-1] >= SELECT_MIN_WIDTH:
+        return median_from_keys(order_keys(x), mask, mask.sum(-1))
+    return sorted_median(x, mask)
 
 
 def masked_mad(x: torch.Tensor, mask: torch.Tensor, med: torch.Tensor | None = None):
@@ -91,6 +116,56 @@ def mean_std(x: torch.Tensor):
     mean = xla_sum(x) * inv_n
     d = x - mean[..., None]
     return mean, exact_sqrt(xla_sum(d * d) * inv_n)
+
+
+def mean_normalize(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std over the valid lanes of the last axis, a true
+    division (NaN or inf where std is 0, as in JAX)."""
+    mean, std = masked_mean_std(x, mask)
+    return (x - mean[..., None]) / std[..., None]
+
+
+def mad_normalize(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(x - median) / MAD over the valid lanes of the last axis."""
+    med = masked_median(x, mask)
+    return (x - med[..., None]) / masked_mad(x, mask, med)[..., None]
+
+
+def check_method(method: str, methods=METHODS) -> None:
+    """ValueError, in the JAX package's words, for a method not in `methods`."""
+    if method not in methods:
+        raise ValueError(f"Normalization method {method} not recognized.")
+
+
+def normalize(x: torch.Tensor, mask: torch.Tensor, method: str = "mean") -> torch.Tensor:
+    """`mean_normalize`, `mad_normalize` or x itself, by `method` ("mean",
+    "median" or "none"); ValueError for any other."""
+    check_method(method)
+    if method == "mean":
+        return mean_normalize(x, mask)
+    return mad_normalize(x, mask) if method == "median" else x
+
+
+def normalize_wrt(
+    to_norm: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, method: str = "mean"
+) -> torch.Tensor:
+    """`to_norm` (..., M1) shifted and scaled by the statistics of the valid
+    lanes of `ref` (..., M2): mean and std ("mean") or median and MAD
+    ("median"); ValueError for any other method."""
+    check_method(method, ("mean", "median"))
+    if method == "mean":
+        shift, scale = masked_mean_std(ref, ref_mask)
+    else:
+        shift = masked_median(ref, ref_mask)
+        scale = masked_mad(ref, ref_mask, shift)
+    return (to_norm - shift[..., None]) / scale[..., None]
+
+
+def clip_outliers(x: torch.Tensor, mask: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Clip to median +/- thresh * MAD of the valid lanes of the last axis."""
+    med = masked_median(x, mask)
+    mad = masked_mad(x, mask, med)
+    return torch.minimum(torch.maximum(x, (med - thresh * mad)[..., None]), (med + thresh * mad)[..., None])
 
 
 def clip_outliers_prefix(
